@@ -16,11 +16,22 @@ line each, any failure an uncaught exception and a nonzero exit:
 4. fib_air zk n = 8 proofs, both layouts, byte-equal to the golden files;
 5. n = 2^14 proofs, both layouts, with the SHA-256 and length the JAX
    package produced (tests/golden/torch_fib_zk_jax_proofs.json);
-6. an n = 2^20 prove (launch counts reset just before it, read just after),
-   verified by the port's verifier, with cold/warm wall clock, phase times
-   and peak device memory.
+6. an n = 2^20 fib_air zk prove on the Keccak stack (launch counts reset
+   just before it, read just after), verified by the port's verifier, with
+   cold/warm wall clock, phase times and peak device memory;
+7. K3 (Poseidon2 sponge) against its plain torch version, exact, at leaf
+   shapes (2^16, 493), (2^20, 8), (1000, 13) and 2^20 compress pairs;
+8. Poseidon2-stack proofs equal to the JAX package's
+   (tests/golden/torch_poseidon2_jax_proofs.json): fib_air zk n = 8 in both
+   layouts byte for byte, fib_air non-zk n = 2^10 and the Poseidon2 chain at
+   n = 8 and 2^6 by SHA-256 and length; each verifies;
+9. the Poseidon2 chain at n = 2^18 x 493 columns (BASELINE config 3):
+   trace generation timed on its own, a cold and a warm prove (launch counts
+   reset just before the warm one, read just after), phase times, peak
+   device memory, the quotient pass's own peak, and the port's verifier.
 
-Then a JSON line of per-kernel results, the nvidia-smi line, and last
+Then a JSON line of per-kernel results (launches summed over the two main
+paths, phases 6 and 9), the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 """
@@ -67,6 +78,19 @@ def _max_abs_err(torch, a, b) -> int:
     return d
 
 
+def _drive(kernels, fn, path_kernels):
+    """Run one main path with every launch count set to 0 just before it;
+    return (fn's result, the counts read just after).  Fails if a kernel of
+    the path was not launched."""
+    kernels.reset_launch_counts()
+    out = fn()
+    launches = {k.name: k.launches for k in kernels.ALL}
+    for info in path_kernels:
+        if launches[info.name] <= 0:
+            raise AssertionError(f"kernel {info.name} was not launched by its main path")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -80,10 +104,13 @@ def main() -> int:
 
     from tpu_stark.compat import native
     from tpu_stark_torch import kernels
+    from tpu_stark_torch.air import poseidon2_air
+    from tpu_stark_torch.air.air import get_symbolic_info
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
     from tpu_stark_torch.fields import babybear as bb
-    from tpu_stark_torch.hash import keccak_kernel
+    from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
     from tpu_stark_torch.ntt import ntt_kernel, radix2
+    from tpu_stark_torch.prover import prove as prove_mod
     from tpu_stark_torch.prover.config import create_config
     from tpu_stark_torch.prover.proof import deserialize_proof, serialize_proof
     from tpu_stark_torch.prover.prove import prove
@@ -241,32 +268,155 @@ def main() -> int:
     cold = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     timings = {}
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    cfg, pis, blob = prove_bytes(log_n, "tpu", timings)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels.ALL}
+
+    def warm_fib():
+        t0 = time.perf_counter()
+        out = prove_bytes(log_n, "tpu", timings)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ((cfg, pis, blob), warm), fib_launches = _drive(
+        kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.NTT_PASS0, kernels.NTT_PASS))
     peak = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     ok = verify(cfg, air, deserialize_proof(blob), pis)
     verify_s = time.perf_counter() - t0
     if not ok:
         raise AssertionError("n=2^20 proof does not verify")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched by the n=2^20 prove")
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
     print(f"[6] n=2^20 zk prove: cold {cold:.3f}s, warm {warm:.3f}s ({phases}); "
-          f"verify {verify_s:.3f}s ok; proof {len(blob)} B; launches {launches}; "
+          f"verify {verify_s:.3f}s ok; proof {len(blob)} B; launches {fib_launches}; "
           f"peak device memory {peak / 2**30:.3f} GiB", flush=True)
+
+    # -- 7. K3 vs plain --------------------------------------------------------
+    k3_lines = []
+    for label, a, b in [
+        ("leaf (65536, 493)", rand_monty((1 << 16, 493)), None),
+        ("leaf (1048576, 8)", rand_monty((1 << 20, 8)), None),
+        ("leaf (1000, 13)", rand_monty((1000, 13)), None),
+        ("compress 1048576 pairs", rand_monty((1 << 20, 8)), rand_monty((1 << 20, 8))),
+    ]:
+        if b is None:
+            got, want = poseidon2_kernel.hash_rows(a), poseidon2_kernel.hash_rows_plain(a)
+            run = lambda: poseidon2_kernel.hash_rows(a)  # noqa: E731
+            run_plain = lambda: poseidon2_kernel.hash_rows_plain(a)  # noqa: E731
+            perms = a.shape[0] * -(-a.shape[1] // poseidon2_kernel.RATE)
+        else:
+            got, want = poseidon2_kernel.compress(a, b), poseidon2_kernel.compress_plain(a, b)
+            run = lambda: poseidon2_kernel.compress(a, b)  # noqa: E731
+            run_plain = lambda: poseidon2_kernel.compress_plain(a, b)  # noqa: E731
+            perms = a.shape[0]
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K3 {label}: kernel != plain (max_abs_err {err})")
+        ms = _cuda_ms(torch, run, 10)
+        plain_ms = _cuda_ms(torch, run_plain, 1)
+        k3_lines.append(f"{label}: {ms:.4f} ms vs plain {plain_ms:.3f} ms "
+                        f"({perms / ms / 1e3:.1f} Mperm/s)")
+        if label.startswith("leaf (65536, 493)"):
+            results["poseidon2_sponge"] = (err, ms, plain_ms)
+    # the kernel alone at the chain's trace-leaf shape (2^20, 493)
+    a = rand_monty((1 << 20, 493))
+    ms = _cuda_ms(torch, lambda: poseidon2_kernel.hash_rows(a), 3)
+    k3_lines.append(f"leaf (1048576, 493) kernel only: {ms:.4f} ms "
+                    f"({a.shape[0] * 62 / ms / 1e3:.1f} Mperm/s)")
+    del a
+    print("[7] K3 poseidon2 sponge == plain (exact): " + "; ".join(k3_lines), flush=True)
+
+    # -- 8. Poseidon2-stack proofs against the JAX fixture -----------------------
+    with open(os.path.join(GOLDEN, "torch_poseidon2_jax_proofs.json")) as f:
+        p2_fixture = json.load(f)
+    chain_air = poseidon2_air.Poseidon2ChainAir()
+    chain_init = list(range(16))
+
+    def p2_fib(log_n, zk, layout="tpu"):
+        n = 1 << log_n
+        cfg = create_config(zk=zk, hash="poseidon2", zk_rng="smallrng", zk_layout=layout, device=dev)
+        pis = [0, 1, fibonacci_value(0, 1, n)]
+        return cfg, air, pis, prove(cfg, air, generate_trace_rows(0, 1, n), pis)
+
+    def p2_chain(log_n, timings=None, trace_pis=None):
+        cfg = create_config(zk=False, hash="poseidon2", device=dev)
+        trace, pis = trace_pis or poseidon2_air.generate_trace(1 << log_n, chain_init, device=dev)
+        return cfg, chain_air, pis, prove(cfg, chain_air, trace, pis, timings=timings)
+
+    for key, job in [
+        ("fib_zk_tpu_3", lambda: p2_fib(3, True, "tpu")),
+        ("fib_zk_p3_3", lambda: p2_fib(3, True, "p3")),
+        ("fib_plain_10", lambda: p2_fib(10, False)),
+        ("chain_3", lambda: p2_chain(3)),
+        ("chain_6", lambda: p2_chain(6)),
+    ]:
+        cfg, p_air, pis, proof = job()
+        blob = serialize_proof(proof)
+        want = p2_fixture[key]
+        if "proof_hex" in want and blob.hex() != want["proof_hex"]:
+            raise AssertionError(f"poseidon2 {key}: proof bytes differ from the JAX fixture")
+        got = {"sha256": hashlib.sha256(blob).hexdigest(), "len": len(blob)}
+        if got["sha256"] != want["sha256"] or got["len"] != want["len"]:
+            raise AssertionError(f"poseidon2 {key}: {got} != JAX {want}")
+        if not verify(cfg, p_air, deserialize_proof(blob), pis):
+            raise AssertionError(f"poseidon2 {key}: proof does not verify")
+    print("[8] Poseidon2 stack: fib zk n=8 (tpu, p3) byte-equal to JAX; fib 2^10 and "
+          "chain n=8, 2^6 match the JAX SHA-256 and length; all verify", flush=True)
+
+    # -- 9. the Poseidon2 chain at n = 2^18 x 493 (BASELINE config 3) ------------
+    log_chain = 18
+    t0 = time.perf_counter()
+    chain_trace = poseidon2_air.generate_trace(1 << log_chain, chain_init, device=dev)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p2_chain(log_chain, trace_pis=chain_trace)
+    torch.cuda.synchronize()
+    chain_cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    chain_timings = {}
+
+    def warm_chain():
+        t0 = time.perf_counter()
+        out = p2_chain(log_chain, chain_timings, chain_trace)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    ((cfg, p_air, pis, proof), chain_warm), chain_launches = _drive(
+        kernels, warm_chain, (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE))
+    chain_peak = torch.cuda.max_memory_allocated(dev)
+    blob = serialize_proof(proof)
+    t0 = time.perf_counter()
+    ok = verify(cfg, p_air, deserialize_proof(blob), pis)
+    chain_verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("chain n=2^18 proof does not verify")
+    # the quotient pass alone (525 constraints folded over 2^19 points), on
+    # the trace's own rows as stand-in inputs: its peak above those inputs
+    qd_log = proof.log_quotient_degree
+    q_in = bb.to_tensor(bb.np_to_monty(chain_trace[0]), dev).repeat(1 << qd_log, 1)
+    apows = rand_monty((get_symbolic_info(p_air, len(pis))[0], 4))
+    pis_dev = bb.from_u32(torch.tensor(pis, dtype=torch.int64, device=dev))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prove_mod._quotient_values(p_air, q_in, pis_dev, apows, log_chain, log_chain + qd_log)
+    torch.cuda.synchronize()
+    q_peak = torch.cuda.max_memory_allocated(dev) - base
+    del q_in
+    if proof.degree_bits != log_chain or len(proof.commitments.trace) != 8:
+        raise AssertionError("chain n=2^18 proof is not a Poseidon2 proof of 2^18 rows")
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in chain_timings.items())
+    print(f"[9] chain n=2^18 x {poseidon2_air.COLS} prove (Poseidon2, zk=False, blowup 4): "
+          f"trace generation {trace_s:.3f}s; cold {chain_cold:.3f}s, warm {chain_warm:.3f}s "
+          f"({phases}); verify {chain_verify_s:.3f}s ok; proof {len(blob)} B; launches "
+          f"{chain_launches}; peak device memory {chain_peak / 2**30:.3f} GiB; quotient pass "
+          f"peak {q_peak / 2**30:.3f} GiB above its inputs", flush=True)
 
     kernel_rows = []
     for info in kernels.ALL:
         err, ms, plain_ms = results[info.name]
         kernel_rows.append({
-            "name": info.name, "route": "cuda", "source": info.source,
-            "replaces": info.replaces, "launches": launches[info.name],
+            "name": info.name, "route": "cuda", "source": info.source, "replaces": info.replaces,
+            "launches": fib_launches[info.name] + chain_launches[info.name],
             "max_abs_err": err, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
         })
     print(_smi_line(), flush=True)

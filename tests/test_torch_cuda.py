@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card against their plain torch versions, and the
-port's n = 8 proofs on the card against the golden files.  Exact
+"""Kernels K1, K2 and K3 on the card against their plain torch versions, and
+the port's n = 8 proofs on the card (Keccak and Poseidon2 stacks) against
+the golden files and the JAX fixture.  Exact
 comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -14,7 +15,7 @@ import torch
 
 from tpu_stark_torch import kernels
 from tpu_stark_torch.fields import babybear as bb
-from tpu_stark_torch.hash import keccak_kernel
+from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
 from tpu_stark_torch.ntt import ntt_kernel, radix2
 
 pytestmark = pytest.mark.gpu
@@ -65,6 +66,38 @@ def test_coset_lde_on_card_equals_cpu(dev):
     x = _monty(dev, (1 << 10, 4), 5)
     got = radix2.coset_lde_batch(x, 2, bb.GENERATOR).cpu()
     assert torch.equal(got, radix2.coset_lde_batch(x.cpu(), 2, bb.GENERATOR))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (37, 7), (129, 8), (1000, 9), (777, 16), (4097, 493)])
+def test_poseidon2_kernel_equals_plain(dev, n, k):
+    a = _monty(dev, (n, k), 7 * n + k)
+    before = kernels.POSEIDON2_SPONGE.launches
+    got = poseidon2_kernel.hash_rows(a)
+    assert kernels.POSEIDON2_SPONGE.launches == before + 1
+    assert torch.equal(got, poseidon2_kernel.hash_rows_plain(a))
+    if k > 1:  # a salted leaf: the row and its salt as two operands
+        assert torch.equal(poseidon2_kernel.hash_rows(a[:, : k - 1], a[:, k - 1 :]), got)
+
+
+def test_poseidon2_compress_strided_rows_equal_plain(dev):
+    layer = _monty(dev, (2 * 999, 8), 11)
+    left, right = layer[0::2], layer[1::2]  # a tree layer's pairs, read through strides
+    want = poseidon2_kernel.compress_plain(left, right)
+    assert torch.equal(poseidon2_kernel.compress(left, right), want)
+    assert torch.equal(poseidon2_kernel.compress(left.contiguous(), right.contiguous()), want)
+
+
+@pytest.mark.parametrize("layout", ["tpu", "p3"])
+def test_poseidon2_n8_proof_on_card_matches_jax(dev, layout):
+    from tpu_stark_torch.air.fibonacci import FibonacciAir, generate_trace_rows
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.prove import prove
+
+    fixture = json.loads((pathlib.Path(__file__).parent / "golden" / "torch_poseidon2_jax_proofs.json").read_text())
+    cfg = create_config(zk=True, hash="poseidon2", zk_rng="smallrng", zk_layout=layout, device=dev)
+    proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
+    assert serialize_proof(proof).hex() == fixture[f"fib_zk_{layout}_3"]["proof_hex"]
 
 
 @pytest.mark.parametrize("layout,name", [("tpu", "fib_air_zk_n8_smallrng.json"), ("p3", "fib_air_zk_n8_smallrng_p3.json")])

@@ -153,10 +153,12 @@ def test_verify_rejects_wrong_public_value():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A4"):
         create_config(zk_rng="device")
-    with pytest.raises(NotImplementedError):
-        create_config(hash="poseidon2")
+    with pytest.raises(NotImplementedError, match="A4"):
+        create_config(hash="poseidon2", zk_rng="device")
     with pytest.raises(NotImplementedError):
         create_config(mesh=object())
+    with pytest.raises(NotImplementedError):
+        create_config(hash="poseidon2", mesh=object())
     with pytest.raises(NotImplementedError, match="device grind"):
         Challenger().grind(16)
 

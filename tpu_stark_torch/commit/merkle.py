@@ -27,13 +27,14 @@ from ..fields import babybear as bb
 from ..hash import keccak_kernel, sponge
 from ..matrix import log2_strict
 
-Digest = Tuple[int, int, int, int]  # 4 u64 words
+Digest = Tuple[int, ...]  # 4 u64 words (Keccak) or 8 canonical elements (Poseidon2)
 
 
 @dataclasses.dataclass
 class ProverData:
-    """Committed matrices (Monty, device), salts, and all digest layers
-    ((N_l, 4, 2) int32 on the device, leaf layer first)."""
+    """Committed matrices (Monty, device), salts, and all digest layers on
+    the device, leaf layer first: (N_l, 4, 2) int32 Keccak words, or
+    (N_l, 8) Monty elements in the Poseidon2 tree."""
 
     matrices: List[torch.Tensor]
     salts: Optional[List[torch.Tensor]]
@@ -52,23 +53,16 @@ class BatchOpening:
 
 def _digest_words(row: np.ndarray) -> Digest:
     """(4, 2) u32 [lo, hi] -> 4 u64 words."""
-    return tuple(int(row[j, 0]) | (int(row[j, 1]) << 32) for j in range(4))  # type: ignore[return-value]
-
-
-def _leaf_layer(mats: Sequence[torch.Tensor]) -> torch.Tensor:
-    return sponge.hash_field_rows_batched(bb.to_u32(torch.cat(list(mats), dim=1)))
-
-
-def _compress_layer(digests: torch.Tensor) -> torch.Tensor:
-    """Compress neighbouring digests: rows 2i, 2i+1 of a contiguous (N, 4, 2)
-    layer are exactly the (N/2, 16) u32 rows left || right."""
-    return keccak_kernel.hash_rows(digests.reshape(-1, 16))
+    return tuple(int(row[j, 0]) | (int(row[j, 1]) << 32) for j in range(4))
 
 
 def build_layers(
-    matrices: Sequence[torch.Tensor], salts: Optional[Sequence[torch.Tensor]]
+    mmcs: "MerkleTreeMmcs",
+    matrices: Sequence[torch.Tensor],
+    salts: Optional[Sequence[torch.Tensor]],
 ) -> List[torch.Tensor]:
-    """Digest layers, leaves first, with per-height injection."""
+    """Digest layers, leaves first, with per-height injection, on the hash
+    stack of ``mmcs``."""
     groups: Dict[int, List[torch.Tensor]] = {}
     for h in sorted({int(m.shape[0]) for m in matrices}, reverse=True):
         mats = []
@@ -79,23 +73,49 @@ def build_layers(
                     mats.append(salts[k])
         groups[h] = mats
     h = max(groups)
-    digests = _leaf_layer(groups[h])
+    digests = mmcs.leaf_layer(groups[h])
     layers = [digests]
     while h > 1:
         h >>= 1
-        digests = _compress_layer(digests)
+        digests = mmcs.compress_layer(digests)
         if h in groups:
-            digests = sponge.compress_digests_batched(digests, _leaf_layer(groups[h]))
+            digests = mmcs.compress(digests, mmcs.leaf_layer(groups[h]))
         layers.append(digests)
     return layers
 
 
 class MerkleTreeMmcs:
     """Keccak Merkle MMCS.  In hiding mode the instance owns a ``SmallRng``
-    whose state persists across commits (p3 ``MerkleTreeHidingMmcs``)."""
+    whose state persists across commits (p3 ``MerkleTreeHidingMmcs``).
+
+    The tree logic is generic over the hash stack: a subclass replaces the
+    static methods of the first block (``Poseidon2Mmcs``)."""
 
     SALT_ELEMS = 4
 
+    # -- hash stack: Keccak over canonical u32 rows --------------------------
+    @staticmethod
+    def leaf_layer(mats: Sequence[torch.Tensor]) -> torch.Tensor:
+        return sponge.hash_field_rows_batched(bb.to_u32(torch.cat(list(mats), dim=1)))
+
+    @staticmethod
+    def compress_layer(digests: torch.Tensor) -> torch.Tensor:
+        """Compress neighbouring digests: rows 2i, 2i+1 of a contiguous
+        (N, 4, 2) layer are exactly the (N/2, 16) u32 rows left || right."""
+        return keccak_kernel.hash_rows(digests.reshape(-1, 16))
+
+    compress = staticmethod(sponge.compress_digests_batched)
+
+    @staticmethod
+    def fetch_digests(layer: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """Digests ``rows`` of a device layer, in the form ``host_digest`` reads."""
+        return layer[rows]
+
+    host_digest = staticmethod(_digest_words)
+    hash_row_host = staticmethod(sponge.hash_field_row)
+    compress_host = staticmethod(sponge.compress_digests)
+
+    # -- tree ----------------------------------------------------------------
     def __init__(self, hiding: bool = False, rng: Optional[SmallRng] = None,
                  rng_seed: int = 1):
         self.hiding = hiding
@@ -115,8 +135,9 @@ class MerkleTreeMmcs:
                 )
                 for m in matrices
             ]
-        layers = build_layers(matrices, salts)
-        root = _digest_words(bb.to_numpy(layers[-1][0]))
+        layers = build_layers(self, matrices, salts)
+        top = self.fetch_digests(layers[-1], torch.zeros(1, dtype=torch.int64, device=layers[-1].device))
+        root = self.host_digest(bb.to_numpy(top)[0])
         return root, ProverData(matrices, salts, layers, root)
 
     def open_batch_many(self, indices: Sequence[int], data: ProverData) -> List[BatchOpening]:
@@ -132,8 +153,12 @@ class MerkleTreeMmcs:
             if data.salts is not None:
                 fetch.append(bb.to_u32(data.salts[k][rows]))
         for l in range(log_max):
-            fetch.append(data.layers[l][torch.from_numpy((idx >> l) ^ 1).to(dev)])
-        host = [bb.to_numpy(t) for t in fetch]
+            fetch.append(self.fetch_digests(data.layers[l], torch.from_numpy((idx >> l) ^ 1).to(dev)))
+        flat = bb.to_numpy(torch.cat([t.reshape(-1) for t in fetch]))
+        host, pos = [], 0
+        for t in fetch:
+            host.append(flat[pos : pos + t.numel()].reshape(tuple(t.shape)))
+            pos += t.numel()
         n_rows = len(data.matrices) * (2 if data.salts is not None else 1)
         out = []
         for q in range(len(idx)):
@@ -145,7 +170,7 @@ class MerkleTreeMmcs:
                 if salts is not None:
                     salts.append(np.array(host[pos][q]))
                     pos += 1
-            proof = [_digest_words(host[n_rows + l][q]) for l in range(log_max)]
+            proof = [self.host_digest(host[n_rows + l][q]) for l in range(log_max)]
             out.append(BatchOpening(opened, salts, proof))
         return out
 
@@ -170,15 +195,15 @@ class MerkleTreeMmcs:
                         vals.extend(int(v) for v in opening.opened_salts[k])
             return vals
 
-        node = sponge.hash_field_row(rows_at(max_h))
+        node = self.hash_row_host(rows_at(max_h))
         idx = index
         h = max_h
         for sib in opening.proof:
             left, right = (node, sib) if idx & 1 == 0 else (sib, node)
-            node = sponge.compress_digests(left, right)
+            node = self.compress_host(left, right)
             idx >>= 1
             h >>= 1
             inj = rows_at(h)
             if inj:
-                node = sponge.compress_digests(node, sponge.hash_field_row(inj))
+                node = self.compress_host(node, self.hash_row_host(inj))
         return tuple(node) == tuple(commitment)

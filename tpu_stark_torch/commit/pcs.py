@@ -5,6 +5,9 @@ hiding (counterpart of ``tpu_stark/commit/pcs.py``).
   polynomial, low-degree extend by ``2^log_blowup`` onto the generator coset
   and commit the bit-reversed rows in a (hiding) Keccak Merkle tree.  The
   p3 zk layout first appends ``num_random_codewords`` random columns.
+  The MMCS is either stack: the Keccak ``MerkleTreeMmcs`` or the field-native
+  ``Poseidon2Mmcs``; the challenger is the matching Keccak ``Challenger`` or
+  ``DuplexChallenger`` (duck-typed: observe, sample_ext, sample_bits, grind).
 * ``open``: observe the out-of-domain values, sample alpha, combine every
   (matrix, point, column) quotient ``(p(x) - p(z)) / (x - z)`` into one
   reduced codeword per height, run the arity-2 FRI fold chain with one
@@ -16,7 +19,7 @@ Frame convention: every committed codeword is relabeled onto the plain
 subgroup (rows of height H live at y = g_H^bitrev(i)); out-of-domain points
 map to ``zeta / GENERATOR``.
 
-The LDEs run on kernel K2 and the trees on kernel K1; the reduced openings,
+The LDEs run on kernel K2 and the trees on kernel K1 or K3; the reduced openings,
 the folds and the point evaluations are plain torch on the device (kernel
 candidates for later work).  The transcript and the verifier are host code.
 """
@@ -29,7 +32,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..challenger.challenger import Challenger
 from ..compat.smallrng import SmallRng
 from ..fields import babybear as bb
 from ..fields import extension as ext4
@@ -74,9 +76,19 @@ class PcsProverData:
 
 OpenedValues = List[List[List[List[ExtPoint]]]]  # [round][matrix][point][column]
 
-# Rows per step of the column reductions: bounds the (block, w, 4) int64
-# intermediates at ~1 GB on the device at any height.
-_ROW_BLOCK = 1 << 22
+# The column reductions of the open phase run over (rows, cols) blocks of
+# the matrix: at most _COL_CHUNK columns, and as many rows as keep one
+# (rows, cols, 4) int64 intermediate within _ELEM_BUDGET elements (256 MiB),
+# at any height and width.  Sums across blocks reduce mod p.
+_COL_CHUNK = 64
+_ELEM_BUDGET = 1 << 25
+
+
+def _block_plan(h: int, w: int) -> Tuple[int, int]:
+    """(rows, cols) per block of an (h, w) column reduction."""
+    cols = max(1, min(w, _COL_CHUNK))
+    rows = max(1, min(h, _ELEM_BUDGET // (4 * cols)))
+    return rows, cols
 
 
 # ---------------------------------------------------------------------------
@@ -84,31 +96,48 @@ _ROW_BLOCK = 1 << 22
 # ---------------------------------------------------------------------------
 def _eval_at_point(r_coeffs: torch.Tensor, zpow: torch.Tensor) -> torch.Tensor:
     """r(z) for every column: (H, w) base coeffs x (H, 4) ext powers ->
-    (w, 4) Monty.  Products reduce mod p before the int64 row sum."""
+    (w, 4) Monty.  Products reduce mod p before the int64 row sum of a
+    block (below 2^63 for any block of fewer than 2^32 rows)."""
     h, w = r_coeffs.shape
-    acc = torch.zeros((w, 4), dtype=torch.int64, device=r_coeffs.device)
-    for r0 in range(0, h, _ROW_BLOCK):
-        prod = bb.mul(r_coeffs[r0 : r0 + _ROW_BLOCK, :, None], zpow[r0 : r0 + _ROW_BLOCK, None, :])
-        acc = (acc + prod.to(torch.int64).sum(dim=0)) % bb.P
-    return acc.to(bb.I32)
+    rows, cols = _block_plan(h, w)
+    out = torch.empty((w, 4), dtype=bb.I32, device=r_coeffs.device)
+    for c0 in range(0, w, cols):
+        acc = torch.zeros((min(cols, w - c0), 4), dtype=torch.int64, device=r_coeffs.device)
+        for r0 in range(0, h, rows):
+            prod = bb.mul(r_coeffs[r0 : r0 + rows, c0 : c0 + cols, None], zpow[r0 : r0 + rows, None, :])
+            acc = (acc + prod.to(torch.int64).sum(dim=0)) % bb.P
+        out[c0 : c0 + cols] = acc.to(bb.I32)
+    return out
 
 
 def _combine_columns(mat_br: torch.Tensor, apows: torch.Tensor) -> torch.Tensor:
-    """sum_col apows[col] * mat[:, col]: (H, w) x (w, 4) -> (H, 4) ext."""
+    """sum_col apows[col] * mat[:, col]: (H, w) x (w, 4) -> (H, 4) ext.  A
+    row block sums its column chunks' reduced values in int64 (below w * p)
+    and reduces once."""
     h, w = mat_br.shape
+    rows, cols = _block_plan(h, w)
     out = torch.empty((h, 4), dtype=bb.I32, device=mat_br.device)
-    for r0 in range(0, h, _ROW_BLOCK):
-        m = mat_br[r0 : r0 + _ROW_BLOCK]
-        out[r0 : r0 + _ROW_BLOCK] = bb.sum_mod(ext4.mul_base(apows[None, :, :], m), axis=1)
+    for r0 in range(0, h, rows):
+        acc = torch.zeros((min(rows, h - r0), 4), dtype=torch.int64, device=mat_br.device)
+        for c0 in range(0, w, cols):
+            prod = ext4.mul_base(apows[None, c0 : c0 + cols, :], mat_br[r0 : r0 + rows, c0 : c0 + cols])
+            acc += prod.to(torch.int64).sum(dim=1)
+        out[r0 : r0 + rows] = (acc % bb.P).to(bb.I32)
     return out
 
 
 def _reduced_quotient(mat_br, apows, p_z, z_dev, y_br) -> torch.Tensor:
-    """(sum_col alpha^k (y_col(x) - y_col(z))) / (y - z) over the codeword."""
+    """(sum_col alpha^k (y_col(x) - y_col(z))) / (y - z) over the codeword,
+    one row block at a time."""
     b = bb.sum_mod(ext4.mul(apows, p_z), axis=0)  # (4,)
-    diff = ext4.sub(_combine_columns(mat_br, apows), b[None, :])
-    y_minus_z = ext4.sub(ext4.from_base(y_br), z_dev[None, :])
-    return ext4.mul(diff, ext4.inv(y_minus_z))
+    h, w = mat_br.shape
+    rows, _ = _block_plan(h, w)
+    out = torch.empty((h, 4), dtype=bb.I32, device=mat_br.device)
+    for r0 in range(0, h, rows):
+        diff = ext4.sub(_combine_columns(mat_br[r0 : r0 + rows], apows), b[None, :])
+        y_minus_z = ext4.sub(ext4.from_base(y_br[r0 : r0 + rows]), z_dev[None, :])
+        out[r0 : r0 + rows] = ext4.mul(diff, ext4.inv(y_minus_z))
+    return out
 
 
 def _plain_points_br(log_h: int, device) -> torch.Tensor:
@@ -270,7 +299,7 @@ class TwoAdicFriPcs:
     def open(
         self,
         rounds: Sequence[Tuple[PcsProverData, List[List[ExtPoint]]]],
-        challenger: Challenger,
+        challenger,
     ) -> Tuple[OpenedValues, FriProof]:
         fri = self.fri
         dev = self.device
@@ -343,7 +372,7 @@ class TwoAdicFriPcs:
                 z_y = grp[0][0]
                 w_total = sum(g[3] for g in grp)
                 apows = _alpha_pows_dev(alpha, off, w_total, dev)
-                mat = torch.cat([g[1] for g in grp], dim=1)
+                mat = grp[0][1] if len(grp) == 1 else torch.cat([g[1] for g in grp], dim=1)
                 if z_y is None:
                     contrib = _combine_columns(mat, apows)
                 else:
@@ -415,7 +444,7 @@ class TwoAdicFriPcs:
             Tuple[Digest, List[Tuple[TwoAdicCoset, List[Tuple[ExtPoint, List[ExtPoint]]]]]]
         ],
         proof: FriProof,
-        challenger: Challenger,
+        challenger,
     ) -> bool:
         """rounds: per commit round, (commitment, [per matrix: (domain,
         [(zeta, [value per column]), ...])]).  In hiding mode the

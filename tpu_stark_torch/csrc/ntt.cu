@@ -30,18 +30,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "babybear.cuh"
+
 namespace {
 
-constexpr uint32_t P = 0x78000001u;
-
-__device__ __forceinline__ uint32_t add_mod(uint32_t a, uint32_t b) {
-  const uint32_t s = a + b;  // < 2^32: both < P < 2^31
-  return s >= P ? s - P : s;
-}
-
-__device__ __forceinline__ uint32_t sub_mod(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + P - b;
-}
+using ts::P;
+using ts::add_mod;
+using ts::sub_mod;
 
 // x * w mod P for a canonical constant w (Shoup): q = hi32(x * wp) and
 // r = x*w - q*P lies in [0, 2P) for any x < 2^32.

@@ -2,7 +2,8 @@
 
 The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface (no PyTorch headers: seconds, not minutes), at
-first use, into ``tpu_stark_torch/build/``.  The library is loaded with
+first use, into ``tpu_stark_torch/build/``: one ``nvcc -c`` per source, all
+started together, then one link.  The library is loaded with
 ctypes; each entry point launches on the stream it is given and returns the
 launch's ``cudaGetLastError()`` status, which ``check`` turns into an
 exception.
@@ -25,11 +26,12 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("keccak_sponge.cu", "ntt.cu")
+SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu")
+HEADERS = ("babybear.cuh",)
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -53,7 +55,11 @@ NTT_PASS = KernelInfo(
     "ntt_pass", "tpu_stark_torch/csrc/ntt.cu",
     "tpu_stark/ntt/pallas_ntt.py:142",
 )
-ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS)
+POSEIDON2_SPONGE = KernelInfo(
+    "poseidon2_sponge", "tpu_stark_torch/csrc/poseidon2_sponge.cu",
+    "tpu_stark/hash/pallas_poseidon2.py:68",
+)
+ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE)
 
 
 def reset_launch_counts() -> None:
@@ -84,23 +90,51 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> BuildResult:
-    """Compile csrc/*.cu into LIB_PATH unless an up-to-date library exists."""
+    """Compile csrc/*.cu into LIB_PATH unless an up-to-date library exists:
+    every source to an object in parallel, then one shared-library link."""
     srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
-    newest = max(os.path.getmtime(s) for s in srcs)
+    newest = max(os.path.getmtime(os.path.join(SRC_DIR, f)) for f in SOURCES + HEADERS)
     if (not force and os.path.exists(LIB_PATH)
             and os.path.getmtime(LIB_PATH) >= newest):
         return BuildResult(LIB_PATH, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-        capture_output=True, text=True, timeout=600,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, LIB_PATH)
+    procs = []
+    log = ""
+    try:
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)
+        ]
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate(timeout=600)
+            log += f"== {src}\n{out}"
+            if proc.returncode != 0:
+                failed.append(src)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp = f"{LIB_PATH}.{tag}"
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs],
+            capture_output=True, text=True, timeout=600,
+        )
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     return BuildResult(LIB_PATH, time.perf_counter() - t0, log)
 
 
@@ -117,6 +151,8 @@ def lib() -> ctypes.CDLL:
             so.ts_ntt_pass0.restype = i32
             so.ts_ntt_pass.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp, vp, vp]
             so.ts_ntt_pass.restype = i32
+            so.ts_poseidon2_rows.argtypes = [vp, i64, i64, vp, i64, i64, i64, i32, vp, vp]
+            so.ts_poseidon2_rows.restype = i32
             _lib = so
         return _lib
 

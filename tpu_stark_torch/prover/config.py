@@ -1,7 +1,8 @@
 """StarkConfig — the type-stack assembly point (counterpart of
 ``tpu_stark/prover/config.py``): hash stack + MMCS + FRI params + DFT
 device + challenger, with the zk (hiding) switch: salted Merkle leaves,
-4 random FRI codewords and a randomized trace.
+4 random FRI codewords and a randomized trace.  Two hash stacks: Keccak
+(the reference's) and Poseidon2 (field-native).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 
 from ..challenger.challenger import Challenger
 from ..commit.merkle import MerkleTreeMmcs
+from ..commit.poseidon2_mmcs import DuplexChallenger, Poseidon2Mmcs
 from ..commit.pcs import TwoAdicFriPcs
 from ..compat.smallrng import SmallRng
 from ..fri.config import FriParameters, create_test_fri_params
@@ -56,13 +58,17 @@ def create_config(
 ) -> StarkConfig:
     """Assemble a full config on ``device``.
 
-    ``hash="keccak"`` is the reference's zk stack.  ``zk_layout``: ``"tpu"``
-    or ``"p3"`` (random columns appended to every hiding commit).  The
-    Poseidon2 stack, the sharded ``mesh`` path and the device zk rng are not
+    ``hash="keccak"`` is the reference's zk stack: Keccak Merkle trees and
+    the byte-level Fiat-Shamir challenger.  ``hash="poseidon2"`` is the
+    field-native stack: Poseidon2 Merkle trees and the duplex challenger.
+    ``zk_layout``: ``"tpu"`` or ``"p3"`` (random columns appended to every
+    hiding commit).  The sharded ``mesh`` path and the device zk rng are not
     ported yet and raise."""
-    if hash == "poseidon2":
-        raise NotImplementedError("hash='poseidon2' (ROADMAP A9) is not ported yet")
-    if hash != "keccak":
+    if hash == "keccak":
+        mmcs_cls, challenger_factory = MerkleTreeMmcs, Challenger
+    elif hash == "poseidon2":
+        mmcs_cls, challenger_factory = Poseidon2Mmcs, DuplexChallenger
+    else:
         raise ValueError(f"unknown hash stack {hash!r}")
     if mesh is not None:
         raise NotImplementedError("the sharded mesh prover (ROADMAP A11) is not ported yet")
@@ -75,12 +81,15 @@ def create_config(
         pcs = TwoAdicFriPcs(
             dft,
             fri,
-            val_mmcs=MerkleTreeMmcs(hiding=True, rng=make_zk_rng(zk_rng, rng_seed)),
-            challenge_mmcs=MerkleTreeMmcs(),
+            val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed)),
+            challenge_mmcs=mmcs_cls(),
             num_random_codewords=4,
             rng=make_zk_rng(zk_rng, rng_seed),
             zk_layout=zk_layout,
         )
     else:
-        pcs = TwoAdicFriPcs(dft, fri, val_mmcs=MerkleTreeMmcs(), challenge_mmcs=MerkleTreeMmcs())
-    return StarkConfig(pcs=pcs, zk=zk, rng_seed=rng_seed, zk_rng=zk_rng, device=device)
+        pcs = TwoAdicFriPcs(dft, fri, val_mmcs=mmcs_cls(), challenge_mmcs=mmcs_cls())
+    return StarkConfig(
+        pcs=pcs, zk=zk, rng_seed=rng_seed, challenger_factory=challenger_factory,
+        zk_rng=zk_rng, device=device,
+    )

@@ -101,7 +101,10 @@ def prove(
     qd = 1 << log_qd
 
     trace_domain = pcs.natural_domain_for_degree(n)
-    trace_dev = bb.to_tensor(bb.np_to_monty(trace.astype(np.uint32)), dev)
+    # upload the u32 rows as they are; reduce and convert to Monty on the device
+    rows = torch.from_numpy(np.ascontiguousarray(trace, dtype=np.uint32).view(np.int32)).to(dev)
+    trace_dev = bb.from_u32((rows.to(torch.int64) & 0xFFFFFFFF) % bb.P)
+    del rows
 
     # -- 1. commit (possibly randomized) trace -----------------------------
     if config.zk:
