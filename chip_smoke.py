@@ -28,16 +28,46 @@ line each, any failure an uncaught exception and a nonzero exit:
 9. the Poseidon2 chain at n = 2^18 x 493 columns (BASELINE config 3):
    trace generation timed on its own, a cold and a warm prove (launch counts
    reset just before the warm one, read just after), phase times, peak
-   device memory, the quotient pass's own peak, and the port's verifier.
+   device memory, the quotient pass's own peak, and the port's verifier;
+10. K4 (Poseidon2 carry-state absorb) against its plain torch version,
+    exact: (2^16, 493) in chunks of 128, 128, 128 and 109 columns (also
+    against one-shot K3) and (2^21, 128) on a carried random state, timed;
+11. keccak-air proofs of the streamed wide prover equal to the JAX
+    package's (tests/golden/torch_keccak_air_jax_proofs.json: SHA-256 and
+    length at 64 and 128 rows); each verifies;
+12. keccak-air at 2^20 x 3608 through ``prove_wide`` (BASELINE config 4:
+    Poseidon2 stack, zk off, blowup 2, 100 queries, 16 PoW bits): trace
+    generation timed on its own, a cold and a warm prove (launch counts
+    reset just before the warm one, read just after), phase times, peak
+    device memory, and the port's verifier, timed;
+13. every kernel against its plain version, exact, at every operand shape
+    the three warm proves (phases 6, 9 and 12) called its wrapper with:
+    K2's transforms by height, width and direction (the wide prover's
+    (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and quotient panels such as
+    (2^18, 257)), K1's and K3's leaf and compress layers and K4's chunks by
+    rows, widths and row strides, on random inputs of those shapes.
 
-Then a JSON line of per-kernel results (launches summed over the two main
-paths, phases 6 and 9), the nvidia-smi line, and last
+Then the nvidia-smi line, a JSON line of per-kernel results (launches
+summed over the three main paths, phases 6, 9 and 12; time, plain time and
+the bound of each kernel at the shape it was timed; the largest error of
+phases 2-13), and last
 ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
+
+The bound of a kernel is the least time the H100 could take for its work:
+the larger of the bytes it must move (each input read once, each output
+written once) over 3.35 TB/s and its int32 instructions over the issue
+rate, 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 33.45 T/s (one warp
+instruction per scheduler per clock, the most any integer mix can reach;
+1.98 GHz is the clock of the data sheet's 67 TFLOP/s fp32).  Instruction
+counts are lower bounds read off the sources: a Montgomery product 5
+(three multiplies, a subtract, a select), a modular add 2, a Keccak round
+180 (LOP3-fused xors, two funnel shifts per 64-bit rotation).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -78,6 +108,47 @@ def _max_abs_err(torch, a, b) -> int:
     return d
 
 
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 4 * 32 * 1.98e9
+# int32 instructions, lower bounds (see the module docstring)
+KECCAK_F_OPS = 24 * 180
+# csrc/poseidon2_sponge.cu: 772 Montgomery products and 1300 modular adds
+# per permutation (8 external rounds of 64 + 0 and 100 adds, 13 internal of
+# 20 and 32, the first M_E's 84 adds)
+POSEIDON2_PERM_OPS = 772 * 5 + 1300 * 2
+NTT_BUTTERFLY_OPS = 8  # Shoup product 4, add 2, subtract 2
+
+
+def _bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of the bytes and the operations."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def import_port():
+    """Import the port's modules this script drives (and nothing of JAX)."""
+    import types
+
+    from tpu_stark_torch import kernels
+    from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.air.air import get_symbolic_info
+    from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
+    from tpu_stark_torch.compat import native
+    from tpu_stark_torch.fields import babybear as bb
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
+    from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
+    from tpu_stark_torch.ntt import ntt_kernel, radix2
+    from tpu_stark_torch.prover import prove as prove_mod
+    from tpu_stark_torch.prover import wide
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import deserialize_proof, serialize_proof
+    from tpu_stark_torch.prover.prove import prove
+    from tpu_stark_torch.prover.verify import verify
+
+    return types.SimpleNamespace(**locals())
+
+
 def _drive(kernels, fn, path_kernels):
     """Run one main path with every launch count set to 0 just before it;
     return (fn's result, the counts read just after).  Fails if a kernel of
@@ -91,6 +162,88 @@ def _drive(kernels, fn, path_kernels):
     return out, launches
 
 
+# wrapper call -> the kernels it launches
+_SHAPE_KERNELS = {
+    "dft": ("ntt_pass0", "ntt_pass"),
+    "keccak_hash_rows": ("keccak_sponge",),
+    "poseidon2_hash_rows": ("poseidon2_sponge",),
+    "poseidon2_compress": ("poseidon2_sponge",),
+    "poseidon2_absorb": ("poseidon2_absorb",),
+}
+
+
+@contextlib.contextmanager
+def _record_shapes(port, seen: dict, path: str):
+    """While open, note in ``seen`` (key -> the paths that gave it) the
+    operands of every kernel wrapper call: K2's ``dft`` by height, width and
+    direction; K1's and K3's ``hash_rows`` / ``compress`` and K4's
+    ``absorb_rows`` by rows, and each operand's width and row stride."""
+    nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
+
+    def rows(t):
+        return (0, 0) if t is None else (int(t.shape[1]), int(t.stride(0)))
+
+    keys = {
+        (nk, "dft"): lambda x, inverse=False: ("dft", int(x.shape[0]), int(x.shape[1]), bool(inverse)),
+        (kk, "hash_rows"): lambda a, b=None: ("keccak_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
+        (pk, "hash_rows"): lambda a, b=None: ("poseidon2_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
+        (pk, "compress"): lambda a, b: ("poseidon2_compress", int(a.shape[0]), *rows(a), *rows(b)),
+        (pk, "absorb_rows"): lambda s, c, first=False: (
+            "poseidon2_absorb", int(c.shape[0]), *rows(c), bool(first)),
+    }
+    originals = {}
+    for (mod, name), key in keys.items():
+        orig = originals[(mod, name)] = getattr(mod, name)
+
+        def recorded(*args, _orig=orig, _key=key, **kw):
+            seen.setdefault(_key(*args, **kw), set()).add(path)
+            return _orig(*args, **kw)
+
+        setattr(mod, name, recorded)
+    try:
+        yield
+    finally:
+        for (mod, name), orig in originals.items():
+            setattr(mod, name, orig)
+
+
+def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
+    """Phase 13: every wrapper noted by ``_record_shapes`` against its plain
+    version, exactly, on random operands of the noted shapes and row
+    strides.  Returns {call kind: [shapes checked, max_abs_err]}."""
+    nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
+
+    def operand(rand, n, k, stride):
+        return None if k == 0 else rand((n, max(k, stride)))[:, :k]
+
+    done = {}
+    for key in sorted(seen, key=repr):
+        kind, n = key[0], key[1]
+        if kind == "dft":
+            x = rand_monty((n, key[2]))
+            got, want = nk.dft(x, key[3]), nk.dft_plain(x, key[3])
+        elif kind == "poseidon2_absorb":
+            state, chunk = rand_monty((n, pk.WIDTH)), operand(rand_monty, n, key[2], key[3])
+            got = pk.absorb_rows(state.clone(), chunk, key[4])
+            want = pk.absorb_rows_plain(state.clone(), chunk, key[4])
+        else:
+            rand = rand_u32 if kind == "keccak_hash_rows" else rand_monty
+            a, b = operand(rand, n, key[2], key[3]), operand(rand, n, key[4], key[5])
+            mod = kk if kind == "keccak_hash_rows" else pk
+            if kind == "poseidon2_compress":
+                got, want = mod.compress(a, b), mod.compress_plain(a, b)
+            else:
+                got, want = mod.hash_rows(a, b), mod.hash_rows_plain(a, b)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"{key} (from {sorted(seen[key])}): kernel != plain (max_abs_err {err})")
+        entry = done.setdefault(kind, [0, 0])
+        entry[0] += 1
+        entry[1] = max(entry[1], err)
+    return done
+
+
 def main() -> int:
     import torch
 
@@ -102,19 +255,16 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
 
-    from tpu_stark.compat import native
-    from tpu_stark_torch import kernels
-    from tpu_stark_torch.air import poseidon2_air
-    from tpu_stark_torch.air.air import get_symbolic_info
-    from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
-    from tpu_stark_torch.fields import babybear as bb
-    from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
-    from tpu_stark_torch.ntt import ntt_kernel, radix2
-    from tpu_stark_torch.prover import prove as prove_mod
-    from tpu_stark_torch.prover.config import create_config
-    from tpu_stark_torch.prover.proof import deserialize_proof, serialize_proof
-    from tpu_stark_torch.prover.prove import prove
-    from tpu_stark_torch.prover.verify import verify
+    port = import_port()
+    kernels, native, bb = port.kernels, port.native, port.bb
+    keccak_air, poseidon2_air, wide = port.keccak_air, port.poseidon2_air, port.wide
+    keccak_kernel, poseidon2_kernel, ntt_kernel, radix2 = (
+        port.keccak_kernel, port.poseidon2_kernel, port.ntt_kernel, port.radix2)
+    FibonacciAir, fibonacci_value, generate_trace_rows = (
+        port.FibonacciAir, port.fibonacci_value, port.generate_trace_rows)
+    create_config, prove, verify, prove_mod = port.create_config, port.prove, port.verify, port.prove_mod
+    serialize_proof, deserialize_proof = port.serialize_proof, port.deserialize_proof
+    get_symbolic_info = port.get_symbolic_info
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -125,7 +275,7 @@ def main() -> int:
     build = kernels.build(force=True)
     kernels.lib()
     if native.get_lib() is None:
-        raise RuntimeError("the C host helper (native/) did not build")
+        raise RuntimeError("the C host helper (tpu_stark_torch/csrc/host) did not build")
     regs = [ln.strip() for ln in build.log.splitlines() if "registers" in ln]
     print(f"[1] device {kind!r}; nvidia-smi: {smi}; nvcc build {build.seconds:.2f}s "
           f"(all builds {time.perf_counter() - t0:.2f}s); ptxas: {' | '.join(regs)}", flush=True)
@@ -140,6 +290,7 @@ def main() -> int:
         return torch.randint(0, bb.P, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
 
     results = {}
+    seen = {}  # operand shapes of the kernel wrappers in the warm proves (phase 13)
 
     # -- 2. K1 vs plain --------------------------------------------------------
     k1_lines = []
@@ -160,7 +311,10 @@ def main() -> int:
         k1_lines.append(f"{label}: {ms:.4f} ms vs plain {plain_ms:.3f} ms "
                         f"({a.shape[0] / ms / 1e3:.1f} Mrows/s)")
         if label.startswith("leaf (1048576, 6)"):
-            results["keccak_sponge"] = (err, ms, plain_ms)
+            n, k = a.shape
+            items = -(-k // 2)  # u32 pairs form the u64 items of the rate-17 sponge
+            perms = n * -(-items // keccak_kernel.RATE)
+            results["keccak_sponge"] = (err, ms, plain_ms, *_bound(n * k * 4 + n * 32, perms * KECCAK_F_OPS))
     print("[2] K1 keccak sponge == plain (exact): " + "; ".join(k1_lines), flush=True)
 
     # -- 3. K2 vs plain --------------------------------------------------------
@@ -205,15 +359,18 @@ def main() -> int:
     if err0 or err1:
         raise AssertionError(f"K2 pass kernels != plain passes ({err0}, {err1})")
     buf = want0.clone()
+    n_el = x.numel()  # each pass reads and writes the matrix once
     results["ntt_pass0"] = (
         err0,
         _cuda_ms(torch, lambda: ntt_kernel.pass0(x, p, tw, twp), 10),
         _cuda_ms(torch, lambda: ntt_kernel.pass0_plain(x, p.k0, tw, twp), 2),
+        *_bound(2 * n_el * 4, p.k0 * n_el // 2 * NTT_BUTTERFLY_OPS),
     )
     results["ntt_pass"] = (
         err1,
         _cuda_ms(torch, lambda: ntt_kernel.run_pass(buf, s0, k, j_log, p, tw, twp), 10),
         _cuda_ms(torch, lambda: ntt_kernel.pass_plain(want0, s0, k, tw, twp), 2),
+        *_bound(2 * n_el * 4, k * n_el // 2 * NTT_BUTTERFLY_OPS),
     )
     k2_lines.append(
         f"(8388608, 2) pass0 k={p.k0}: {results['ntt_pass0'][1]:.4f} ms vs plain "
@@ -275,8 +432,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    ((cfg, pis, blob), warm), fib_launches = _drive(
-        kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.NTT_PASS0, kernels.NTT_PASS))
+    with _record_shapes(port, seen, "fib"):
+        ((cfg, pis, blob), warm), fib_launches = _drive(
+            kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.NTT_PASS0, kernels.NTT_PASS))
     peak = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     ok = verify(cfg, air, deserialize_proof(blob), pis)
@@ -315,7 +473,8 @@ def main() -> int:
         k3_lines.append(f"{label}: {ms:.4f} ms vs plain {plain_ms:.3f} ms "
                         f"({perms / ms / 1e3:.1f} Mperm/s)")
         if label.startswith("leaf (65536, 493)"):
-            results["poseidon2_sponge"] = (err, ms, plain_ms)
+            results["poseidon2_sponge"] = (
+                err, ms, plain_ms, *_bound(a.numel() * 4 + a.shape[0] * 32, perms * POSEIDON2_PERM_OPS))
     # the kernel alone at the chain's trace-leaf shape (2^20, 493)
     a = rand_monty((1 << 20, 493))
     ms = _cuda_ms(torch, lambda: poseidon2_kernel.hash_rows(a), 3)
@@ -380,8 +539,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    ((cfg, p_air, pis, proof), chain_warm), chain_launches = _drive(
-        kernels, warm_chain, (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE))
+    with _record_shapes(port, seen, "chain"):
+        ((cfg, p_air, pis, proof), chain_warm), chain_launches = _drive(
+            kernels, warm_chain, (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE))
     chain_peak = torch.cuda.max_memory_allocated(dev)
     blob = serialize_proof(proof)
     t0 = time.perf_counter()
@@ -411,13 +571,129 @@ def main() -> int:
           f"{chain_launches}; peak device memory {chain_peak / 2**30:.3f} GiB; quotient pass "
           f"peak {q_peak / 2**30:.3f} GiB above its inputs", flush=True)
 
+    # -- 10. K4 vs plain ---------------------------------------------------------
+    a = rand_monty((1 << 16, 493))
+    got = torch.empty((1 << 16, 16), dtype=torch.int32, device=dev)
+    want = torch.empty_like(got)
+    off = 0
+    for i, wc in enumerate((128, 128, 128, 109)):  # ragged only as the row's last chunk
+        poseidon2_kernel.absorb_rows(got, a[:, off : off + wc], first=(i == 0))
+        poseidon2_kernel.absorb_rows_plain(want, a[:, off : off + wc], first=(i == 0))
+        off += wc
+    one_shot = poseidon2_kernel.hash_rows(a)
+    torch.cuda.synchronize()
+    err_a = _max_abs_err(torch, got, want)
+    if err_a != 0 or not torch.equal(got[:, :8], one_shot):
+        raise AssertionError(f"K4 (65536, 493) in 4 chunks: kernel != plain or != K3 (max_abs_err {err_a})")
+    chunk = rand_monty((1 << 21, 128))
+    carried = rand_monty((1 << 21, 16))
+    got = poseidon2_kernel.absorb_rows(carried.clone(), chunk)
+    want = poseidon2_kernel.absorb_rows_plain(carried.clone(), chunk)
+    torch.cuda.synchronize()
+    err_b = _max_abs_err(torch, got, want)
+    if err_b != 0:
+        raise AssertionError(f"K4 (2097152, 128) on a carried state: kernel != plain (max_abs_err {err_b})")
+    k4_ms = _cuda_ms(torch, lambda: poseidon2_kernel.absorb_rows(got, chunk), 5)
+    k4_plain_ms = _cuda_ms(torch, lambda: poseidon2_kernel.absorb_rows_plain(want, chunk), 1)
+    perms = chunk.shape[0] * chunk.shape[1] // poseidon2_kernel.RATE
+    results["poseidon2_absorb"] = (
+        max(err_a, err_b), k4_ms, k4_plain_ms,
+        *_bound(chunk.numel() * 4 + 2 * carried.numel() * 4, perms * POSEIDON2_PERM_OPS),
+    )
+    del a, got, want, chunk, carried, one_shot
+    print(f"[10] K4 poseidon2 absorb == plain (exact): (65536, 493) in chunks 128+128+128+109 "
+          f"== plain == one-shot K3; (2097152, 128) on a carried state: {k4_ms:.4f} ms vs plain "
+          f"{k4_plain_ms:.3f} ms ({perms / k4_ms / 1e3:.1f} Mperm/s)", flush=True)
+
+    # -- 11. keccak-air wide proofs against the JAX fixture ----------------------
+    with open(os.path.join(GOLDEN, "torch_keccak_air_jax_proofs.json")) as f:
+        k_fixture = json.load(f)
+    k_air = keccak_air.KeccakAir()
+
+    def k_cfg():
+        return create_config(port.create_benchmark_fri_params(1), zk=False, hash="poseidon2", device=dev)
+
+    for perms_n, col_chunk in ((2, None), (5, 64)):
+        want = k_fixture[f"perms_{perms_n}"]
+        k_trace = keccak_air.generate_trace(perms_n, seed=1, device=dev)
+        blob = serialize_proof(wide.prove_wide(k_cfg(), k_air, k_trace, [], col_chunk=col_chunk))
+        got = {"sha256": hashlib.sha256(blob).hexdigest(), "len": len(blob)}
+        if got["sha256"] != want["sha256"] or got["len"] != want["len"]:
+            raise AssertionError(f"keccak-air perms={perms_n}: {got} != JAX {want}")
+        if not verify(k_cfg(), k_air, deserialize_proof(blob), []):
+            raise AssertionError(f"keccak-air perms={perms_n}: proof does not verify")
+    print("[11] keccak-air prove_wide at 64 and 128 rows (benchmark FRI) match the JAX SHA-256 "
+          "and length; both verify", flush=True)
+
+    # -- 12. keccak-air at 2^20 x 3608 (BASELINE config 4) ------------------------
+    log_k = 20
+    t0 = time.perf_counter()
+    k_trace = keccak_air.generate_trace((1 << log_k) // keccak_air.NUM_ROUNDS, seed=1, device=dev)[: 1 << log_k]
+    torch.cuda.synchronize()
+    k_trace_s = time.perf_counter() - t0
+    cold_timings = {}
+    t0 = time.perf_counter()
+    wide.prove_wide(k_cfg(), k_air, k_trace, [], timings=cold_timings)
+    torch.cuda.synchronize()
+    k_cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    k_timings = {}
+
+    def warm_keccak():
+        t0 = time.perf_counter()
+        out = wide.prove_wide(k_cfg(), k_air, k_trace, [], timings=k_timings)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with _record_shapes(port, seen, "keccak-air"):
+        (proof, k_warm), k_launches = _drive(kernels, warm_keccak, (
+            kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE, kernels.POSEIDON2_ABSORB))
+    k_peak = torch.cuda.max_memory_allocated(dev)
+    blob = serialize_proof(proof)
+    t0 = time.perf_counter()
+    ok = verify(k_cfg(), k_air, deserialize_proof(blob), [])
+    k_verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("keccak-air 2^20 proof does not verify")
+    if (proof.degree_bits != log_k or proof.log_quotient_degree != 2
+            or len(proof.opening_proof.query_proofs) != 100 or len(proof.opened_values.trace_local) != keccak_air.COLS):
+        raise AssertionError("keccak-air 2^20 proof is not a 100-query proof of 2^20 x 3608 with 4 quotient chunks")
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in k_timings.items())
+    cold_phases = ", ".join(f"{k} {v:.3f}s" for k, v in cold_timings.items())
+    print(f"[12] keccak-air n=2^20 x {keccak_air.COLS} prove_wide (Poseidon2, zk=False, blowup 2, "
+          f"100 queries, 16 PoW bits): trace generation {k_trace_s:.3f}s ({k_trace.numel() / 2**30:.3f} GiB "
+          f"uint8 on the device); cold {k_cold:.3f}s ({cold_phases}), warm {k_warm:.3f}s ({phases}); "
+          f"verify {k_verify_s:.3f}s ok; proof {len(blob)} B; launches {k_launches}; peak device memory "
+          f"{k_peak / 2**30:.3f} GiB (trace included); on {smi}", flush=True)
+
+    # -- 13. every kernel vs plain at every shape of the three main paths -------
+    del k_trace
+    for path, launches in (("fib", fib_launches), ("chain", chain_launches), ("keccak-air", k_launches)):
+        noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
+        missing = [name for name, n in launches.items() if n > 0 and name not in noted]
+        if missing:
+            raise AssertionError(f"{path}: no operand shapes noted for the launched kernels {missing}")
+    t0 = time.perf_counter()
+    checked = _check_shapes(torch, port, seen, rand_u32, rand_monty)
+    shape_err = {}
+    for call, (_count, err) in checked.items():
+        for name in _SHAPE_KERNELS[call]:
+            shape_err[name] = max(shape_err.get(name, 0), err)
+    dft_shapes = ", ".join(
+        f"({k[1]}, {k[2]}){' inv' if k[3] else ''}" for k in sorted(seen) if k[0] == "dft" and "keccak-air" in seen[k])
+    print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves "
+          f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
+          f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}", flush=True)
+
     kernel_rows = []
     for info in kernels.ALL:
-        err, ms, plain_ms = results[info.name]
+        err, ms, plain_ms, bound_ms, bound_by = results[info.name]
+        err = max(err, shape_err.get(info.name, 0))
         kernel_rows.append({
             "name": info.name, "route": "cuda", "source": info.source, "replaces": info.replaces,
-            "launches": fib_launches[info.name] + chain_launches[info.name],
+            "launches": fib_launches[info.name] + chain_launches[info.name] + k_launches[info.name],
             "max_abs_err": err, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+            "bound_ms": round(bound_ms, 6), "bound_by": bound_by, "library_ms": None,
         })
     print(_smi_line(), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

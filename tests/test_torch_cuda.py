@@ -1,6 +1,6 @@
-"""Kernels K1, K2 and K3 on the card against their plain torch versions, and
-the port's n = 8 proofs on the card (Keccak and Poseidon2 stacks) against
-the golden files and the JAX fixture.  Exact
+"""Kernels K1, K2, K3 and K4 on the card against their plain torch versions,
+and the port's n = 8 proofs and a keccak-air wide proof on the card against
+the golden files and the JAX fixtures.  Exact
 comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -85,6 +85,45 @@ def test_poseidon2_compress_strided_rows_equal_plain(dev):
     want = poseidon2_kernel.compress_plain(left, right)
     assert torch.equal(poseidon2_kernel.compress(left, right), want)
     assert torch.equal(poseidon2_kernel.compress(left.contiguous(), right.contiguous()), want)
+
+
+@pytest.mark.parametrize(
+    "n,chunks", [(1, (8,)), (37, (5,)), (129, (16, 8, 3)), (1000, (128, 128, 109)), (4097, (64, 64))]
+)
+def test_poseidon2_absorb_kernel_equals_plain(dev, n, chunks):
+    """Chunked absorbs, ragged only as the row's last chunk, from the zero
+    state and from a carried one."""
+    a = _monty(dev, (n, sum(chunks)), 13 * n)
+    carried = _monty(dev, (n, 16), 17 * n)
+    for first in (True, False):
+        got, want = carried.clone(), carried.clone()
+        before = kernels.POSEIDON2_ABSORB.launches
+        off = 0
+        for i, wc in enumerate(chunks):  # a[:, off:off+wc] reads rows through their stride
+            poseidon2_kernel.absorb_rows(got, a[:, off : off + wc], first=first and i == 0)
+            poseidon2_kernel.absorb_rows_plain(want, a[:, off : off + wc], first=first and i == 0)
+            off += wc
+        assert kernels.POSEIDON2_ABSORB.launches == before + len(chunks)
+        assert torch.equal(got, want)
+        if first:
+            assert torch.equal(got[:, :8], poseidon2_kernel.hash_rows(a))
+
+
+def test_keccak_air_wide_proof_on_card_matches_jax(dev):
+    import hashlib
+
+    from tpu_stark_torch.air.keccak_air import KeccakAir, generate_trace
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.wide import prove_wide
+
+    want = json.loads((pathlib.Path(__file__).parent / "golden" / "torch_keccak_air_jax_proofs.json").read_text())
+    cfg = create_config(create_benchmark_fri_params(1), zk=False, hash="poseidon2", device=dev)
+    before = kernels.POSEIDON2_ABSORB.launches
+    blob = serialize_proof(prove_wide(cfg, KeccakAir(), generate_trace(2, seed=1, device=dev), []))
+    assert kernels.POSEIDON2_ABSORB.launches > before
+    assert hashlib.sha256(blob).hexdigest() == want["perms_2"]["sha256"]
 
 
 @pytest.mark.parametrize("layout", ["tpu", "p3"])

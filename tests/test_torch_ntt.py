@@ -121,7 +121,7 @@ def test_bit_reversal_matches_jax():
 
 
 def test_dft_facade_is_pinned_to_its_device():
-    dft = Dft("cpu")
+    dft = Dft(device="cpu")
     m = _t(_monty(10, (8, 2)))
     assert torch.equal(dft.dft_batch(m), radix2.dft_batch(m))
     with pytest.raises(ValueError):

@@ -4,7 +4,9 @@
 through ``compat.from_jax`` (numpy only) with the rng states; the port opens
 and must produce JAX's opened values and FRI proof exactly, and its verifier
 must accept.  The other tests compare the port's own commit and domain
-evaluations with JAX's.  Heights stay at or below 2^6 rows."""
+evaluations with JAX's, and hold the verifier's per-query reduction to the
+field arithmetic and to a tampered opening.  Heights stay at or below 2^6
+rows."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -14,8 +16,11 @@ from tpu_stark.challenger.challenger import Challenger as JChallenger
 from tpu_stark.fri.domains import TwoAdicCoset as JCoset
 from tpu_stark.prover.config import create_config as j_create_config
 from tpu_stark_torch.challenger.challenger import Challenger
+from tpu_stark_torch.commit import pcs as pcs_mod
 from tpu_stark_torch.compat import from_jax
 from tpu_stark_torch.fields import babybear as bb
+from tpu_stark_torch.fields import ref_field as rf
+from tpu_stark_torch.fri.config import create_benchmark_fri_params
 from tpu_stark_torch.fri.domains import TwoAdicCoset
 from tpu_stark_torch.prover.config import create_config
 
@@ -28,7 +33,7 @@ def _evals(seed, log_n, w):
 
 def _configs(layout):
     jcfg = j_create_config(zk=True, backend="cpu", zk_rng="smallrng", zk_layout=layout)
-    tcfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout)
+    tcfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout, device="cpu")
     return jcfg.pcs, tcfg.pcs
 
 
@@ -123,3 +128,56 @@ def test_evaluations_on_domain_match_jax():
         td = TwoAdicCoset(4, 1).create_disjoint_domain(1 << log_m)
         want = np.asarray(jpcs.get_evaluations_on_domain(jdata, 0, jd))
         assert np.array_equal(bb.to_numpy(tpcs.get_evaluations_on_domain(tdata, 0, td)), want)
+
+
+def _field_fold(apows, vals, ext_vals):
+    """sum_k apows[k] * vals[k], one ext product and add per column."""
+    acc = (0, 0, 0, 0)
+    for k in range(len(apows)):
+        v = tuple(int(c) for c in vals[k]) if ext_vals else rf.efrom_base(int(vals[k]))
+        acc = rf.eadd(acc, rf.emul(tuple(int(c) for c in apows[k]), v))
+    return acc
+
+
+@pytest.mark.parametrize("ext_vals", [False, True])
+@pytest.mark.parametrize("fill", ["random", "p_minus_1"])
+def test_dot_ext_matches_the_field_fold(ext_vals, fill):
+    """The verifier's per-query reduction (int64 numpy) is exact at a
+    keccak-air row's width, also with every operand at p - 1."""
+    w = 3608
+    rng = np.random.default_rng(7)
+    shape = (w, 4) if ext_vals else (w,)
+    if fill == "random":
+        apows = rng.integers(0, bb.P, size=(w, 4), dtype=np.int64)
+        vals = rng.integers(0, bb.P, size=shape, dtype=np.int64)
+    else:
+        apows = np.full((w, 4), bb.P - 1, dtype=np.int64)
+        vals = np.full(shape, bb.P - 1, dtype=np.int64)
+    assert pcs_mod._dot_ext(apows, vals) == _field_fold(apows, vals, ext_vals)
+
+
+def test_verifier_rejects_a_tampered_opened_value(monkeypatch):
+    """With the transcript's multi-value observations switched off on both
+    sides, the opened values no longer steer alpha, the betas, the PoW or
+    the query indices: a proof with one opened value off by one then passes
+    every Merkle and PoW check, and only the per-query reduced openings
+    (``pcs._dot_ext`` against the claimed values) can reject it.  They must;
+    the untouched proof is accepted."""
+    log_n = 5
+    cfg = create_config(create_benchmark_fri_params(1), zk=False, hash="poseidon2", device="cpu")
+    monkeypatch.setattr(type(cfg.challenger()), "observe_u32s", lambda self, values: None)
+    pcs = cfg.pcs
+    dom = TwoAdicCoset(log_n, 1)
+    root, data = pcs.commit([(dom, bb.to_tensor(_evals(30, log_n, 3), "cpu"))])
+    zeta2 = dom.next_point_ext(ZETA)
+    opened, proof = pcs.open([(data, [[ZETA, zeta2]])], cfg.challenger())
+    at_zeta, at_zeta2 = opened[0][0]
+
+    def verify(values_at_zeta):
+        rounds = [(root, [(dom, [(ZETA, values_at_zeta), (zeta2, at_zeta2)])])]
+        return pcs.verify(rounds, proof, cfg.challenger())
+
+    assert verify(at_zeta)
+    tampered = list(at_zeta)
+    tampered[1] = ((tampered[1][0] + 1) % bb.P,) + tuple(tampered[1][1:])
+    assert not verify(tampered)

@@ -40,14 +40,14 @@ def _want(key):
 
 def _fib(log_n, zk, layout="tpu"):
     n = 1 << log_n
-    cfg = create_config(zk=zk, hash="poseidon2", zk_rng="smallrng", zk_layout=layout)
+    cfg = create_config(zk=zk, hash="poseidon2", zk_rng="smallrng", zk_layout=layout, device="cpu")
     pis = [0, 1, fibonacci_value(0, 1, n)]
     return cfg, FibonacciAir(), pis, prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, n), pis)
 
 
 def _chain(log_n):
-    cfg = create_config(zk=False, hash="poseidon2")
-    trace, pis = generate_trace(1 << log_n, CHAIN_INIT)
+    cfg = create_config(zk=False, hash="poseidon2", device="cpu")
+    trace, pis = generate_trace(1 << log_n, CHAIN_INIT, device="cpu")
     return cfg, Poseidon2ChainAir(), pis, prove(cfg, Poseidon2ChainAir(), trace, pis)
 
 
@@ -80,7 +80,7 @@ def test_generate_trace_matches_jax(n):
     from tpu_stark.air.poseidon2_air import generate_trace as j_generate_trace
 
     init = [int(v) for v in np.random.default_rng(n).integers(0, 0x78000001, size=16)]
-    trace, pis = generate_trace(n, init)
+    trace, pis = generate_trace(n, init, device="cpu")
     j_trace, j_pis = j_generate_trace(n, init)
     assert trace.shape == (n, COLS) and trace.dtype == np.uint32
     assert np.array_equal(trace, np.asarray(j_trace))
@@ -97,7 +97,7 @@ def test_chain_verifier_rejects_wrong_final_state():
 
 def test_cross_stack_proofs_rejected():
     air, trace, pis = FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21]
-    cfgs = {h: create_config(zk=False, hash=h) for h in ("keccak", "poseidon2")}
+    cfgs = {h: create_config(zk=False, hash=h, device="cpu") for h in ("keccak", "poseidon2")}
     proofs = {h: prove(cfgs[h], air, trace, pis) for h in cfgs}
     for h in cfgs:
         assert verify(cfgs[h], air, proofs[h], pis)
@@ -107,7 +107,7 @@ def test_cross_stack_proofs_rejected():
 
 @pytest.mark.parametrize("zk", [False, True])
 def test_poseidon2_config_assembles(zk):
-    cfg = create_config(zk=zk, hash="poseidon2", zk_rng="smallrng", zk_layout="p3")
+    cfg = create_config(zk=zk, hash="poseidon2", zk_rng="smallrng", zk_layout="p3", device="cpu")
     assert isinstance(cfg.pcs.val_mmcs, Poseidon2Mmcs)
     assert isinstance(cfg.pcs.challenge_mmcs, Poseidon2Mmcs)
     assert cfg.pcs.val_mmcs.hiding is zk and not cfg.pcs.challenge_mmcs.hiding

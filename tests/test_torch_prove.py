@@ -60,7 +60,7 @@ def _recording_factory(events):
 
 def _prove(log_n, layout, factory=None):
     n = 1 << log_n
-    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout)
+    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout, device="cpu")
     if factory is not None:
         cfg.challenger_factory = factory
     pis = [0, 1, fibonacci_value(0, 1, n)]
@@ -82,7 +82,7 @@ def test_n8_transcript_and_bytes_match_golden(layout):
 def test_golden_proof_verifies_with_port(layout):
     fixture = json.loads(GOLDEN[layout].read_text())
     proof = deserialize_proof(bytes.fromhex(fixture["proof_hex"]))
-    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout)
+    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout, device="cpu")
     assert verify(cfg, FibonacciAir(), proof, [0, 1, 21])
     assert serialize_proof(proof).hex() == fixture["proof_hex"]
 
@@ -150,27 +150,48 @@ def test_verify_rejects_wrong_public_value():
     assert not verify(cfg, FibonacciAir(), proof, [0, 1, pis[2] + 1])
 
 
+def test_entry_points_default_to_the_card():
+    """Without a ``device`` argument the port's entry points ask for cuda
+    (only the device is inspected: nothing is allocated)."""
+    import inspect
+
+    from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.ntt.dft import Dft
+    from tpu_stark_torch.prover.config import StarkConfig
+
+    cfg = create_config()  # prove and prove_wide run on cfg.device
+    assert cfg.device.type == "cuda" and cfg.pcs.dft.device.type == "cuda"
+    assert create_config(hash="poseidon2", zk=False).device.type == "cuda"
+    assert Dft().device.type == "cuda"
+    assert StarkConfig(pcs=cfg.pcs).device.type == "cuda"
+    for fn in (poseidon2_air.generate_trace, keccak_air.generate_trace):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A4"):
-        create_config(zk_rng="device")
+        create_config(zk_rng="device", device="cpu")
     with pytest.raises(NotImplementedError, match="A4"):
-        create_config(hash="poseidon2", zk_rng="device")
+        create_config(hash="poseidon2", zk_rng="device", device="cpu")
     with pytest.raises(NotImplementedError):
-        create_config(mesh=object())
+        create_config(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        create_config(hash="poseidon2", mesh=object())
+        create_config(hash="poseidon2", mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="device grind"):
         Challenger().grind(16)
 
 
 def test_port_never_imports_jax():
+    """Importing every port module, then chip_smoke.py's import block, loads
+    neither jax nor any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpu_stark_torch\n"
         "for m in pkgutil.walk_packages(tpu_stark_torch.__path__, 'tpu_stark_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import tpu_stark_torch.prover.prove\n"
-        "print(sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')))\n"
+        "import chip_smoke\n"
+        "chip_smoke.import_port()\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'tpu_stark')))\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
     out = subprocess.run(

@@ -23,6 +23,13 @@ class BaseAir:
     def eval(self, builder: "AirBuilder") -> None:
         raise NotImplementedError
 
+    def partitions(self):
+        """Optional ordered column partition of the constraint sequence (see
+        ``keccak_air.Partition``): the streamed wide prover evaluates the
+        quotient one partition at a time over only its columns.  ``None``:
+        not partitioned, the dense quotient pass is the only prover path."""
+        return None
+
 
 class _Filtered:
     """Constraint sub-builder under a multiplicative selector condition."""

@@ -155,9 +155,10 @@ def _expand_rows(inputs: torch.Tensor) -> torch.Tensor:
     return torch.cat(cols, dim=1)
 
 
-def generate_trace(n_rows: int, initial_state: Sequence[int], device="cpu") -> tuple:
+def generate_trace(n_rows: int, initial_state: Sequence[int], device="cuda") -> tuple:
     """(trace canonical (n, COLS) uint32 numpy array, public_values[32]).
-    The row expansion runs on ``device``."""
+    The row expansion runs on ``device`` (the card unless the caller passes
+    another device)."""
     if n_rows < 1 or n_rows & (n_rows - 1):
         raise ValueError(f"trace length {n_rows} is not a power of two")
     state = [int(v) % bb.P for v in initial_state]

@@ -73,7 +73,20 @@ def build_layers(
                     mats.append(salts[k])
         groups[h] = mats
     h = max(groups)
-    digests = mmcs.leaf_layer(groups[h])
+    return build_layers_from_digests(mmcs, mmcs.leaf_layer(groups.pop(h)), h, groups)
+
+
+def build_layers_from_digests(
+    mmcs: "MerkleTreeMmcs",
+    digests: torch.Tensor,
+    max_h: int,
+    groups: Optional[Dict[int, List[torch.Tensor]]] = None,
+) -> List[torch.Tensor]:
+    """The compress layers above a ready leaf-digest layer of height
+    ``max_h``, with the matrices of ``groups`` injected at their heights:
+    shared by the dense commit and the streamed wide commit."""
+    groups = groups or {}
+    h = max_h
     layers = [digests]
     while h > 1:
         h >>= 1
@@ -136,9 +149,24 @@ class MerkleTreeMmcs:
                 for m in matrices
             ]
         layers = build_layers(self, matrices, salts)
-        top = self.fetch_digests(layers[-1], torch.zeros(1, dtype=torch.int64, device=layers[-1].device))
-        root = self.host_digest(bb.to_numpy(top)[0])
+        root = self._root(layers)
         return root, ProverData(matrices, salts, layers, root)
+
+    def commit_digests(self, matrix, digests: torch.Tensor) -> Tuple[Digest, ProverData]:
+        """Commit one matrix whose leaf-digest layer is already computed
+        (the streamed wide commit); ``matrix`` needs only ``shape`` and row
+        gathers (``matrix[rows]``) for the openings.  Not hiding."""
+        if self.hiding:
+            raise NotImplementedError("a hiding commit from ready leaf digests (salts absorbed after the rows)")
+        h = int(digests.shape[0])
+        log2_strict(h)
+        layers = build_layers_from_digests(self, digests, h)
+        root = self._root(layers)
+        return root, ProverData([matrix], None, layers, root)
+
+    def _root(self, layers: List[torch.Tensor]) -> Digest:
+        top = self.fetch_digests(layers[-1], torch.zeros(1, dtype=torch.int64, device=layers[-1].device))
+        return self.host_digest(bb.to_numpy(top)[0])
 
     def open_batch_many(self, indices: Sequence[int], data: ProverData) -> List[BatchOpening]:
         """Open many query indices with one device-to-host transfer."""

@@ -126,17 +126,29 @@ def _combine_columns(mat_br: torch.Tensor, apows: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _opened_sum(apows: torch.Tensor, p_z: torch.Tensor) -> torch.Tensor:
+    """sum_col alpha^k y_col(z): (4,) Monty."""
+    return bb.sum_mod(ext4.mul(apows, p_z), axis=0)
+
+
+def _over_y_minus_z(combined, opened_sum, z_dev, y_br) -> torch.Tensor:
+    """(combined - opened_sum) / (y - z) over one row block; ``combined`` is
+    ``_combine_columns`` of the block's codeword rows."""
+    diff = ext4.sub(combined, opened_sum[None, :])
+    y_minus_z = ext4.sub(ext4.from_base(y_br), z_dev[None, :])
+    return ext4.mul(diff, ext4.inv(y_minus_z))
+
+
 def _reduced_quotient(mat_br, apows, p_z, z_dev, y_br) -> torch.Tensor:
     """(sum_col alpha^k (y_col(x) - y_col(z))) / (y - z) over the codeword,
     one row block at a time."""
-    b = bb.sum_mod(ext4.mul(apows, p_z), axis=0)  # (4,)
+    s = _opened_sum(apows, p_z)
     h, w = mat_br.shape
     rows, _ = _block_plan(h, w)
     out = torch.empty((h, 4), dtype=bb.I32, device=mat_br.device)
     for r0 in range(0, h, rows):
-        diff = ext4.sub(_combine_columns(mat_br[r0 : r0 + rows], apows), b[None, :])
-        y_minus_z = ext4.sub(ext4.from_base(y_br[r0 : r0 + rows]), z_dev[None, :])
-        out[r0 : r0 + rows] = ext4.mul(diff, ext4.inv(y_minus_z))
+        block = _combine_columns(mat_br[r0 : r0 + rows], apows)
+        out[r0 : r0 + rows] = _over_y_minus_z(block, s, z_dev, y_br[r0 : r0 + rows])
     return out
 
 
@@ -152,14 +164,41 @@ def _plain_point_at(log_h: int, index: int) -> int:
     return pow(g, rev, bb.P)
 
 
-def _alpha_pows_dev(alpha: ExtPoint, offset: int, w: int, device) -> torch.Tensor:
-    """(w, 4) Monty [alpha^offset, ..., alpha^(offset+w-1)]."""
+def _alpha_pows_np(alpha: ExtPoint, offset: int, w: int) -> np.ndarray:
+    """(w, 4) canonical int64 [alpha^offset, ..., alpha^(offset+w-1)]."""
     rows = []
     cur = rf.epow(alpha, offset)
     for _ in range(w):
         rows.append(cur)
         cur = rf.emul(cur, alpha)
-    return bb.to_tensor(bb.np_to_monty(np.array(rows, dtype=np.uint64)), device)
+    return np.array(rows, dtype=np.int64).reshape(w, 4)
+
+
+def _alpha_pows_dev(alpha: ExtPoint, offset: int, w: int, device) -> torch.Tensor:
+    """(w, 4) Monty [alpha^offset, ..., alpha^(offset+w-1)]."""
+    return bb.to_tensor(bb.np_to_monty(_alpha_pows_np(alpha, offset, w)), device)
+
+
+def _dot_ext(apows: np.ndarray, vals: np.ndarray) -> ExtPoint:
+    """sum_k apows[k] * vals[k] on the host: (w, 4) canonical ext powers
+    times (w,) base values or (w, 4) ext values below 2^32.  Exact in int64:
+    every product of two values below 2^32 and p is reduced mod p before a
+    sum of fewer than 2^32 terms."""
+    p = bb.P
+    if vals.ndim == 1:
+        terms = (apows * vals[:, None]) % p
+    else:
+        def m(i, j):
+            return (apows[:, i] * vals[:, j]) % p
+
+        w11 = ext4.W
+        terms = np.stack([
+            m(0, 0) + w11 * ((m(1, 3) + m(2, 2) + m(3, 1)) % p),
+            m(0, 1) + m(1, 0) + w11 * ((m(2, 3) + m(3, 2)) % p),
+            m(0, 2) + m(1, 1) + m(2, 0) + w11 * m(3, 3),
+            m(0, 3) + m(1, 2) + m(2, 1) + m(3, 0),
+        ], axis=1) % p
+    return tuple(int(c) for c in terms.sum(axis=0) % p)
 
 
 def _fold_inv2y(log_h: int, device) -> torch.Tensor:
@@ -327,6 +366,9 @@ class TwoAdicFriPcs:
             rd = []
             for m_idx, mat_points in enumerate(points):
                 rc = data.r_coeffs[m_idx]
+                if hasattr(rc, "eval_at_point"):  # a streamed wide matrix
+                    rd.append([rc.eval_at_point(rf.escale(z, gen_inv)) for z in mat_points])
+                    continue
                 rd.append([
                     _eval_at_point(rc, ext4.powers_device(rf.escale(z, gen_inv), int(rc.shape[0]), dev))
                     for z in mat_points
@@ -344,7 +386,8 @@ class TwoAdicFriPcs:
         alpha = challenger.sample_ext()
 
         # 2. Reduced openings per log-height.  Consecutive jobs of one height
-        # at one point merge into one call over concatenated columns; alpha
+        # at one point merge into one call over concatenated columns (never a
+        # streamed wide matrix, which reduces itself chunk by chunk); alpha
         # powers run per height in job order, the verifier's alpha_ctr walk.
         jobs_by_height: Dict[int, list] = {}
         for (data, points), r_opened in zip(rounds, opened_dev):
@@ -363,7 +406,10 @@ class TwoAdicFriPcs:
             ro[log_h] = ext4.zero((1 << log_h,), dev)
             groups: List[list] = []
             for job in hjobs:
-                if groups and job[0] is not None and groups[-1][-1][0] == job[0]:
+                streamed = hasattr(job[1], "reduced_contrib") or (
+                    groups and hasattr(groups[-1][-1][1], "reduced_contrib")
+                )
+                if groups and job[0] is not None and groups[-1][-1][0] == job[0] and not streamed:
                     groups[-1].append(job)
                 else:
                     groups.append([job])
@@ -375,6 +421,8 @@ class TwoAdicFriPcs:
                 mat = grp[0][1] if len(grp) == 1 else torch.cat([g[1] for g in grp], dim=1)
                 if z_y is None:
                     contrib = _combine_columns(mat, apows)
+                elif hasattr(mat, "reduced_contrib"):
+                    contrib = mat.reduced_contrib(apows, grp[0][2], ext4.scalar(z_y, dev), y_br)
                 else:
                     p_z = torch.cat([g[2] for g in grp], dim=0)
                     contrib = _reduced_quotient(mat, apows, p_z, ext4.scalar(z_y, dev), y_br)
@@ -482,16 +530,39 @@ class TwoAdicFriPcs:
             return False
         gen_inv = rf.finv(bb.GENERATOR)
 
+        # Per (matrix, point), the alpha powers of its columns and
+        # sum_col alpha^k * value_col do not depend on the query: a query's
+        # reduced opening is then one dot product of its opened row with the
+        # powers (numpy, exact: products reduce mod p before the sum).
+        plans = []  # per round, per matrix: (log_h, [(z_y or None, apows, sum)])
+        alpha_ctr: Dict[int, int] = {}
+        for _c, mats in rounds:
+            rplan = []
+            for domain, pts in mats:
+                log_h = domain.log_n + fri.log_blowup
+                jobs = []
+                for zeta, vals in pts or [(None, None)]:  # no points: random codewords
+                    w = self.num_random_codewords if vals is None else len(vals)
+                    ctr = alpha_ctr.get(log_h, 0)
+                    alpha_ctr[log_h] = ctr + w
+                    apows = _alpha_pows_np(alpha, ctr, w)
+                    if vals is None:
+                        jobs.append((None, apows, None))
+                        continue
+                    s = _dot_ext(apows, np.array([list(v) for v in vals], dtype=np.int64))
+                    jobs.append((rf.escale(zeta, gen_inv), apows, s))
+                rplan.append((log_h, jobs))
+            plans.append(rplan)
+
         for q_idx in range(fri.num_queries):
             index = challenger.sample_bits(log_max)
             if len(proof.query_proofs) <= q_idx:
                 return False
             qp = proof.query_proofs[q_idx]
             ro: Dict[int, ExtPoint] = {}
-            alpha_ctr: Dict[int, int] = {}
             if len(qp.input_openings) != len(rounds):
                 return False
-            for (commitment, mats), opening in zip(rounds, qp.input_openings):
+            for (commitment, mats), opening, rplan in zip(rounds, qp.input_openings, plans):
                 if len(opening.opened_values) != len(mats):
                     return False
                 dims = [
@@ -502,32 +573,20 @@ class TwoAdicFriPcs:
                 reduced_index = index >> (log_max - log2_strict(r_max))
                 if not self.val_mmcs.verify_batch(commitment, dims, reduced_index, opening):
                     return False
-                for (domain, pts), row in zip(mats, opening.opened_values):
-                    log_h = domain.log_n + fri.log_blowup
+                for (log_h, jobs), row in zip(rplan, opening.opened_values):
                     y = _plain_point_at(log_h, index >> (log_max - log_h))
-                    w = len(row)
-                    ro.setdefault(log_h, (0, 0, 0, 0))
-                    alpha_ctr.setdefault(log_h, 0)
-                    if not pts:
-                        acc = ro[log_h]
-                        apow = rf.epow(alpha, alpha_ctr[log_h])
-                        for col in range(w):
-                            acc = rf.eadd(acc, rf.escale(apow, int(row[col])))
-                            apow = rf.emul(apow, alpha)
-                        ro[log_h] = acc
-                        alpha_ctr[log_h] += w
-                        continue
-                    for zeta, vals in pts:
-                        z_y = rf.escale(zeta, gen_inv)
-                        num = (0, 0, 0, 0)
-                        apow = rf.epow(alpha, alpha_ctr[log_h])
-                        for col in range(w):
-                            t = rf.esub(rf.efrom_base(int(row[col])), tuple(vals[col]))
-                            num = rf.eadd(num, rf.emul(apow, t))
-                            apow = rf.emul(apow, alpha)
+                    row = np.asarray(row, dtype=np.int64)
+                    acc = ro.get(log_h, (0, 0, 0, 0))
+                    for z_y, apows, s in jobs:
+                        if row.shape != (len(apows),):
+                            return False
+                        dot = _dot_ext(apows, row)
+                        if z_y is None:
+                            acc = rf.eadd(acc, dot)
+                            continue
                         denom_inv = rf.einv(rf.esub(rf.efrom_base(y), z_y))
-                        ro[log_h] = rf.eadd(ro[log_h], rf.emul(num, denom_inv))
-                        alpha_ctr[log_h] += w
+                        acc = rf.eadd(acc, rf.emul(rf.esub(dot, s), denom_inv))
+                    ro[log_h] = acc
 
             # walk the fold chain
             value = ro.get(log_max, (0, 0, 0, 0))

@@ -25,8 +25,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu_stark.compat.native import p2_hash_row_native
-
+from ..compat.native import p2_hash_row_native
 from ..fields import babybear as bb
 from ..hash import poseidon2, poseidon2_kernel
 from ..hash.poseidon2_kernel import OUT, RATE, WIDTH

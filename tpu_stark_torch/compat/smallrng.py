@@ -1,7 +1,7 @@
 """Bit-exact reimplementation of rand 0.9's ``SmallRng`` (64-bit platforms:
 Xoshiro256++ with SplitMix64 ``seed_from_u64``); counterpart of
-``tpu_stark/compat/smallrng.py``, with bulk sampling through the jax-free C
-helper ``tpu_stark.compat.native``.
+``tpu_stark/compat/smallrng.py``, with bulk sampling through the port's C
+host helper (``compat/native.py``).
 
 The reference seeds ``SmallRng::seed_from_u64(1)`` for all hiding randomness —
 Merkle leaf salts and the HidingPcs random codewords.  Proof parity demands
@@ -19,8 +19,7 @@ from typing import List
 
 import numpy as np
 
-from tpu_stark.compat import native
-
+from . import native
 from ..fields import babybear as bb
 
 _U64 = (1 << 64) - 1

@@ -20,7 +20,19 @@
 // Montgomery products, so the kernel is integer-ALU bound at every width.
 // Row-major input means a warp's reads are strided by the row length
 // (1972 B at k = 493); coalescing them through shared memory is later work.
-// poseidon2_permute16 is the permutation the carry-state absorb (K4) reuses.
+//
+// K4 (p2_absorb_kernel, below) replaces
+// tpu_stark/hash/pallas_poseidon2.py::_absorb_kernel: the same sponge, but
+// the (N, 16) state comes in from device memory (or starts at zero when
+// `first` is set) and goes back out, so one row's absorb spans several
+// launches, one per column chunk of a matrix too wide to hold at once (the
+// streamed wide commit).  One thread per row again: the state is loaded
+// once, every rate-8 block of the chunk overwrites the front lanes (a final
+// partial block only its own lanes) and is permuted by poseidon2_permute16,
+// and the state is stored once.  The Pallas kernel's transposed,
+// zero-padded (k_pad, N) block and 128-lane tiling are TPU layout needs
+// and have no counterpart.  It is integer-ALU bound like K3; at k = 128 a
+// warp's chunk reads are 512 B apart (uncoalesced, as in K3).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -194,6 +206,30 @@ __global__ void p2_sponge_kernel(const uint32_t* __restrict__ a, int64_t lda,
   for (int i = 0; i < kOut; ++i) o[i] = st[i];
 }
 
+// K4: continue (or start, `first`) the rate-8 sponge of each row over the
+// k elements of its chunk row (row stride ldc); state is (n, 16) contiguous.
+__global__ void p2_absorb_kernel(uint32_t* __restrict__ state,
+                                 const uint32_t* __restrict__ chunk,
+                                 int64_t ldc, int64_t k, int64_t n, int first) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  uint32_t* s = state + row * kWidth;
+  const uint32_t* r = chunk + row * ldc;
+  uint32_t st[kWidth];
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) st[i] = first ? 0u : s[i];
+  for (int64_t base = 0; base < k; base += 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t j = base + i;
+      if (j < k) st[i] = r[j];
+    }
+    ts::poseidon2_permute16(st);
+  }
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) s[i] = st[i];
+}
+
 }  // namespace
 
 // Hash n rows of (a_row || b_row) with the given rate (8 or 16) into out
@@ -212,5 +248,18 @@ extern "C" int ts_poseidon2_rows(const uint32_t* a, int64_t lda, int64_t ka,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K4: absorb the k-element rows of `chunk` (row stride ldc) into the (n, 16)
+// sponge states in place; `first` starts from the zero state.  Returns the
+// CUDA error status of the launch.
+extern "C" int ts_poseidon2_absorb(uint32_t* state, const uint32_t* chunk,
+                                   int64_t ldc, int64_t k, int64_t n, int first,
+                                   cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+  p2_absorb_kernel<<<blocks, threads, 0, stream>>>(state, chunk, ldc, k, n, first);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,8 @@
 of ``tpu_stark/hash/keccak.py``).
 
 Keccak-256 here is the original Keccak padding (0x01), as in tiny-keccak /
-p3, not NIST SHA3 (0x06).  The bulk implementation is the jax-free C helper
-``tpu_stark.compat.native``; the Python code is its oracle and fallback.
+p3, not NIST SHA3 (0x06).  The bulk implementation is the port's C host helper
+``compat/native.py``; the Python code is its oracle and fallback.
 The batched device permutation lives in ``keccak_kernel.py``.
 """
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
-from tpu_stark.compat.native import keccak256_native
+from ..compat.native import keccak256_native
 
 U64 = (1 << 64) - 1
 

@@ -13,7 +13,7 @@ Instance (the p3 / HorizenLabs shape):
 * Round constants from the Grain LFSR of the Poseidon reference scripts.
 
 ``permute_host`` (canonical Python ints) is the transcript's and the
-verifier's permutation, through the jax-free C helper for width 16.
+verifier's permutation, through the port's C host helper for width 16.
 ``permute_plain`` is the batched plain torch version over (..., width)
 Monty int32 tensors: the same round order as the JAX package's
 ``permute_batched``.  Every internal-diagonal entry is multiplied as a full
@@ -31,7 +31,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from tpu_stark.compat.native import p2_permute16_native
+from ..compat.native import p2_permute16_native
 
 from ..fields import babybear as bb
 

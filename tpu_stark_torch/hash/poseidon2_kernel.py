@@ -16,9 +16,20 @@ permutation.  It takes any N and any width (no tile padding and no
 transposed copy, which the Pallas kernel needed), reads rows through their
 strides, so a compress of a layer's even and odd rows copies nothing.
 
-``hash_rows_plain`` and ``compress_plain`` are the plain torch versions.
-The wrappers run them only for CPU tensors; for a CUDA tensor they launch
-the kernel or raise.
+K4: ``absorb_rows(state, chunk, first)`` continues that sponge over a
+further column chunk of the rows: state (N, 16) Monty int32, updated in
+place (the Pallas kernel aliases its state the same way), chunk (N, k) Monty
+rows, possibly strided; ``first`` starts from the zero state.  Each rate-8
+block of the chunk overwrites the front state lanes (a final partial block
+only its own lanes) and is permuted.  So a ragged chunk (k not a multiple of
+8) must be the last of the row: ``prover/wide.py::P2RowStream`` carries a
+partial block over to the next chunk.  Replaces
+``tpu_stark/hash/pallas_poseidon2.py::_absorb_kernel`` (kernel
+``p2_absorb_kernel`` in ``csrc/poseidon2_sponge.cu``).
+
+``hash_rows_plain``, ``compress_plain`` and ``absorb_rows_plain`` are the
+plain torch versions.  The wrappers run them only for CPU tensors; for a
+CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -50,6 +61,16 @@ def hash_rows_plain(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.
 
 def compress_plain(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     return permute_plain(torch.cat([left, right], dim=1))[:, :OUT].contiguous()
+
+
+def absorb_rows_plain(state: torch.Tensor, chunk: torch.Tensor, first: bool = False) -> torch.Tensor:
+    st = torch.zeros_like(state) if first else state.clone()
+    for off in range(0, int(chunk.shape[1]), RATE):
+        blk = chunk[:, off : off + RATE]
+        st[:, : blk.shape[1]] = blk
+        st = permute_plain(st)
+    state.copy_(st)
+    return state
 
 
 def _rows(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -106,3 +127,32 @@ def compress(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     if left.device.type == "cpu":
         return compress_plain(left, right)
     return _launch(left, right, WIDTH)
+
+
+def absorb_rows(state: torch.Tensor, chunk: torch.Tensor, first: bool = False) -> torch.Tensor:
+    """Absorb the (N, k) Monty rows of ``chunk`` into the (N, 16) sponge
+    states, in place; returns ``state``."""
+    if state.dim() != 2 or state.shape[1] != WIDTH or chunk.dim() != 2 or chunk.shape[0] != state.shape[0]:
+        raise ValueError(f"poseidon2 absorb: state {tuple(state.shape)} and chunk {tuple(chunk.shape)}")
+    if chunk.shape[1] == 0:
+        raise ValueError("empty sponge input")
+    if state.device.type == "cpu":
+        return absorb_rows_plain(state, chunk, first)
+    if state.device.type != "cuda" or chunk.device != state.device:
+        raise ValueError(f"poseidon2 absorb: unsupported devices {state.device}, {chunk.device}")
+    if state.dtype != torch.int32 or not state.is_contiguous():
+        raise ValueError("poseidon2 absorb: the state must be a contiguous int32 tensor (updated in place)")
+    chunk = _rows(chunk, "chunk")
+    n, k = chunk.shape
+    if n == 0:
+        return state
+    so = kernels.lib()
+    kernels.POSEIDON2_ABSORB.launches += 1
+    kernels.check(
+        so.ts_poseidon2_absorb(
+            state.data_ptr(), chunk.data_ptr(), chunk.stride(0), k, n, int(bool(first)),
+            kernels.stream_handle(state.device),
+        ),
+        "poseidon2 absorb",
+    )
+    return state

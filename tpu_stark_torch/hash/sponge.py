@@ -18,7 +18,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from tpu_stark.compat.native import sponge_u64_native
+from ..compat.native import sponge_u64_native
 
 from . import keccak, keccak_kernel
 

@@ -59,7 +59,11 @@ POSEIDON2_SPONGE = KernelInfo(
     "poseidon2_sponge", "tpu_stark_torch/csrc/poseidon2_sponge.cu",
     "tpu_stark/hash/pallas_poseidon2.py:68",
 )
-ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE)
+POSEIDON2_ABSORB = KernelInfo(
+    "poseidon2_absorb", "tpu_stark_torch/csrc/poseidon2_sponge.cu",
+    "tpu_stark/hash/pallas_poseidon2.py:167",
+)
+ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB)
 
 
 def reset_launch_counts() -> None:
@@ -153,6 +157,8 @@ def lib() -> ctypes.CDLL:
             so.ts_ntt_pass.restype = i32
             so.ts_poseidon2_rows.argtypes = [vp, i64, i64, vp, i64, i64, i64, i32, vp, vp]
             so.ts_poseidon2_rows.restype = i32
+            so.ts_poseidon2_absorb.argtypes = [vp, vp, i64, i64, i64, i32, vp]
+            so.ts_poseidon2_absorb.restype = i32
             _lib = so
         return _lib
 

@@ -14,7 +14,7 @@ from . import radix2
 
 
 class Dft:
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
     def _on_device(self, mat: torch.Tensor) -> torch.Tensor:

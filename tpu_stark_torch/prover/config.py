@@ -28,7 +28,7 @@ class StarkConfig:
     rng_seed: int = 1  # trace-randomizer stream (zk)
     challenger_factory: type = Challenger
     zk_rng: str = "smallrng"
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def challenger(self):
         return self.challenger_factory()
@@ -54,9 +54,10 @@ def create_config(
     mesh=None,
     zk_rng: str = "smallrng",
     zk_layout: str = "tpu",
-    device="cpu",
+    device="cuda",
 ) -> StarkConfig:
-    """Assemble a full config on ``device``.
+    """Assemble a full config on ``device`` (the card unless the caller
+    passes another device, as the CPU tests do).
 
     ``hash="keccak"`` is the reference's zk stack: Keccak Merkle trees and
     the byte-level Fiat-Shamir challenger.  ``hash="poseidon2"`` is the

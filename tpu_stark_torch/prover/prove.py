@@ -70,6 +70,66 @@ def get_log_quotient_degree(air: BaseAir, num_public_values: int, zk: bool) -> i
     return max(0, math.ceil(math.log2(d - 1)))
 
 
+def phase_timer(timings: Optional[Dict[str, float]], dev: torch.device):
+    """``mark(phase)``: if ``timings`` is a dict, synchronize ``dev`` and
+    store the wall time (s) since the previous mark under ``phase``."""
+    t_last = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        if timings is not None:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            timings[phase] = now - t_last[0]
+            t_last[0] = now
+
+    return mark
+
+
+def constraint_inputs(air: BaseAir, public_values: Sequence[int], alpha, dev):
+    """(alpha^0..alpha^(C-1) as a (C, 4) Monty tensor, the public values as a
+    (k,) Monty tensor) on ``dev``, C = the AIR's constraint count."""
+    num_constraints, _ = get_symbolic_info(air, len(public_values))
+    apows = [(1, 0, 0, 0)]
+    for _ in range(num_constraints - 1):
+        apows.append(rf.emul(apows[-1], alpha))
+    alpha_pows_dev = bb.to_tensor(bb.np_to_monty(np.array(apows, dtype=np.uint64)), dev)
+    pis_dev = bb.to_tensor(
+        bb.np_to_monty(np.array([int(p) % bb.P for p in public_values], dtype=np.uint64)), dev
+    )
+    return alpha_pows_dev, pis_dev
+
+
+def open_and_assemble(pcs, challenger, trace_domain, commits, trace_data, quotient_data,
+                      log_n: int, log_qd: int) -> Proof:
+    """Transcript steps 4-6: observe the quotient commitment, sample zeta,
+    open the trace at zeta and zeta' and the quotient chunks at zeta, and
+    assemble the proof."""
+    trace_commit, quotient_commit = commits
+    qd = 1 << log_qd
+    challenger.observe_commitment(quotient_commit)
+    zeta = challenger.sample_ext()
+    zeta_next = trace_domain.next_point_ext(zeta)
+    opened, fri_proof = pcs.open(
+        [
+            (trace_data, [[zeta, zeta_next]]),
+            (quotient_data, [[zeta]] * qd),
+        ],
+        challenger,
+    )
+    return Proof(
+        commitments=Commitments(trace_commit, quotient_commit),
+        opened_values=OpenedValues(
+            [tuple(v) for v in opened[0][0][0]],
+            [tuple(v) for v in opened[0][0][1]],
+            [[tuple(v) for v in opened[1][i][0]] for i in range(qd)],
+        ),
+        opening_proof=fri_proof,
+        degree_bits=log_n,
+        log_quotient_degree=log_qd,
+    )
+
+
 def prove(
     config: StarkConfig,
     air: BaseAir,
@@ -84,15 +144,7 @@ def prove(
     dft = pcs.dft
     dev = config.device
     challenger = config.challenger()
-    t_last = [time.perf_counter()]
-
-    def mark(phase: str) -> None:
-        if timings is not None:
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            now = time.perf_counter()
-            timings[phase] = now - t_last[0]
-            t_last[0] = now
+    mark = phase_timer(timings, dev)
 
     n, width = trace.shape
     assert width == air.width
@@ -134,14 +186,7 @@ def prove(
     # p3 zk layout: the committed trace carries appended random columns;
     # constraints read only the AIR columns
     trace_on_q = trace_on_q[:, :width]
-    num_constraints, _ = get_symbolic_info(air, len(public_values))
-    apows = [(1, 0, 0, 0)]
-    for _ in range(num_constraints - 1):
-        apows.append(rf.emul(apows[-1], alpha))
-    alpha_pows_dev = bb.to_tensor(bb.np_to_monty(np.array(apows, dtype=np.uint64)), dev)
-    pis_dev = bb.to_tensor(
-        bb.np_to_monty(np.array([int(p) % bb.P for p in public_values], dtype=np.uint64)), dev
-    )
+    alpha_pows_dev, pis_dev = constraint_inputs(air, public_values, alpha, dev)
     quotient_vals = _quotient_values(
         air, trace_on_q, pis_dev, alpha_pows_dev, log_n, log_n + log_qd
     )
@@ -154,27 +199,10 @@ def prove(
     quotient_commit, quotient_data = pcs.commit(list(zip(chunk_domains, chunks)))
     del chunks
     mark("quotient_commit")
-    challenger.observe_commitment(quotient_commit)
 
     # -- 3. open at zeta ---------------------------------------------------
-    zeta = challenger.sample_ext()
-    zeta_next = trace_domain.next_point_ext(zeta)
-    opened, fri_proof = pcs.open(
-        [
-            (trace_data, [[zeta, zeta_next]]),
-            (quotient_data, [[zeta]] * qd),
-        ],
-        challenger,
+    proof = open_and_assemble(
+        pcs, challenger, trace_domain, (trace_commit, quotient_commit), trace_data, quotient_data, log_n, log_qd
     )
     mark("open")
-    return Proof(
-        commitments=Commitments(trace_commit, quotient_commit),
-        opened_values=OpenedValues(
-            [tuple(v) for v in opened[0][0][0]],
-            [tuple(v) for v in opened[0][0][1]],
-            [[tuple(v) for v in opened[1][i][0]] for i in range(qd)],
-        ),
-        opening_proof=fri_proof,
-        degree_bits=log_n,
-        log_quotient_degree=log_qd,
-    )
+    return proof
