@@ -40,18 +40,38 @@ line each, any failure an uncaught exception and a nonzero exit:
     generation timed on its own, a cold and a warm prove (launch counts
     reset just before the warm one, read just after), phase times, peak
     device memory, and the port's verifier, timed;
-13. every kernel against its plain version, exact, at every operand shape
-    the three warm proves (phases 6, 9 and 12) called its wrapper with:
-    K2's transforms by height, width and direction (the wide prover's
-    (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and quotient panels such as
-    (2^18, 257)), K1's and K3's leaf and compress layers and K4's chunks by
-    rows, widths and row strides, on random inputs of those shapes.
+14. K5 (the limb-matmul DFT on the integer tensor cores) against its plain
+    version, exact, at (256, 65536), (128, 131072) and ragged widths for
+    n = 64, 32, 16; then the narrow NTT route (``narrow_ntt="mxu"``)
+    against K2 at (2^16, 2), (2^21, 2), (2^22, 4), (2^23, 2) and
+    (2^20, 32), forward and inverse, each timed beside K2;
+15. the device zk rng against JAX's samples
+    (tests/golden/torch_device_rng_jax.json: seeds 1 and 7, every stream
+    tag, counters 0-2, up to (2^21, 4)), timed; the grind kernel against
+    its plain version and the host check at 8-16 bits, and ``device_grind``
+    against the witnesses JAX's stored;
+16. BASELINE config 2 (fib_air zk at the defaults: device zk rng, blowup 2,
+    100 queries, 16 PoW bits): proofs equal to the JAX package's
+    (tests/golden/torch_fib_zk_device_jax_proofs.json: n = 8 byte for byte,
+    2^10 and 2^12 by SHA-256 and length) on both NTT routes, then n = 2^20
+    with ``narrow_ntt="mxu"``: a cold and a warm prove (launch counts reset
+    just before the warm one, read just after), phase times, peak device
+    memory, the port's verifier, and the same warm prove with
+    ``narrow_ntt=None`` (its own launch counts), whose bytes must be equal;
+13. (run last) every kernel against its plain version, exact, at every
+    operand shape the five warm proves (phases 6, 9, 12 and the two of 16)
+    called its wrapper with: K2's transforms by height, width and direction
+    (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
+    quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
+    layers and K4's chunks by rows, widths and row strides, K5's products
+    by n and width (both directions' tables) and the grind's chunks by
+    count, tail blocks, witness offset and bits, on random inputs of those
+    shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the three main paths, phases 6, 9 and 12; time, plain time and
-the bound of each kernel at the shape it was timed; the largest error of
-phases 2-13), and last
-``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
+summed over the five main paths; time, plain time and the bound of each
+kernel at the shape it was timed; the largest error of phases 2-16), and
+last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
 The bound of a kernel is the least time the H100 could take for its work:
@@ -59,10 +79,13 @@ the larger of the bytes it must move (each input read once, each output
 written once) over 3.35 TB/s and its int32 instructions over the issue
 rate, 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 33.45 T/s (one warp
 instruction per scheduler per clock, the most any integer mix can reach;
-1.98 GHz is the clock of the data sheet's 67 TFLOP/s fp32).  Instruction
-counts are lower bounds read off the sources: a Montgomery product 5
-(three multiplies, a subtract, a select), a modular add 2, a Keccak round
-180 (LOP3-fused xors, two funnel shifts per 64-bit rotation).
+1.98 GHz is the clock of the data sheet's 67 TFLOP/s fp32), and for K5
+also its 16 * 2 * n^2 * M int8 tensor operations over the data sheet's
+dense int8 peak, 1,979 TOPS.  Instruction counts are lower bounds read off
+the sources: a Montgomery product 5 (three multiplies, a subtract, a
+select), a modular add 2, a Keccak round 180 (LOP3-fused xors, two funnel
+shifts per 64-bit rotation), K5's epilogue 30 per output (the 7-diagonal
+recombine in 64-bit adds and shifts, one REDC, a 64-bit remainder by P).
 """
 
 from __future__ import annotations
@@ -119,10 +142,15 @@ POSEIDON2_PERM_OPS = 772 * 5 + 1300 * 2
 NTT_BUTTERFLY_OPS = 8  # Shoup product 4, add 2, subtract 2
 
 
-def _bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of the bytes and the operations."""
+INT8_TENSOR_OPS_PER_S = 1.979e15
+MXU_EPILOGUE_OPS = 30  # per output of K5
+
+
+def _bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
+    """(bound_ms, bound_by): the largest of the bytes, the int32
+    instructions and the int8 tensor operations."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / INT32_OPS_PER_S, n_tensor_ops / INT8_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -132,13 +160,16 @@ def import_port():
 
     from tpu_stark_torch import kernels
     from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.challenger import grind
+    from tpu_stark_torch.challenger.challenger import Challenger, HashChallenger
+    from tpu_stark_torch.compat.device_rng import DeviceRng
     from tpu_stark_torch.air.air import get_symbolic_info
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
     from tpu_stark_torch.compat import native
     from tpu_stark_torch.fields import babybear as bb
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
     from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
-    from tpu_stark_torch.ntt import ntt_kernel, radix2
+    from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel, radix2
     from tpu_stark_torch.prover import prove as prove_mod
     from tpu_stark_torch.prover import wide
     from tpu_stark_torch.prover.config import create_config
@@ -169,6 +200,8 @@ _SHAPE_KERNELS = {
     "poseidon2_hash_rows": ("poseidon2_sponge",),
     "poseidon2_compress": ("poseidon2_sponge",),
     "poseidon2_absorb": ("poseidon2_absorb",),
+    "mod_matmul_axis": ("mxu_mm",),
+    "grind_verdicts": ("keccak_grind",),
 }
 
 
@@ -177,7 +210,9 @@ def _record_shapes(port, seen: dict, path: str):
     """While open, note in ``seen`` (key -> the paths that gave it) the
     operands of every kernel wrapper call: K2's ``dft`` by height, width and
     direction; K1's and K3's ``hash_rows`` / ``compress`` and K4's
-    ``absorb_rows`` by rows, and each operand's width and row stride."""
+    ``absorb_rows`` by rows, and each operand's width and row stride; K5's
+    ``mod_matmul_axis`` by n and width; the grind's ``verdicts`` by count,
+    tail blocks, witness offset and bits."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
 
     def rows(t):
@@ -190,6 +225,10 @@ def _record_shapes(port, seen: dict, path: str):
         (pk, "compress"): lambda a, b: ("poseidon2_compress", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "absorb_rows"): lambda s, c, first=False: (
             "poseidon2_absorb", int(c.shape[0]), *rows(c), bool(first)),
+        (port.mxu_ntt, "mod_matmul_axis"): lambda x, w: (
+            "mod_matmul_axis", int(x.shape[0]), x.numel() // int(x.shape[0])),
+        (port.grind, "verdicts"): lambda start, count, pre, tail, w_off, bits: (
+            "grind_verdicts", int(count), int(tail.shape[0]), int(w_off), int(bits)),
     }
     originals = {}
     for (mod, name), key in keys.items():
@@ -211,7 +250,7 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
     """Phase 13: every wrapper noted by ``_record_shapes`` against its plain
     version, exactly, on random operands of the noted shapes and row
     strides.  Returns {call kind: [shapes checked, max_abs_err]}."""
-    nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
+    nk, kk, pk, mx = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel, port.mxu_ntt
 
     def operand(rand, n, k, stride):
         return None if k == 0 else rand((n, max(k, stride)))[:, :k]
@@ -222,6 +261,15 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         if kind == "dft":
             x = rand_monty((n, key[2]))
             got, want = nk.dft(x, key[3]), nk.dft_plain(x, key[3])
+        elif kind == "mod_matmul_axis":
+            x = rand_monty((n, key[2]))
+            both = [mx.limbs_on(n, inverse, x.device) for inverse in (False, True)]
+            got = torch.stack([mx.mod_matmul_axis(x, w) for w in both])
+            want = torch.stack([mx.mod_matmul_axis_plain(x, w) for w in both])
+        elif kind == "grind_verdicts":
+            pre, tail = rand_u32((25, 2)).view(torch.int64).view(25), rand_u32((key[2], 34)).view(torch.int64)
+            got = port.grind.verdicts(0, n, pre, tail, key[3], key[4])
+            want = port.grind.verdicts_plain(0, n, pre, tail, key[3], key[4])
         elif kind == "poseidon2_absorb":
             state, chunk = rand_monty((n, pk.WIDTH)), operand(rand_monty, n, key[2], key[3])
             got = pk.absorb_rows(state.clone(), chunk, key[4])
@@ -242,6 +290,198 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         entry[0] += 1
         entry[1] = max(entry[1], err)
     return done
+
+
+def _phase14_mxu(torch, port, rand_monty, results) -> str:
+    """K5 against its plain version at the route's widths, then the narrow
+    route against K2; returns the phase's line."""
+    mx, radix2 = port.mxu_ntt, port.radix2
+    lines = []
+    for n, m in [(256, 65536), (128, 131072), (64, 262147), (32, 524269), (16, 1048573)]:
+        x = rand_monty((n, m))
+        err = 0
+        for inverse in (False, True):
+            limbs = mx.limbs_on(n, inverse, x.device)
+            got, want = mx.mod_matmul_axis(x, limbs), mx.mod_matmul_axis_plain(x, limbs)
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err(torch, got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K5 ({n}, {m}) inverse={inverse}: kernel != plain (max_abs_err {err})")
+        limbs = mx.limbs_on(n, False, x.device)
+        ms = _cuda_ms(torch, lambda: mx.mod_matmul_axis(x, limbs), 20)
+        tensor_ops = 16 * 2 * n * n * m
+        lines.append(f"({n}, {m}): {ms:.4f} ms ({tensor_ops / ms / 1e9:.1f} int8 TOPS)")
+        if n == 256:
+            plain_ms = _cuda_ms(torch, lambda: mx.mod_matmul_axis_plain(x, limbs), 2)
+            results["mxu_mm"] = (err, ms, plain_ms, *_bound(
+                2 * n * m * 4 + 4 * n * n, n * m * MXU_EPILOGUE_OPS, tensor_ops))
+            lines[-1] += f" vs plain {plain_ms:.3f} ms, bound {results['mxu_mm'][3]:.4f} ms"
+        del x
+    route = []
+    for h, w in [(1 << 16, 2), (1 << 21, 2), (1 << 22, 4), (1 << 23, 2), (1 << 20, 32)]:
+        x = rand_monty((h, w))
+        for inverse in (False, True):
+            fn = radix2.idft_batch if inverse else radix2.dft_batch
+            if not torch.equal(fn(x, "mxu"), fn(x)):
+                raise AssertionError(f"narrow route ({h}, {w}) inverse={inverse} != K2")
+        mxu_ms = _cuda_ms(torch, lambda: radix2.dft_batch(x, "mxu"), 5)
+        k2_ms = _cuda_ms(torch, lambda: radix2.dft_batch(x), 5)
+        route.append(f"({h}, {w}): route {mxu_ms:.4f} ms vs K2 {k2_ms:.4f} ms")
+        del x
+    return ("[14] K5 mxu matmul == plain (exact): " + "; ".join(lines)
+            + ". Narrow route == K2 (dft and idft, exact); dft times: " + "; ".join(route))
+
+
+def _phase15_rng_grind(torch, port, dev, results) -> str:
+    """The device rng against JAX's samples, the grind kernel against its
+    plain version, the host check and JAX's witnesses; returns the line."""
+    import numpy as np
+
+    with open(os.path.join(GOLDEN, "torch_device_rng_jax.json")) as f:
+        fixture = json.load(f)
+    for e in fixture["samples"]:
+        rng = port.DeviceRng(e["seed"], e["stream"], dev)
+        for _ in range(e["counter"]):
+            rng.sample_babybear_matrix_monty(1, 1)
+        flat = rng.sample_babybear_matrix_monty(e["rows"], e["cols"]).cpu().numpy().astype("<u4").ravel()
+        got = (hashlib.sha256(flat.tobytes()).hexdigest(), [int(v) for v in flat[:8]])
+        if got != (e["sha256"], e["first"]):
+            raise AssertionError(f"device rng {e['seed']}/{e['stream']!r}/{e['counter']} "
+                                 f"({e['rows']}, {e['cols']}) differs from JAX's sample")
+    rng = port.DeviceRng(1, "salts", dev)
+    rng_ms = {shape: _cuda_ms(torch, lambda: rng.sample_babybear_matrix_monty(*shape), 5)
+              for shape in [(1 << 21, 4), (1 << 22, 4)]}
+    grind = port.grind
+    lines = []
+    err = 0
+    for e in fixture["grind"]:
+        data, bits = bytes.fromhex(e["transcript_hex"]), e["bits"]
+        prefix, tail, w_off = grind._plan(data)
+        pre, tl = grind._operands(prefix, tail, dev)
+        flags = grind.verdicts(0, 1 << 17, pre, tl, w_off, bits)
+        want = grind.verdicts_plain(0, 1 << 17, pre, tl, w_off, bits)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(torch, flags, want))
+        if not torch.equal(flags, want):
+            raise AssertionError(f"grind kernel != plain ({len(data)} B, {bits} bits)")
+        ch = port.Challenger(port.HashChallenger(data), device=dev)
+        host = [grind.PASSED if ch.clone().check_witness(bits, w) else 0 for w in range(512)]
+        if flags[:512].cpu().tolist() != host or not ch.clone().check_witness(bits, e["witness"]):
+            raise AssertionError(f"grind kernel != host check ({len(data)} B, {bits} bits)")
+        t0 = time.perf_counter()
+        w = grind.device_grind(data, bits, dev)
+        wall = time.perf_counter() - t0
+        if w != e["witness"]:
+            raise AssertionError(f"device_grind found {w}, JAX {e['witness']} ({len(data)} B, {bits} bits)")
+        lines.append(f"{len(data)} B at {bits} bits: witness {w} in {wall * 1e3:.2f} ms")
+        if bits == 16 and "keccak_grind" not in results:
+            n_blocks = int(tl.shape[0])
+            ms = _cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, bits), 20)
+            plain_ms = _cuda_ms(torch, lambda: grind.verdicts_plain(0, 1 << 17, pre, tl, w_off, bits), 2)
+            results["keccak_grind"] = [err, ms, plain_ms, *_bound(
+                (1 << 17) + 8 * (25 + 17 * n_blocks), (1 << 17) * n_blocks * KECCAK_F_OPS)]
+            lines[-1] += f" (2^17-candidate chunk, {n_blocks} block(s): {ms:.4f} ms vs plain {plain_ms:.3f} ms)"
+    results["keccak_grind"][0] = err
+    return (f"[15] device rng == JAX's {len(fixture['samples'])} samples; one sample (2^21, 4) "
+            f"{rng_ms[(1 << 21, 4)]:.4f} ms, (2^22, 4) {rng_ms[(1 << 22, 4)]:.4f} ms. Grind kernel == plain "
+            f"== host check; device_grind == JAX: " + "; ".join(lines))
+
+
+@contextlib.contextmanager
+def _note_rng_shapes(port, shapes: list):
+    """While open, append the shape of every device-rng sample call to ``shapes``."""
+    cls = port.DeviceRng
+    orig = cls.sample_babybear_matrix_monty
+
+    def noted(self, rows, cols):
+        shapes.append((int(rows), int(cols)))
+        return orig(self, rows, cols)
+
+    cls.sample_babybear_matrix_monty = noted
+    try:
+        yield
+    finally:
+        cls.sample_babybear_matrix_monty = orig
+
+
+def _phase16_config2(torch, port, dev, seen, log_n: int):
+    """BASELINE config 2: the JAX fixture on both routes, then 2^log_n with
+    each route.  Returns (the phase's line, {path: launches})."""
+    kernels = port.kernels
+    air = port.FibonacciAir()
+
+    def cfg(narrow):
+        return port.create_config(port.create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt=narrow)
+
+    def prove_blob(n, narrow, timings=None):
+        pis = [0, 1, port.fibonacci_value(0, 1, n)]
+        c = cfg(narrow)
+        return c, pis, port.serialize_proof(port.prove(c, air, traces[n], pis, timings=timings))
+
+    with open(os.path.join(GOLDEN, "torch_fib_zk_device_jax_proofs.json")) as f:
+        fixture = json.load(f)
+    traces = {1 << int(k): port.generate_trace_rows(0, 1, 1 << int(k)) for k in fixture}
+    for k, want in sorted(fixture.items(), key=lambda kv: int(kv[0])):
+        for narrow in (None, "mxu"):
+            c, pis, blob = prove_blob(1 << int(k), narrow)
+            if "proof_hex" in want and blob.hex() != want["proof_hex"]:
+                raise AssertionError(f"config 2 n=2^{k} ({narrow}): bytes differ from the JAX fixture")
+            if (hashlib.sha256(blob).hexdigest(), len(blob)) != (want["sha256"], want["len"]):
+                raise AssertionError(f"config 2 n=2^{k} ({narrow}): SHA-256 or length differs from JAX's")
+            if not port.verify(c, air, port.deserialize_proof(blob), pis):
+                raise AssertionError(f"config 2 n=2^{k} ({narrow}): proof does not verify")
+    n = 1 << log_n
+    traces[n] = port.generate_trace_rows(0, 1, n)
+    t0 = time.perf_counter()
+    prove_blob(n, "mxu")
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches, warm, timings, blobs, peaks, rng_shapes = {}, {}, {}, {}, {}, {}
+    for narrow, path, path_kernels in (
+        ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_GRIND)),
+        (None, "config2-k2", (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_GRIND)),
+    ):
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings[path] = {}
+
+        def warm_prove():
+            t0 = time.perf_counter()
+            out = prove_blob(n, narrow, timings[path])
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        with _record_shapes(port, seen, path), _note_rng_shapes(port, rng_shapes.setdefault(path, [])):
+            ((c, pis, blobs[path]), warm[path]), launches[path] = _drive(kernels, warm_prove, path_kernels)
+        peaks[path] = torch.cuda.max_memory_allocated(dev)
+    if blobs["config2-mxu"] != blobs["config2-k2"]:
+        raise AssertionError(f"config 2 n=2^{log_n}: the mxu and K2 routes' proofs differ")
+    proof = port.deserialize_proof(blobs["config2-mxu"])
+    t0 = time.perf_counter()
+    ok = port.verify(c, air, proof, pis)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"config 2 n=2^{log_n} proof does not verify")
+    if (proof.degree_bits != log_n or len(proof.opening_proof.query_proofs) != 100
+            or proof.opening_proof.pow_witness is None):
+        raise AssertionError(f"config 2 n=2^{log_n}: not a 100-query proof of 2^{log_n} rows")
+
+    def phases(path):
+        return ", ".join(f"{k} {v:.3f}s" for k, v in timings[path].items())
+
+    # the device rng's share: each sample call of the warm prove, timed alone
+    rng = port.DeviceRng(1, "salts", dev)
+    shapes = rng_shapes["config2-mxu"]
+    rng_s = sum(_cuda_ms(torch, lambda: rng.sample_babybear_matrix_monty(*shape), 3) for shape in shapes) / 1e3
+
+    line = (f"[16] config 2 (fib zk, device rng, blowup 2, 100 queries, 16 PoW bits): the JAX fixture "
+            f"(n=8 bytes, 2^10 and 2^12 SHA-256) on both routes, all verify; n=2^{log_n} narrow_ntt='mxu': "
+            f"cold {cold:.3f}s, warm {warm['config2-mxu']:.3f}s ({phases('config2-mxu')}); peak device memory "
+            f"{peaks['config2-mxu'] / 2**30:.3f} GiB; launches {launches['config2-mxu']}; narrow_ntt=None: warm "
+            f"{warm['config2-k2']:.3f}s ({phases('config2-k2')}), peak {peaks['config2-k2'] / 2**30:.3f} GiB, "
+            f"launches {launches['config2-k2']}; same bytes ({len(blobs['config2-mxu'])} B); verify "
+            f"{verify_s:.3f}s ok; the warm prove's {len(shapes)} device-rng samples {sorted(shapes)} take "
+            f"{rng_s * 1e3:.3f} ms alone (CUDA events), {100 * rng_s / warm['config2-mxu']:.1f}% of its warm time")
+    return line, launches
 
 
 def main() -> int:
@@ -666,9 +906,21 @@ def main() -> int:
           f"verify {k_verify_s:.3f}s ok; proof {len(blob)} B; launches {k_launches}; peak device memory "
           f"{k_peak / 2**30:.3f} GiB (trace included); on {smi}", flush=True)
 
-    # -- 13. every kernel vs plain at every shape of the three main paths -------
-    del k_trace
-    for path, launches in (("fib", fib_launches), ("chain", chain_launches), ("keccak-air", k_launches)):
+    del k_trace, proof, blob
+
+    # -- 14. K5 vs plain, the narrow route vs K2 --------------------------------
+    print(_phase14_mxu(torch, port, rand_monty, results), flush=True)
+
+    # -- 15. device rng vs JAX, the grind kernel vs plain ------------------------
+    print(_phase15_rng_grind(torch, port, dev, results), flush=True)
+
+    # -- 16. BASELINE config 2 ----------------------------------------------------
+    line, c2_launches = _phase16_config2(torch, port, dev, seen, 20)
+    print(line, flush=True)
+
+    # -- 13. every kernel vs plain at every shape of the five main paths --------
+    path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches}
+    for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
         missing = [name for name, n in launches.items() if n > 0 and name not in noted]
         if missing:
@@ -681,9 +933,12 @@ def main() -> int:
             shape_err[name] = max(shape_err.get(name, 0), err)
     dft_shapes = ", ".join(
         f"({k[1]}, {k[2]}){' inv' if k[3] else ''}" for k in sorted(seen) if k[0] == "dft" and "keccak-air" in seen[k])
+    mxu_shapes = ", ".join(
+        f"({k[1]}, {k[2]})" for k in sorted(seen) if k[0] == "mod_matmul_axis" and "config2-mxu" in seen[k])
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
-          f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}", flush=True)
+          f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "
+          f"products: {mxu_shapes}", flush=True)
 
     kernel_rows = []
     for info in kernels.ALL:
@@ -691,7 +946,7 @@ def main() -> int:
         err = max(err, shape_err.get(info.name, 0))
         kernel_rows.append({
             "name": info.name, "route": "cuda", "source": info.source, "replaces": info.replaces,
-            "launches": fib_launches[info.name] + chain_launches[info.name] + k_launches[info.name],
+            "launches": sum(launches[info.name] for launches in path_launches.values()),
             "max_abs_err": err, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by, "library_ms": None,
         })

@@ -18,7 +18,11 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   upper bound.
 * ``warm``: one cold and ``reps`` warm proves each of fib_air zk at 2^20
   (Keccak stack) and the Poseidon2 chain at 2^18 x 493 (BASELINE config 3),
-  with phase times; the chain's trace generation is timed on its own.
+  with phase times; the chain's trace generation is timed on its own.  Then
+  BASELINE config 2 (fib_air zk at the defaults: device zk rng, blowup 2,
+  100 queries, 16 PoW bits) at 2^20 on its two NTT routes, ``narrow_ntt=
+  "mxu"`` (K5) and ``None`` (K2): one cold prove each, then ``reps`` rounds
+  of warm proves in the order mxu, K2, K2, mxu, and each route's median.
   ``--tree DIR`` imports ``tpu_stark_torch`` from DIR instead (a
   ``git archive`` of another commit), so that two commits are compared in
   one run: parent, change, change, parent.  ``--pcs-from DIR`` keeps this
@@ -116,6 +120,7 @@ def warm(torch, dev, args) -> None:
     from tpu_stark_torch.air import poseidon2_air
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
     from tpu_stark_torch.commit import pcs as pcs_mod
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
     from tpu_stark_torch.prover.config import create_config
     from tpu_stark_torch.prover.prove import prove
 
@@ -143,6 +148,27 @@ def warm(torch, dev, args) -> None:
     run("chain 2^18 x 493 (Poseidon2)",
         lambda: create_config(zk=False, hash="poseidon2", device=dev),
         poseidon2_air.Poseidon2ChainAir(), chain_trace, chain_pis)
+    del chain_trace
+
+    fib_trace, fib_pis = generate_trace_rows(0, 1, n), [0, 1, fibonacci_value(0, 1, n)]
+
+    def config2(narrow, timings=None):
+        cfg = create_config(create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt=narrow)
+        return prove(cfg, FibonacciAir(), fib_trace, fib_pis, timings=timings)
+
+    walls = {"mxu": [], None: []}
+    for narrow in walls:
+        _, cold = _timed(torch, lambda: config2(narrow))
+        print(f"config 2 2^20 narrow_ntt={narrow!r}: cold {cold:.3f}s", flush=True)
+    for _ in range(args.reps):
+        for narrow in ("mxu", None, None, "mxu"):
+            timings = {}
+            _, s = _timed(torch, lambda: config2(narrow, timings))
+            walls[narrow].append(s)
+            print(f"  config 2 narrow_ntt={narrow!r} warm {s:.3f}s ({_phases(timings)})", flush=True)
+    for narrow, ws in walls.items():
+        print(f"config 2 2^20 narrow_ntt={narrow!r}: warm median {sorted(ws)[len(ws) // 2]:.3f}s "
+              f"of {len(ws)}", flush=True)
 
 
 def verify_timing(torch, dev, args) -> None:

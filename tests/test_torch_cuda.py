@@ -1,6 +1,7 @@
-"""Kernels K1, K2, K3 and K4 on the card against their plain torch versions,
-and the port's n = 8 proofs and a keccak-air wide proof on the card against
-the golden files and the JAX fixtures.  Exact
+"""Kernels K1-K5 and the grind kernel on the card against their plain
+torch versions, and the port's n = 8 proofs (the BASELINE config 2 one on
+both NTT routes) and a keccak-air wide proof on the card against the golden
+files and the JAX fixtures.  Exact
 comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from tpu_stark_torch import kernels
+from tpu_stark_torch.challenger import grind
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
-from tpu_stark_torch.ntt import ntt_kernel, radix2
+from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel, radix2
 
 pytestmark = pytest.mark.gpu
 
@@ -150,3 +152,64 @@ def test_n8_proof_on_card_matches_golden(dev, layout, name):
     cfg = create_config(zk=True, zk_rng="smallrng", zk_layout=layout, device=dev)
     proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
     assert serialize_proof(proof).hex() == fixture["proof_hex"]
+
+
+@pytest.mark.parametrize("n,m", [(16, 1), (16, 4133), (32, 999), (64, 65536), (128, 4097), (256, 65536), (256, 33)])
+def test_mxu_kernel_equals_plain(dev, n, m):
+    x = _monty(dev, (n, m), n + m)
+    for inverse in (False, True):
+        limbs = mxu_ntt.limbs_on(n, inverse, dev)
+        before = kernels.MXU_MM.launches
+        got = mxu_ntt.mod_matmul_axis(x, limbs)
+        assert kernels.MXU_MM.launches == before + 1
+        assert torch.equal(got, mxu_ntt.mod_matmul_axis_plain(x, limbs))
+
+
+def test_mxu_kernel_extremes_equal_plain(dev):
+    """All-(p-1) data against the DFT matrix (the largest diagonals), and zeros."""
+    for fill in (bb.P - 1, 0):
+        x = torch.full((256, 640), fill, dtype=torch.int32, device=dev)
+        limbs = mxu_ntt.limbs_on(256, False, dev)
+        assert torch.equal(mxu_ntt.mod_matmul_axis(x, limbs), mxu_ntt.mod_matmul_axis_plain(x, limbs))
+
+
+@pytest.mark.parametrize("h,w", [(1 << 16, 2), (1 << 17, 4), (1 << 21, 2), (1 << 16, 32)])
+def test_narrow_route_on_card_equals_k2(dev, h, w):
+    from tpu_stark_torch.ntt.dft import Dft
+
+    x = _monty(dev, (h, w), h + w)
+    mxu, k2 = Dft(dev, narrow="mxu"), Dft(dev)
+    before = kernels.MXU_MM.launches
+    assert torch.equal(mxu.dft_batch(x), k2.dft_batch(x))
+    assert torch.equal(mxu.idft_batch(x), k2.idft_batch(x))
+    assert kernels.MXU_MM.launches > before
+
+
+@pytest.mark.parametrize("n_bytes", [32, 132, 134, 200, 268])
+def test_grind_kernel_equals_plain(dev, n_bytes):
+    import numpy as np
+
+    data = bytes(np.random.default_rng(n_bytes).integers(0, 256, size=n_bytes, dtype=np.uint8))
+    prefix, tail, w_off = grind._plan(data)
+    pre, tl = grind._operands(prefix, tail, dev)
+    for bits in (1, 8, 16):
+        before = kernels.KECCAK_GRIND.launches
+        got = grind.verdicts(12345, 1 << 16, pre, tl, w_off, bits)
+        assert kernels.KECCAK_GRIND.launches == before + 1
+        assert torch.equal(got, grind.verdicts_plain(12345, 1 << 16, pre, tl, w_off, bits))
+
+
+def test_config2_n8_proof_on_card_matches_jax(dev):
+    from tpu_stark_torch.air.fibonacci import FibonacciAir, generate_trace_rows
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.prove import prove
+
+    fixture = json.loads((pathlib.Path(__file__).parent / "golden" / "torch_fib_zk_device_jax_proofs.json").read_text())
+    for narrow in (None, "mxu"):
+        cfg = create_config(create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt=narrow)
+        before = kernels.KECCAK_GRIND.launches
+        proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
+        assert kernels.KECCAK_GRIND.launches > before
+        assert serialize_proof(proof).hex() == fixture["3"]["proof_hex"]

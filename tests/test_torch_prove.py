@@ -7,6 +7,12 @@
   2^10, SHA-256 and length above).  The tests read the fixture and never run
   the JAX prover, whose cold CPU compiles take minutes.  Regenerate it with:
       python tests/test_torch_prove.py regen
+* BASELINE config 2 (``create_config(create_benchmark_fri_params(1),
+  zk=True)`` at the defaults: device zk rng, blowup 2, 100 queries, 16 PoW
+  bits): proof bytes against ``tests/golden/
+  torch_fib_zk_device_jax_proofs.json`` (full bytes at n = 8, SHA-256 and
+  length at 2^10 and 2^12), on both NTT routes.  Regenerate it with:
+      python tests/test_torch_prove.py regen config2
 * the port's verifier accepts its proofs and rejects tampered ones;
 * importing the port never imports jax.
 """
@@ -22,6 +28,9 @@ import pytest
 
 from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
 from tpu_stark_torch.challenger.challenger import Challenger
+from tpu_stark_torch.compat.device_rng import DeviceRng
+from tpu_stark_torch.fri.config import create_benchmark_fri_params
+from tpu_stark_torch.ntt import mxu_ntt, radix2
 from tpu_stark_torch.prover.config import create_config
 from tpu_stark_torch.prover.proof import deserialize_proof, serialize_proof
 from tpu_stark_torch.prover.prove import prove
@@ -35,6 +44,9 @@ GOLDEN = {
 JAX_PROOFS = _DIR / "torch_fib_zk_jax_proofs.json"
 FIXTURE_LOGS = (10, 12, 14)
 FULL_BYTES_MAX_LOG = 10
+CONFIG2_PROOFS = _DIR / "torch_fib_zk_device_jax_proofs.json"
+CONFIG2_LOGS = (3, 10, 12)
+CONFIG2_FULL_BYTES_MAX_LOG = 3
 
 
 def _recording_factory(events):
@@ -104,6 +116,63 @@ def test_proof_bytes_match_jax(layout, log_n):
     assert verify(cfg, FibonacciAir(), deserialize_proof(blob), pis)
 
 
+def _config2_blob(log_n, narrow_ntt=None):
+    n = 1 << log_n
+    cfg = create_config(create_benchmark_fri_params(1), zk=True, device="cpu", narrow_ntt=narrow_ntt)
+    pis = [0, 1, fibonacci_value(0, 1, n)]
+    return cfg, pis, serialize_proof(prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, n), pis))
+
+
+@pytest.mark.parametrize("log_n", CONFIG2_LOGS)
+def test_config2_proof_bytes_match_jax(log_n):
+    want = json.loads(CONFIG2_PROOFS.read_text())[str(log_n)]
+    cfg, pis, blob = _config2_blob(log_n)
+    assert cfg.zk_rng == "device" and isinstance(cfg.pcs.rng, DeviceRng)
+    assert cfg.pcs.fri.num_queries == 100 and cfg.pcs.fri.proof_of_work_bits == 16
+    if "proof_hex" in want:
+        assert blob.hex() == want["proof_hex"]
+    assert (hashlib.sha256(blob).hexdigest(), len(blob)) == (want["sha256"], want["len"])
+    proof = deserialize_proof(blob)
+    assert len(proof.opening_proof.query_proofs) == 100
+    assert verify(cfg, FibonacciAir(), proof, pis)
+
+
+def test_config2_narrow_route_gives_the_same_bytes(monkeypatch):
+    """With the height gate lowered so that every narrow transform of the
+    2^10 proof takes the limb-matmul NTT, the bytes are the fixture's."""
+    calls = []
+    real = mxu_ntt.mod_matmul_axis
+    monkeypatch.setattr(mxu_ntt, "mod_matmul_axis", lambda x, w: calls.append(x.shape) or real(x, w))
+    monkeypatch.setattr(radix2, "NARROW_MIN_LOG_H", 4)
+    want = json.loads(CONFIG2_PROOFS.read_text())["10"]
+    cfg, pis, blob = _config2_blob(10, narrow_ntt="mxu")
+    assert cfg.pcs.dft.narrow == "mxu" and calls
+    assert (hashlib.sha256(blob).hexdigest(), len(blob)) == (want["sha256"], want["len"])
+    assert verify(cfg, FibonacciAir(), deserialize_proof(blob), pis)
+
+
+def test_create_config_defaults_equal_jax():
+    """Every argument the two ``create_config``s share has the same
+    default, and the default config draws from the device rng."""
+    import inspect
+
+    from tpu_stark.prover.config import StarkConfig as JStarkConfig
+    from tpu_stark.prover.config import create_config as j_create_config
+    from tpu_stark_torch.prover.config import StarkConfig
+
+    mine = inspect.signature(create_config).parameters
+    theirs = inspect.signature(j_create_config).parameters
+    shared = set(mine) & set(theirs)
+    assert {"fri_params", "zk", "rng_seed", "hash", "mesh", "zk_rng", "zk_layout"} <= shared
+    for name in shared:
+        assert mine[name].default == theirs[name].default, name
+    for f in ("zk", "rng_seed", "zk_rng"):
+        assert StarkConfig.__dataclass_fields__[f].default == JStarkConfig.__dataclass_fields__[f].default
+    cfg = create_config(device="cpu")
+    assert cfg.zk_rng == "device" and cfg.pcs.dft.narrow is None
+    assert isinstance(cfg.pcs.rng, DeviceRng) and isinstance(cfg.pcs.val_mmcs._rng, DeviceRng)
+
+
 def _tamper_cases(proof):
     def commit_word(p):
         p.commitments.trace = (p.commitments.trace[0] ^ 1,) + tuple(p.commitments.trace[1:])
@@ -169,16 +238,21 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="A4"):
-        create_config(zk_rng="device", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        create_config(hash="poseidon2", zk_rng="device", device="cpu")
+    """The mesh is not ported and raises; the device rng and the 16-bit
+    grind work (on the CPU, through their plain versions)."""
     with pytest.raises(NotImplementedError):
         create_config(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError):
         create_config(hash="poseidon2", mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="device grind"):
-        Challenger().grind(16)
+    for h in ("keccak", "poseidon2"):
+        cfg = create_config(hash=h, zk_rng="device", device="cpu")
+        salts = cfg.pcs.val_mmcs._rng.sample_babybear_matrix_monty(8, 4)
+        assert salts.shape == (8, 4) and salts.device.type == "cpu" and int(salts.max()) < 0x78000001
+    ch = Challenger(device="cpu")
+    ch.observe_u32(12345)
+    probe = ch.clone()
+    w = ch.grind(16)
+    assert probe.check_witness(16, w)
 
 
 def test_port_never_imports_jax():
@@ -192,42 +266,63 @@ def test_port_never_imports_jax():
         "import chip_smoke\n"
         "chip_smoke.import_port()\n"
         "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'tpu_stark')))\n"
+        "print(sorted(k for k in sys.modules if k.startswith('tpu_stark_torch.')))\n"
     )
     root = pathlib.Path(__file__).resolve().parents[1]
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=300,
         check=True,
     )
-    assert out.stdout.strip() == "[]"
+    foreign, mine = out.stdout.strip().splitlines()
+    assert foreign == "[]"
+    for m in ("compat.device_rng", "challenger.grind", "ntt.mxu_ntt"):
+        assert f"'tpu_stark_torch.{m}'" in mine
 
 
-def _regen():
-    """Write JAX_PROOFS by running the JAX prover on the CPU."""
+def _fixture_entry(blob: bytes, full: bool) -> dict:
+    entry = {"sha256": hashlib.sha256(blob).hexdigest(), "len": len(blob)}
+    if full:
+        entry["proof_hex"] = blob.hex()
+    return entry
+
+
+def _regen(which: str):
+    """Write JAX_PROOFS (``fib``) or CONFIG2_PROOFS (``config2``) by running
+    the JAX prover on the CPU."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from tpu_stark.air.fibonacci import FibonacciAir as JAir
     from tpu_stark.air.fibonacci import fibonacci_value as j_fib_value
     from tpu_stark.air.fibonacci import generate_trace_rows as j_trace_rows
+    from tpu_stark.fri.config import create_benchmark_fri_params as j_bench_fri
     from tpu_stark.prover.config import create_config as j_create_config
     from tpu_stark.prover.proof import serialize_proof as j_serialize
     from tpu_stark.prover.prove import prove as j_prove
 
-    out = {}
-    for log_n in FIXTURE_LOGS:
+    def blob_of(cfg, log_n):
         n = 1 << log_n
-        for layout in ("tpu", "p3"):
-            cfg = j_create_config(zk=True, backend="cpu", zk_rng="smallrng", zk_layout=layout)
-            pis = [0, 1, j_fib_value(0, 1, n)]
-            blob = j_serialize(j_prove(cfg, JAir(), j_trace_rows(0, 1, n), pis))
-            entry = {"sha256": hashlib.sha256(blob).hexdigest(), "len": len(blob)}
-            if log_n <= FULL_BYTES_MAX_LOG:
-                entry["proof_hex"] = blob.hex()
-            out[f"{layout}_{log_n}"] = entry
-            print(f"n=2^{log_n} {layout}: {len(blob)} B", flush=True)
-    JAX_PROOFS.write_text(json.dumps(out, indent=1, sort_keys=True))
+        return j_serialize(j_prove(cfg, JAir(), j_trace_rows(0, 1, n), [0, 1, j_fib_value(0, 1, n)]))
+
+    out = {}
+    if which == "fib":
+        for log_n in FIXTURE_LOGS:
+            for layout in ("tpu", "p3"):
+                cfg = j_create_config(zk=True, backend="cpu", zk_rng="smallrng", zk_layout=layout)
+                blob = blob_of(cfg, log_n)
+                out[f"{layout}_{log_n}"] = _fixture_entry(blob, log_n <= FULL_BYTES_MAX_LOG)
+                print(f"n=2^{log_n} {layout}: {len(blob)} B", flush=True)
+        JAX_PROOFS.write_text(json.dumps(out, indent=1, sort_keys=True))
+    else:
+        for log_n in CONFIG2_LOGS:
+            # BASELINE config 2 at JAX's defaults (zk_rng="device", Keccak, layout "tpu")
+            blob = blob_of(j_create_config(j_bench_fri(1), zk=True, backend="cpu"), log_n)
+            out[str(log_n)] = _fixture_entry(blob, log_n <= CONFIG2_FULL_BYTES_MAX_LOG)
+            print(f"config 2 n=2^{log_n}: {len(blob)} B", flush=True)
+        CONFIG2_PROOFS.write_text(json.dumps(out, indent=1, sort_keys=True))
 
 
 if __name__ == "__main__":
-    assert sys.argv[1:] == ["regen"], "usage: python tests/test_torch_prove.py regen"
-    _regen()
+    assert sys.argv[1:] in (["regen"], ["regen", "config2"]), (
+        "usage: python tests/test_torch_prove.py regen [config2]")
+    _regen("config2" if sys.argv[2:] else "fib")

@@ -187,10 +187,10 @@ def test_streamed_commit_unported_stacks_raise():
 def test_wide_zk_raises():
     pcs = _pcs()
     domain = pcs.natural_domain_for_degree(16)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         wide.WideMatrixSource(torch.zeros((16, 8), dtype=torch.uint8), pcs.dft, 2, domain, zk_seed=1)
     cfg = create_config(zk=True, hash="poseidon2", device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         wide.prove_wide(cfg, keccak_air.KeccakAir(), torch.zeros((64, keccak_air.COLS), dtype=torch.uint8), [])
     with pytest.raises(ValueError):
         wide.WideMatrixSource(torch.zeros((16, 8), dtype=torch.uint8), pcs.dft, 2, domain, col_chunk=12)

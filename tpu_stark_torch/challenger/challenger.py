@@ -9,10 +9,10 @@
   canonical u32 and [u64; 4] commitments as little-endian bytes, samples by
   31-bit-masked rejection.
 
-``grind`` is the scalar proof-of-work search, used below
-``GRIND_DEVICE_MIN_BITS``; the device-batched search of
-``tpu_stark/challenger/grind.py`` is not ported yet, so higher bit counts
-raise instead of silently taking the host loop.
+``grind`` is the proof-of-work search, smallest witness first: the scalar
+host loop below ``GRIND_DEVICE_MIN_BITS``, and from there the batched
+search of ``grind.py`` on the challenger's device (the grind kernel on a
+CUDA device, its plain version on the CPU), as the JAX package dispatches.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Iterable, Sequence, Tuple
 
 from ..fields import babybear as bb
 from ..hash.keccak import keccak256
+from .grind import device_grind
 
 _MASK31 = (1 << 31) - 1
 
@@ -59,11 +60,12 @@ class HashChallenger:
 
 
 class Challenger:
-    def __init__(self, inner: HashChallenger | None = None):
+    def __init__(self, inner: HashChallenger | None = None, device="cuda"):
         self.inner = inner if inner is not None else HashChallenger()
+        self.device = device  # where ``grind`` searches at >= GRIND_DEVICE_MIN_BITS
 
     def clone(self) -> "Challenger":
-        return Challenger(self.inner.clone())
+        return Challenger(self.inner.clone(), self.device)
 
     def observe_u32(self, value: int) -> None:
         self.inner.observe_bytes(int(value).to_bytes(4, "little"))
@@ -94,15 +96,18 @@ class Challenger:
         return self.sample_bits(bits) == 0
 
     def grind(self, bits: int) -> int:
-        """Smallest canonical witness passing ``check_witness``."""
+        """Smallest canonical witness passing ``check_witness``; observes it
+        and its check's sample, as the verifier will."""
         if bits >= GRIND_DEVICE_MIN_BITS:
-            raise NotImplementedError(
-                f"device grind: later PR (proof_of_work_bits={bits})"
+            w = device_grind(
+                bytes(self.inner._input), bits, self.device,
+                host_check=lambda cand: self.clone().check_witness(bits, cand),
             )
-        for w in range(bb.P):
-            if self.clone().check_witness(bits, w):
-                self.observe_u32(w)
-                if self.sample_bits(bits) != 0:
-                    raise RuntimeError("grind witness failed its own check")
-                return w
-        raise RuntimeError("grinding failed (unreachable)")
+        else:
+            w = next((c for c in range(bb.P) if self.clone().check_witness(bits, c)), None)
+        if w is None:
+            raise RuntimeError("grinding failed (unreachable)")
+        self.observe_u32(w)
+        if self.sample_bits(bits) != 0:
+            raise RuntimeError("grind witness failed its own check")
+        return w

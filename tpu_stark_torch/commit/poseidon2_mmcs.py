@@ -98,9 +98,10 @@ class DuplexChallenger:
     """Observations buffer up to RATE elements, then overwrite the front of
     the state and permute; samples pop from the end of the squeezed rate
     window.  ``grind`` is the host search at any bit count, as in the JAX
-    package."""
+    package; ``device`` is accepted for the config's factory call and not
+    used."""
 
-    def __init__(self):
+    def __init__(self, device=None):
         self.state = [0] * WIDTH
         self.input_buffer: List[int] = []
         self.output_buffer: List[int] = []

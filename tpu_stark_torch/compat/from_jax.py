@@ -14,6 +14,7 @@ import torch
 
 from ..commit.merkle import ProverData
 from ..commit.pcs import PcsProverData
+from ..compat.device_rng import DeviceRng
 from ..compat.smallrng import SmallRng
 from ..fields import babybear as bb
 from ..fri.domains import TwoAdicCoset
@@ -22,6 +23,12 @@ from ..fri.domains import TwoAdicCoset
 def smallrng_from_state(words: Sequence[int]) -> SmallRng:
     """A SmallRng continuing from a copied Xoshiro256++ state (4 u64)."""
     return SmallRng([int(w) for w in words])
+
+
+def device_rng_from_state(key_words: Sequence[int], counter: int, device="cpu") -> DeviceRng:
+    """A DeviceRng continuing a JAX ``DeviceRng`` from its key data
+    (``jax.random.key_data(rng._key)``, two u32) and its call counter."""
+    return DeviceRng.from_state((int(key_words[0]), int(key_words[1])), counter, device)
 
 
 def prover_data_from_numpy(

@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "babybear.cuh"
+
 namespace {
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
@@ -121,7 +123,70 @@ __global__ void keccak_rows_kernel(const uint32_t* __restrict__ a, int64_t ka,
   }
 }
 
+// FRI proof-of-work verdicts, one thread per candidate witness w = start +
+// tid: Keccak-256 of (transcript input || w as 4 LE bytes), of which only
+// the tail block(s) holding w run here (the constant prefix blocks were
+// absorbed on the host into `prefix`; `tail` holds the padded tail's lanes
+// with zero witness bytes).  The challenger's draws pop the digest from the
+// end: draw k is digest bytes [28-4k, 32-4k) big-endian, masked to 31 bits,
+// rejected if >= P.  out[tid] = 1 if the first accepted draw has its low
+// `bits` bits zero, 2 if all 8 draws reject (the host decides those), else
+// 0.  No Pallas counterpart: it replaces tpu_stark/challenger/grind.py's XLA
+// program (_chunk_fn).  Bound by the integer ALU, like K1: n_blocks
+// permutations per candidate, one byte out.
+__global__ void keccak_grind_kernel(const uint64_t* __restrict__ prefix,
+                                    const uint64_t* __restrict__ tail, int n_blocks,
+                                    int w_off, int bits, uint64_t start, int64_t count,
+                                    uint8_t* __restrict__ out) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= count) return;
+  const uint32_t w = (uint32_t)(start + (uint64_t)tid);
+  uint64_t st[25];
+#pragma unroll
+  for (int i = 0; i < 25; ++i) st[i] = prefix[i];
+  for (int b = 0; b < n_blocks; ++b) {
+#pragma unroll
+    for (int l = 0; l < 17; ++l) {
+      uint64_t add = tail[b * 17 + l];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = w_off + i;
+        if (p / 136 == b && (p % 136) / 8 == l)
+          add ^= (uint64_t)((w >> (8 * i)) & 0xFFu) << (8 * (p % 8));
+      }
+      st[l] ^= add;
+    }
+    keccak_f(st);
+  }
+  uint32_t chosen = 0;
+  bool taken = false;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint64_t lane = st[3 - k / 2];
+    const uint32_t half = (k % 2 == 0) ? (uint32_t)(lane >> 32) : (uint32_t)lane;
+    const uint32_t v = __byte_perm(half, 0, 0x0123) & 0x7FFFFFFFu;
+    if (!taken && v < ts::P) {
+      chosen = v;
+      taken = true;
+    }
+  }
+  out[tid] = !taken ? 2 : ((chosen & ((1u << bits) - 1u)) == 0 ? 1 : 0);
+}
+
 }  // namespace
+
+// Grind verdicts of the witnesses start .. start+count-1 into out (count).
+// Returns the CUDA error status of the launch.
+extern "C" int ts_keccak_grind(const uint64_t* prefix, const uint64_t* tail, int n_blocks,
+                               int w_off, int bits, uint64_t start, int64_t count,
+                               uint8_t* out, cudaStream_t stream) {
+  if (count <= 0) return 0;
+  const int threads = 128;
+  const int64_t blocks = (count + threads - 1) / threads;
+  keccak_grind_kernel<<<(unsigned)blocks, threads, 0, stream>>>(prefix, tail, n_blocks, w_off,
+                                                                bits, start, count, out);
+  return (int)cudaGetLastError();
+}
 
 // Hash n rows of (a_row || b_row) into out (n, 8).  Returns the CUDA error
 // status of the launch.

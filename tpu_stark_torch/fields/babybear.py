@@ -74,8 +74,16 @@ def monty_scalar(x: int) -> int:
     return host_to_monty(x % P)
 
 
-def to_tensor(x_np: np.ndarray, device) -> torch.Tensor:
-    """uint32 numpy residues -> int32 tensor on ``device`` (same bits)."""
+def to_tensor(x_np, device) -> torch.Tensor:
+    """uint32 numpy residues -> int32 tensor on ``device`` (same bits).  An
+    int32 tensor already on ``device`` (a device-rng sample) is returned as
+    it is."""
+    if isinstance(x_np, torch.Tensor):
+        want = torch.device(device)
+        if x_np.dtype != I32 or x_np.device.type != want.type or (
+                want.index is not None and x_np.device.index != want.index):
+            raise ValueError(f"expected int32 residues on {device}, got {x_np.dtype} on {x_np.device}")
+        return x_np
     return torch.from_numpy(np.ascontiguousarray(x_np).astype(np.int32)).to(device)
 
 

@@ -26,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu")
+SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu")
 HEADERS = ("babybear.cuh",)
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
@@ -63,7 +63,16 @@ POSEIDON2_ABSORB = KernelInfo(
     "poseidon2_absorb", "tpu_stark_torch/csrc/poseidon2_sponge.cu",
     "tpu_stark/hash/pallas_poseidon2.py:167",
 )
-ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB)
+MXU_MM = KernelInfo(
+    "mxu_mm", "tpu_stark_torch/csrc/mxu_ntt.cu",
+    "tpu_stark/ntt/mxu_ntt.py:167",
+)
+# no Pallas counterpart: it replaces the JAX package's XLA grind program
+KECCAK_GRIND = KernelInfo(
+    "keccak_grind", "tpu_stark_torch/csrc/keccak_sponge.cu",
+    "tpu_stark/challenger/grind.py:74",
+)
+ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM, KECCAK_GRIND)
 
 
 def reset_launch_counts() -> None:
@@ -159,6 +168,10 @@ def lib() -> ctypes.CDLL:
             so.ts_poseidon2_rows.restype = i32
             so.ts_poseidon2_absorb.argtypes = [vp, vp, i64, i64, i64, i32, vp]
             so.ts_poseidon2_absorb.restype = i32
+            so.ts_mxu_mm.argtypes = [vp, vp, vp, i32, i64, vp]
+            so.ts_mxu_mm.restype = i32
+            so.ts_keccak_grind.argtypes = [vp, vp, i32, i32, i32, ctypes.c_uint64, i64, vp, vp]
+            so.ts_keccak_grind.restype = i32
             _lib = so
         return _lib
 

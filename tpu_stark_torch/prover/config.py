@@ -2,7 +2,8 @@
 ``tpu_stark/prover/config.py``): hash stack + MMCS + FRI params + DFT
 device + challenger, with the zk (hiding) switch: salted Merkle leaves,
 4 random FRI codewords and a randomized trace.  Two hash stacks: Keccak
-(the reference's) and Poseidon2 (field-native).
+(the reference's) and Poseidon2 (field-native).  The defaults equal the JAX
+package's ``create_config()``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..challenger.challenger import Challenger
 from ..commit.merkle import MerkleTreeMmcs
 from ..commit.poseidon2_mmcs import DuplexChallenger, Poseidon2Mmcs
 from ..commit.pcs import TwoAdicFriPcs
+from ..compat.device_rng import DeviceRng
 from ..compat.smallrng import SmallRng
 from ..fri.config import FriParameters, create_test_fri_params
 from ..ntt.dft import Dft
@@ -27,22 +29,24 @@ class StarkConfig:
     zk: bool = False
     rng_seed: int = 1  # trace-randomizer stream (zk)
     challenger_factory: type = Challenger
-    zk_rng: str = "smallrng"
+    zk_rng: str = "device"  # hiding-randomness generator (see make_zk_rng)
     device: torch.device = torch.device("cuda")
 
     def challenger(self):
-        return self.challenger_factory()
+        """A fresh Fiat-Shamir transcript; its proof-of-work search runs on
+        the config's device."""
+        return self.challenger_factory(device=self.device)
 
 
-def make_zk_rng(mode: str, seed: int):
-    """``"smallrng"``: the reference-parity host Xoshiro256++ stream."""
+def make_zk_rng(mode: str, seed: int, stream: str = "", device="cuda"):
+    """``"device"``: the counter-based Threefry stream on ``device``, one
+    stream per tag (``"salts"``, ``"codewords"``, ``"trace"``);
+    ``"smallrng"``: the reference-parity host Xoshiro256++ stream, which
+    ignores the tag (the reference seeds its rngs identically)."""
+    if mode == "device":
+        return DeviceRng(seed, stream, device)
     if mode == "smallrng":
         return SmallRng.seed_from_u64(seed)
-    if mode == "device":
-        raise NotImplementedError(
-            "zk_rng='device' (the JAX package's counter-based Threefry stream, "
-            "ROADMAP A4) is not ported yet; use zk_rng='smallrng'"
-        )
     raise ValueError(f"unknown zk_rng mode {mode!r}")
 
 
@@ -52,9 +56,10 @@ def create_config(
     rng_seed: int = 1,
     hash: str = "keccak",
     mesh=None,
-    zk_rng: str = "smallrng",
+    zk_rng: str = "device",
     zk_layout: str = "tpu",
     device="cuda",
+    narrow_ntt=None,
 ) -> StarkConfig:
     """Assemble a full config on ``device`` (the card unless the caller
     passes another device, as the CPU tests do).
@@ -63,8 +68,11 @@ def create_config(
     the byte-level Fiat-Shamir challenger.  ``hash="poseidon2"`` is the
     field-native stack: Poseidon2 Merkle trees and the duplex challenger.
     ``zk_layout``: ``"tpu"`` or ``"p3"`` (random columns appended to every
-    hiding commit).  The sharded ``mesh`` path and the device zk rng are not
-    ported yet and raise."""
+    hiding commit).  ``zk_rng``: ``"device"`` (the counter-based stream on
+    the device, as in the JAX package) or ``"smallrng"`` (the reference's
+    host stream).  ``narrow_ntt``: ``None`` (every NTT on K2) or ``"mxu"``
+    (tall narrow NTTs on the limb-matmul route, K5; the same proof bytes).
+    The sharded ``mesh`` path is not ported yet and raises."""
     if hash == "keccak":
         mmcs_cls, challenger_factory = MerkleTreeMmcs, Challenger
     elif hash == "poseidon2":
@@ -75,17 +83,18 @@ def create_config(
         raise NotImplementedError("the sharded mesh prover (ROADMAP A11) is not ported yet")
     device = torch.device(device)
     fri = fri_params if fri_params is not None else create_test_fri_params(2)
-    dft = Dft(device)
+    dft = Dft(device, narrow=narrow_ntt)
     if zk:
         # the salt stream and the codeword stream are independently seeded
-        # rngs, as in the reference
+        # rngs, as in the reference; the device stream also separates them
+        # by tag
         pcs = TwoAdicFriPcs(
             dft,
             fri,
-            val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed)),
+            val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed, "salts", device)),
             challenge_mmcs=mmcs_cls(),
             num_random_codewords=4,
-            rng=make_zk_rng(zk_rng, rng_seed),
+            rng=make_zk_rng(zk_rng, rng_seed, "codewords", device),
             zk_layout=zk_layout,
         )
     else:

@@ -160,7 +160,7 @@ def prove(
 
     # -- 1. commit (possibly randomized) trace -----------------------------
     if config.zk:
-        rng = make_zk_rng(config.zk_rng, config.rng_seed)
+        rng = make_zk_rng(config.zk_rng, config.rng_seed, "trace", dev)
         r = bb.to_tensor(rng.sample_babybear_matrix_monty(n, width), dev)
         coeffs = dft.idft_batch(trace_dev)
         coeffs2 = torch.cat([bb.sub(coeffs, r), r], dim=0)  # (2n, w)

@@ -21,8 +21,8 @@ that.  Here:
   (``commit/pcs.py`` dispatches on ``eval_at_point`` / ``reduced_contrib``).
 
 Proofs are byte-identical to the dense prover's and the JAX package's.
-Not ported: the zk wide prover (its per-chunk trace randomizer draws from
-the device rng, ROADMAP A4), the Keccak-stack streamed commit
+Not ported: the zk wide prover (its per-chunk trace randomizer, ROADMAP
+queue item 9), the Keccak-stack streamed commit
 (``KeccakRowStream``), hiding streamed commits, the sharded mesh path, and
 the JAX package's per-partition-class program cache and 64-column panel
 padding, which exist only to bound XLA compiles.
@@ -90,8 +90,7 @@ class WideMatrixSource:
     ):
         if zk_seed is not None:
             raise NotImplementedError(
-                "the zk wide source draws its per-chunk trace randomizer from the device rng "
-                "(ROADMAP A4), which is not ported yet"
+                "the zk wide source's per-chunk trace randomizer is not ported yet (ROADMAP queue item 9)"
             )
         self.n, self.w = int(trace.shape[0]), int(trace.shape[1])
         if self.n != domain.size:
@@ -412,8 +411,7 @@ def prove_wide(
         raise ValueError("the wide prover needs air.partitions() (see air.keccak_air.Partition)")
     if config.zk:
         raise NotImplementedError(
-            "the zk wide prover streams its trace randomizer from the device rng (ROADMAP A4), "
-            "which is not ported yet"
+            "the zk wide prover (its streamed trace randomizer) is not ported yet (ROADMAP queue item 9)"
         )
     pcs = config.pcs
     dev = config.device
