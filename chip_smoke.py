@@ -12,7 +12,12 @@ line each, any failure an uncaught exception and a nonzero exit:
 2. K1 (Keccak sponge) against its plain torch version, exact, at leaf
    shapes (2^20, 6), (2^20, 8), (1000, 40) and 2^20 compress pairs;
 3. K2 (NTT passes) against the plain passes, exact: dft/idft at (2^20, 2),
-   (2^21, 8), (2^23, 2), (16384, 128) and a coset LDE at (2^20, 2);
+   (2^21, 8), (2^23, 2), (16384, 128) and a coset LDE at (2^20, 2); then at
+   the main paths' shapes (2^21, 128), (2^20, 128) inverse, (2^18, 257) and
+   (2^23, 2) each pass alone and the whole ``dft``, exact and timed against
+   plain, the per-pass bound and the whole transform's HBM bound (one read
+   and one write of the matrix), its int32 bound beside it (L2 flushed
+   before each launch where the matrix would fit in it);
 4. fib_air zk n = 8 proofs, both layouts, byte-equal to the golden files;
 5. n = 2^14 proofs, both layouts, with the SHA-256 and length the JAX
    package produced (tests/golden/torch_fib_zk_jax_proofs.json);
@@ -83,7 +88,8 @@ instruction per scheduler per clock, the most any integer mix can reach;
 also its 16 * 2 * n^2 * M int8 tensor operations over the data sheet's
 dense int8 peak, 1,979 TOPS.  Instruction counts are lower bounds read off
 the sources: a Montgomery product 5 (three multiplies, a subtract, a
-select), a modular add 2, a Keccak round 180 (LOP3-fused xors, two funnel
+select), a modular add 2, an NTT butterfly 9 (4 in a transform's stage 0,
+whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
 shifts per 64-bit rotation), K5's epilogue 30 per output (the 7-diagonal
 recombine in 64-bit adds and shifts, one REDC, a 64-bit remainder by P).
 """
@@ -139,7 +145,14 @@ KECCAK_F_OPS = 24 * 180
 # per permutation (8 external rounds of 64 + 0 and 100 adds, 13 internal of
 # 20 and 32, the first M_E's 84 adds)
 POSEIDON2_PERM_OPS = 772 * 5 + 1300 * 2
-NTT_BUTTERFLY_OPS = 8  # Shoup product 4, add 2, subtract 2
+NTT_BUTTERFLY_OPS = 9  # Montgomery product 5, add 2, subtract 2
+NTT_STAGE0_OPS = 4  # a transform's stage 0: every twiddle is 1, no product
+
+
+def _ntt_ops(n: int, stages: int, first: bool) -> int:
+    """int32 instructions of ``stages`` butterfly stages over n elements
+    (``first``: they include the transform's stage 0)."""
+    return n // 2 * (stages * NTT_BUTTERFLY_OPS - first * (NTT_BUTTERFLY_OPS - NTT_STAGE0_OPS))
 
 
 INT8_TENSOR_OPS_PER_S = 1.979e15
@@ -290,6 +303,108 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         entry[0] += 1
         entry[1] = max(entry[1], err)
     return done
+
+
+# K2's timed shapes: config 4's chunk LDE, its iNTT and a quotient panel, and
+# the fib trace LDE
+K2_TIMED = (((1 << 21, 128), False), ((1 << 20, 128), True), ((1 << 18, 257), False), ((1 << 23, 2), False))
+L2_BYTES = 50 << 20
+
+
+def _cuda_ms_cold(torch, fn, reps: int, flush) -> float:
+    """Mean device time of fn with L2 flushed before each launch (where
+    ``flush`` is a tensor; with None, as _cuda_ms)."""
+    if flush is None:
+        return _cuda_ms(torch, fn, reps)
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _phase3_k2(torch, port, rand_monty, results, dev) -> str:
+    """K2 exact against its plain version (dft/idft, the coset LDE, each pass
+    alone), then each pass and the whole transform timed at K2_TIMED against
+    plain, the per-pass bound and the whole transform's bound (one read and
+    one write of the matrix); returns the phase's line."""
+    nk, radix2, bb = port.ntt_kernel, port.radix2, port.bb
+    lines = []
+    for h, w in [(1 << 20, 2), (1 << 21, 8), (1 << 23, 2), (16384, 128)]:
+        x = rand_monty((h, w))
+        for inverse in (False, True):
+            got = radix2.idft_batch(x) if inverse else radix2.dft_batch(x)
+            plain = nk.dft_plain(x, inverse)
+            if inverse:
+                plain = bb.mul_canonical(plain, pow(h, bb.P - 2, bb.P))
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain):
+                raise AssertionError(f"K2 ({h}, {w}) inverse={inverse}: kernel != plain")
+    x = rand_monty((1 << 20, 2))  # coset LDE at (2^20, 2), added_bits 2
+    got = radix2.coset_lde_batch(x, 2, bb.GENERATOR)
+    coeffs = bb.mul_canonical(nk.dft_plain(x, True), pow(1 << 20, bb.P - 2, bb.P))
+    pad = torch.zeros((1 << 22, 2), dtype=torch.int32, device=dev)
+    pad[: 1 << 20] = coeffs
+    pad = bb.mul_canonical(pad, bb.powers(bb.GENERATOR, 1 << 22, dev)[:, None])
+    want = nk.dft_plain(pad)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K2 coset_lde_batch (2^20, 2) +2 bits: kernel != plain")
+    lines.append("dft/idft exact at (1048576, 2), (2097152, 8), (8388608, 2), (16384, 128); "
+                 "coset_lde (1048576, 2) +2 bits exact")
+
+    flush = torch.empty(L2_BYTES + (14 << 20), dtype=torch.int8, device=dev)
+    for (h, w), inverse in K2_TIMED:
+        x = rand_monty((h, w))
+        log_h, n = h.bit_length() - 1, h * w
+        cold = flush if n * 4 < L2_BYTES else None  # config 4 finds these cold
+        tw = nk.stage_twiddles(log_h, inverse, dev)
+        p = nk.plan(log_h, w)
+        got = nk.pass0(x, p, tw)
+        cur = nk.pass0_plain(x, p.k0, tw)
+        err = _max_abs_err(torch, got, cur)
+        stages = [p.k0]
+        times = [(_cuda_ms_cold(torch, lambda: nk.pass0(x, p, tw), 10, cold),
+                  _cuda_ms(torch, lambda: nk.pass0_plain(x, p.k0, tw), 1))]
+        for s0, k, j_log in p.passes:
+            got = nk.run_pass(cur.clone(), s0, k, j_log, p, tw)
+            nxt = nk.pass_plain(cur, s0, k, tw)
+            err = max(err, _max_abs_err(torch, got, nxt))
+            stages.append(k)
+            times.append((_cuda_ms_cold(torch, lambda: nk.run_pass(got, s0, k, j_log, p, tw), 10, cold),
+                          _cuda_ms(torch, lambda: nk.pass_plain(cur, s0, k, tw), 1)))
+            cur = nxt
+        torch.cuda.synchronize()
+        if err:
+            raise AssertionError(f"K2 ({h}, {w}) inverse={inverse}: a pass kernel != its plain pass ({err})")
+        dft_ms = _cuda_ms_cold(torch, lambda: nk.dft(x, inverse), 10, cold)
+        dft_plain_ms = _cuda_ms(torch, lambda: nk.dft_plain(x, inverse), 1)
+        transform_bound = 2 * n * 4 / HBM_BYTES_PER_S * 1e3  # one read and one write of the matrix
+        transform_ops = _ntt_ops(n, log_h, True) / INT32_OPS_PER_S * 1e3
+        passes = []
+        for i, (k, (ms, plain_ms)) in enumerate(zip(stages, times)):
+            bound_ms, bound_by = _bound(2 * n * 4, _ntt_ops(n, k, i == 0))
+            passes.append(f"{'pass0' if i == 0 else 'pass'} k={k} {ms:.4f} ms vs plain {plain_ms:.3f} ms, "
+                          f"{100 * bound_ms / ms:.1f}% of {bound_ms:.4f} ms ({bound_by})")
+            name = "ntt_pass0" if i == 0 else "ntt_pass"
+            if (h, w) == K2_TIMED[0][0] and name not in results:
+                results[name] = (err, ms, plain_ms, bound_ms, bound_by, {
+                    "shape": [h, w], "transform_ms": round(dft_ms, 6),
+                    "transform_bound_ms": round(transform_bound, 6), "transform_ops_ms": round(transform_ops, 6)})
+        lines.append(
+            f"({h}, {w}){' inv' if inverse else ''}: dft {dft_ms:.4f} ms vs plain {dft_plain_ms:.3f} ms, "
+            f"{100 * transform_bound / dft_ms:.1f}% of the transform's HBM bound {transform_bound:.4f} ms "
+            f"(int32 instructions {transform_ops:.4f} ms)"
+            f"{' (L2 flushed)' if cold is not None else ''}; " + "; ".join(passes))
+    del flush
+    return "[3] K2 ntt == plain (exact): " + " | ".join(lines)
 
 
 def _phase14_mxu(torch, port, rand_monty, results) -> str:
@@ -498,8 +613,7 @@ def main() -> int:
     port = import_port()
     kernels, native, bb = port.kernels, port.native, port.bb
     keccak_air, poseidon2_air, wide = port.keccak_air, port.poseidon2_air, port.wide
-    keccak_kernel, poseidon2_kernel, ntt_kernel, radix2 = (
-        port.keccak_kernel, port.poseidon2_kernel, port.ntt_kernel, port.radix2)
+    keccak_kernel, poseidon2_kernel = port.keccak_kernel, port.poseidon2_kernel
     FibonacciAir, fibonacci_value, generate_trace_rows = (
         port.FibonacciAir, port.fibonacci_value, port.generate_trace_rows)
     create_config, prove, verify, prove_mod = port.create_config, port.prove, port.verify, port.prove_mod
@@ -558,66 +672,7 @@ def main() -> int:
     print("[2] K1 keccak sponge == plain (exact): " + "; ".join(k1_lines), flush=True)
 
     # -- 3. K2 vs plain --------------------------------------------------------
-    k2_lines = []
-    for h, w in [(1 << 20, 2), (1 << 21, 8), (1 << 23, 2), (16384, 128)]:
-        x = rand_monty((h, w))
-        for inverse in (False, True):
-            got = radix2.idft_batch(x) if inverse else radix2.dft_batch(x)
-            plain = ntt_kernel.dft_plain(x, inverse)
-            if inverse:
-                plain = bb.mul_canonical(plain, pow(h, bb.P - 2, bb.P))
-            torch.cuda.synchronize()
-            if not torch.equal(got, plain):
-                raise AssertionError(f"K2 ({h}, {w}) inverse={inverse}: kernel != plain")
-        ms = _cuda_ms(torch, lambda: ntt_kernel.dft(x), 10)
-        plain_ms = _cuda_ms(torch, lambda: ntt_kernel.dft_plain(x), 2)
-        k2_lines.append(f"({h}, {w}): {ms:.4f} ms vs plain {plain_ms:.3f} ms "
-                        f"({h * w / ms / 1e3:.1f} Melems/s)")
-    # coset LDE at (2^20, 2), added_bits 2
-    x = rand_monty((1 << 20, 2))
-    got = radix2.coset_lde_batch(x, 2, bb.GENERATOR)
-    coeffs = bb.mul_canonical(ntt_kernel.dft_plain(x, True), pow(1 << 20, bb.P - 2, bb.P))
-    pad = torch.zeros((1 << 22, 2), dtype=torch.int32, device=dev)
-    pad[: 1 << 20] = coeffs
-    pad = bb.mul_canonical(pad, bb.powers(bb.GENERATOR, 1 << 22, dev)[:, None])
-    want = ntt_kernel.dft_plain(pad)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("K2 coset_lde_batch (2^20, 2) +2 bits: kernel != plain")
-    k2_lines.append("coset_lde (1048576, 2) +2 bits exact")
-    # the two pass kernels alone at the trace-LDE shape (2^23, 2)
-    x = rand_monty((1 << 23, 2))
-    tw, twp = ntt_kernel.stage_twiddles(23, False, dev)
-    p = ntt_kernel.plan(23, 2)
-    got0 = ntt_kernel.pass0(x, p, tw, twp)
-    want0 = ntt_kernel.pass0_plain(x, p.k0, tw, twp)
-    s0, k, j_log = p.passes[0]
-    got1 = ntt_kernel.run_pass(want0.clone(), s0, k, j_log, p, tw, twp)
-    want1 = ntt_kernel.pass_plain(want0, s0, k, tw, twp)
-    torch.cuda.synchronize()
-    err0, err1 = _max_abs_err(torch, got0, want0), _max_abs_err(torch, got1, want1)
-    if err0 or err1:
-        raise AssertionError(f"K2 pass kernels != plain passes ({err0}, {err1})")
-    buf = want0.clone()
-    n_el = x.numel()  # each pass reads and writes the matrix once
-    results["ntt_pass0"] = (
-        err0,
-        _cuda_ms(torch, lambda: ntt_kernel.pass0(x, p, tw, twp), 10),
-        _cuda_ms(torch, lambda: ntt_kernel.pass0_plain(x, p.k0, tw, twp), 2),
-        *_bound(2 * n_el * 4, p.k0 * n_el // 2 * NTT_BUTTERFLY_OPS),
-    )
-    results["ntt_pass"] = (
-        err1,
-        _cuda_ms(torch, lambda: ntt_kernel.run_pass(buf, s0, k, j_log, p, tw, twp), 10),
-        _cuda_ms(torch, lambda: ntt_kernel.pass_plain(want0, s0, k, tw, twp), 2),
-        *_bound(2 * n_el * 4, k * n_el // 2 * NTT_BUTTERFLY_OPS),
-    )
-    k2_lines.append(
-        f"(8388608, 2) pass0 k={p.k0}: {results['ntt_pass0'][1]:.4f} ms vs plain "
-        f"{results['ntt_pass0'][2]:.3f} ms; pass s0={s0} k={k}: "
-        f"{results['ntt_pass'][1]:.4f} ms vs plain {results['ntt_pass'][2]:.3f} ms"
-    )
-    print("[3] K2 ntt == plain (exact): " + "; ".join(k2_lines), flush=True)
+    print(_phase3_k2(torch, port, rand_monty, results, dev), flush=True)
 
     air = FibonacciAir()
 
@@ -942,13 +997,14 @@ def main() -> int:
 
     kernel_rows = []
     for info in kernels.ALL:
-        err, ms, plain_ms, bound_ms, bound_by = results[info.name]
+        err, ms, plain_ms, bound_ms, bound_by, *more = results[info.name]
         err = max(err, shape_err.get(info.name, 0))
         kernel_rows.append({
             "name": info.name, "route": "cuda", "source": info.source, "replaces": info.replaces,
             "launches": sum(launches[info.name] for launches in path_launches.values()),
             "max_abs_err": err, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by, "library_ms": None,
+            **(more[0] if more else {}),
         })
     print(_smi_line(), flush=True)
     print(json.dumps({"kernels": kernel_rows}), flush=True)

@@ -64,6 +64,41 @@ def test_ntt_kernel_equals_plain(dev, log_h, w):
         assert torch.equal(ntt_kernel.dft(x, inverse), ntt_kernel.dft_plain(x, inverse))
 
 
+@pytest.mark.parametrize("log_h", [9, 10, 11, 18, 19, 20, 21])
+@pytest.mark.parametrize("w", [1, 2, 3, 8, 128, 257])
+def test_ntt_kernel_equals_plain_at_pass_boundaries(dev, log_h, w):
+    """Heights where the plan goes from one pass to two (2^9 -> 2^10 for
+    w >= 8, 2^10 -> 2^11 below) and from two to three (2^18 -> 2^19,
+    2^20 -> 2^21)."""
+    if (1 << log_h) * w > 1 << 26:
+        w = max(1, min(w, (1 << 26) >> log_h))
+    x = _monty(dev, (1 << log_h, w), log_h * 1000 + w)
+    p = ntt_kernel.plan(log_h, w)
+    before = (kernels.NTT_PASS0.launches, kernels.NTT_PASS.launches)
+    for inverse in (False, True):
+        assert torch.equal(ntt_kernel.dft(x, inverse), ntt_kernel.dft_plain(x, inverse))
+    assert kernels.NTT_PASS0.launches == before[0] + 2
+    assert kernels.NTT_PASS.launches == before[1] + 2 * len(p.passes)
+
+
+@pytest.mark.parametrize("w,offset", [(128, 1), (4, 1), (4, 2), (8, 2), (2, 1), (3, 1)])
+def test_ntt_kernel_on_a_misaligned_row_slice(dev, w, offset):
+    """A matrix whose data_ptr() is not 16-byte aligned takes the narrower
+    vector (or scalar) path of the same kernel."""
+    h = 1 << 15
+    flat = _monty(dev, (h * w + offset,), w + offset)
+    x = flat[offset:].view(h, w)
+    assert ntt_kernel.vector_lanes(w, x) < 4
+    for inverse in (False, True):
+        assert torch.equal(ntt_kernel.dft(x, inverse), ntt_kernel.dft_plain(x, inverse))
+
+
+def test_ntt_kernel_equals_plain_at_the_chunk_lde_shape(dev):
+    x = _monty(dev, (1 << 21, 128), 21128)
+    for inverse in (False, True):
+        assert torch.equal(ntt_kernel.dft(x, inverse), ntt_kernel.dft_plain(x, inverse))
+
+
 def test_coset_lde_on_card_equals_cpu(dev):
     x = _monty(dev, (1 << 10, 4), 5)
     got = radix2.coset_lde_batch(x, 2, bb.GENERATOR).cpu()

@@ -57,13 +57,6 @@ def test_unary_ops(op):
     _eq(getattr(bb, op)(_t(a)), getattr(jbb, op)(_j(a)))
 
 
-def test_shoup_mul():
-    x, w = _pair(5)
-    wp = jbb.np_shoup(w)
-    got = bb.shoup_mul(_t(x), torch.from_numpy(w.astype(np.int64)), torch.from_numpy(wp.astype(np.int64)))
-    _eq(got, jbb.shoup_mul(_j(x), _j(w), _j(wp)))
-
-
 @pytest.mark.parametrize("e", [0, 1, 2, 7, 1 << 20, bb.P - 2])
 def test_pow_const(e):
     a, _ = _pair(7)
@@ -88,7 +81,6 @@ def test_host_helpers():
     x = _rand(13, (64,))
     assert np.array_equal(bb.np_to_monty(x), jbb.np_to_monty(x))
     assert np.array_equal(bb.np_from_monty(x), jbb.np_from_monty(x))
-    assert np.array_equal(bb.np_shoup(x), jbb.np_shoup(x))
     assert np.array_equal(bb.np_powers(77, 100), jbb.np_powers(77, 100))
     for bits in range(0, 28):
         assert bb.two_adic_generator(bits) == jbb.two_adic_generator(bits)

@@ -78,40 +78,88 @@ def test_matches_naive_dft():
     assert np.array_equal(got, jref.naive_dft_matrix(bb.np_from_monty(m)))
 
 
-@pytest.mark.parametrize("log_h", [1, 8, 9, 14, 20, 23, 26])
-@pytest.mark.parametrize("w", [1, 2, 3, 6, 8, 16, 33, 128])
+@pytest.mark.parametrize("log_h", [1, 8, 9, 14, 20, 21, 22, 23, 24, 26])
+@pytest.mark.parametrize("w", [1, 2, 3, 6, 8, 16, 33, 128, 257])
 def test_plan_covers_every_stage_within_the_tile(log_h, w):
     p = ntt_kernel.plan(log_h, w)
     stages = list(range(p.k0)) + [s for s0, k, _ in p.passes for s in range(s0, s0 + k)]
     assert stages == list(range(log_h))
-    assert p.wc == min(w, ntt_kernel.MAX_WC)
-    assert p.wc << (p.k0 + p.g_log) <= ntt_kernel.SMEM_WORDS
-    assert p.g_log <= log_h - p.k0
+    ks = [p.k0] + [k for _, k, _ in p.passes]
+    # a block's tile (2^k rows of 2^lanes_log words) is at most 64 KB, so
+    # three blocks share an SM; as few passes as that allows, even
+    max_k = ntt_kernel.TILE_LOG - p.lanes_log
+    assert p.lanes_log == (5 if w >= 8 else 4)
+    assert max(ks) <= max_k and max(ks) - min(ks) <= 1
+    assert len(ks) == -(-log_h // max_k)
+    if log_h in (17, 18):  # three passes of 8 stages before
+        assert len(ks) == 2
+    if 20 <= log_h <= 24:
+        assert len(ks) == (2 if w < 8 and log_h == 20 else 3)
+    lanes = 1 << p.lanes_log
+    assert p.col_tiles == -(-w // lanes)
+    # a tile row is one line of the matrix: `lanes` columns, or adjacent rows
+    assert p.g_log <= log_h - p.k0 and w << p.g_log <= max(w, lanes)
+    for v in (1, 2, 4):
+        assert ntt_kernel.smem_bytes(p.k0, p.lanes_log, p.g_log, v) <= ntt_kernel.SMEM_LIMIT
     for s0, k, j_log in p.passes:
-        assert k >= 1 and j_log <= s0
-        assert p.wc << (k + j_log) <= ntt_kernel.SMEM_WORDS
+        assert k >= 1 and j_log <= s0 and w << j_log <= max(w, lanes)
+        for v in (1, 2, 4):
+            assert ntt_kernel.smem_bytes(k, p.lanes_log, j_log, v) <= ntt_kernel.SMEM_LIMIT
 
 
 def test_twiddle_table_is_prefix_stable_and_matches_jax():
-    tw, twp = ntt_kernel.stage_twiddles(12, False, "cpu")
+    tw = ntt_kernel.stage_twiddles(12, False, "cpu")
     jtw = jr._stage_twiddles_np(12, False)
     for s in range(12):
         m = 1 << s
-        assert np.array_equal(bb.to_numpy(tw[m - 1 : 2 * m - 1]), jtw[s][0])
-        assert np.array_equal(bb.to_numpy(twp[m - 1 : 2 * m - 1]), jtw[s][1])
-    small, _ = ntt_kernel.stage_twiddles(5, False, "cpu")
+        assert np.array_equal(bb.np_from_monty(bb.to_numpy(tw[m - 1 : 2 * m - 1])), jtw[s][0])
+    small = ntt_kernel.stage_twiddles(5, False, "cpu")
     assert torch.equal(small[: (1 << 5) - 1], tw[: (1 << 5) - 1])
 
 
+@pytest.mark.parametrize("inverse", [False, True])
+def test_later_pass_twiddle_is_inner_times_twist(inverse):
+    """The later-pass kernel builds the stage-(s0+l) twiddle of row
+    t'*2^s0 + j as w_{2^(l+1)}^t' * w_{2^(s0+l+1)}^j from two table entries;
+    checked against JAX's stage tables."""
+    log_h = 14
+    tw = ntt_kernel.stage_twiddles(log_h, inverse, "cpu")
+    jtw = jr._stage_twiddles_np(log_h, inverse)
+    rng = np.random.default_rng(3)
+    for s0 in (1, 5, 7):
+        for l in range(log_h - s0):
+            t = torch.as_tensor(rng.integers(0, 1 << l, 16))
+            j = torch.as_tensor(rng.integers(0, 1 << s0, 16))
+            inner = tw[(1 << l) - 1 + t]
+            twist = tw[(1 << (s0 + l)) - 1 + j]
+            got = bb.np_from_monty(bb.to_numpy(bb.mul(inner, twist)))
+            assert np.array_equal(got, jtw[s0 + l][0][((t << s0) + j).numpy()])
+
+
 def test_passes_compose_to_the_transform():
-    m = _t(_monty(8, (1 << 11, 3)))
-    tw, twp = ntt_kernel.stage_twiddles(11, True, "cpu")
-    p = ntt_kernel.plan(11, 3)
-    x = ntt_kernel.pass0_plain(m, p.k0, tw, twp)
+    m = _t(_monty(8, (1 << 13, 3)))
+    tw = ntt_kernel.stage_twiddles(13, True, "cpu")
+    p = ntt_kernel.plan(13, 3)
+    assert len(p.passes) == 1  # two passes
+    x = ntt_kernel.pass0_plain(m, p.k0, tw)
     for s0, k, _ in p.passes:
-        x = ntt_kernel.pass_plain(x, s0, k, tw, twp)
+        x = ntt_kernel.pass_plain(x, s0, k, tw)
     assert torch.equal(x, ntt_kernel.dft(m, inverse=True))
     assert torch.equal(x, ntt_kernel.dft_plain(m, inverse=True))
+
+
+@pytest.mark.parametrize("max_stages", [1, 3, 5, 13])
+def test_any_pass_split_gives_the_transform(max_stages):
+    """The passes compose to the transform for any split of the stages, not
+    only the plan's (the alternatives ``port_timing.py k2`` times)."""
+    m = _t(_monty(11, (1 << 13, 2)))
+    tw = ntt_kernel.stage_twiddles(13, False, "cpu")
+    p = ntt_kernel.split(13, 2, ntt_kernel.NARROW_LANES_LOG, max_stages)
+    assert 1 + len(p.passes) == -(-13 // max_stages)
+    x = ntt_kernel.pass0(m, p, tw)
+    for s0, k, j_log in p.passes:
+        x = ntt_kernel.run_pass(x, s0, k, j_log, p, tw)
+    assert torch.equal(x, ntt_kernel.dft(m))
 
 
 def test_bit_reversal_matches_jax():

@@ -58,11 +58,6 @@ def np_from_monty(x: np.ndarray) -> np.ndarray:
     return ((x.astype(np.uint64) * R_INV) % P).astype(np.uint32)
 
 
-def np_shoup(w_canonical: np.ndarray) -> np.ndarray:
-    """Shoup precomputation floor(w * 2^32 / P) for canonical constants."""
-    return ((w_canonical.astype(np.uint64) << 32) // P).astype(np.uint32)
-
-
 def two_adic_generator(bits: int) -> int:
     """Canonical generator of the order-2^bits subgroup."""
     assert 0 <= bits <= TWO_ADICITY
@@ -124,17 +119,6 @@ def mul(a, b):
 def mul_canonical(x, c):
     """x * c mod p for a CANONICAL multiplier c (Monty x stays Monty)."""
     return ((_i64(x) * _i64(c)) % P).to(I32)
-
-
-def shoup_mul(x, w, w_pr):
-    """x * w mod p for a canonical constant w with w_pr = floor(w*2^32/p)
-    (Harvey/Shoup), as the CUDA NTT computes it: q = hi32(x*w_pr),
-    r = x*w - q*p lies in [0, 2p), one conditional subtract.  Exact in
-    int64 because x < 2^31 and w_pr < 2^32."""
-    x = _i64(x)
-    q = (x * _i64(w_pr)) >> 32
-    r = x * _i64(w) - q * P
-    return torch.where(r >= P, r - P, r).to(I32)
 
 
 def from_u32(x):

@@ -160,9 +160,7 @@ def lib() -> ctypes.CDLL:
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
             so.ts_keccak_rows.argtypes = [vp, i64, vp, i64, i64, vp, vp]
             so.ts_keccak_rows.restype = i32
-            so.ts_ntt_pass0.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp, vp]
-            so.ts_ntt_pass0.restype = i32
-            so.ts_ntt_pass.argtypes = [vp, i64, i32, i32, i32, i32, i32, vp, vp, vp]
+            so.ts_ntt_pass.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
             so.ts_ntt_pass.restype = i32
             so.ts_poseidon2_rows.argtypes = [vp, i64, i64, vp, i64, i64, i64, i32, vp, vp]
             so.ts_poseidon2_rows.restype = i32
