@@ -10,7 +10,10 @@ line each, any failure an uncaught exception and a nonzero exit:
 1. device name, ``nvidia-smi`` name and power limit; build the kernels of
    ``tpu_stark_torch/csrc`` with nvcc (and the C host helper);
 2. K1 (Keccak sponge) against its plain torch version, exact, at leaf
-   shapes (2^20, 6), (2^20, 8), (1000, 40) and 2^20 compress pairs;
+   shapes (2^20, 6), (2^20, 8), (1000, 40) and 2^20 compress pairs; then
+   its tree kernel (``compress_levels``, every compress layer of a tree in
+   a few launches) against the plain layer loop at the fib prove's tree
+   heights, 2^1 to 2^23 digests, the tree over 2^23 timed;
 3. K2 (NTT passes) against the plain passes, exact: dft/idft at (2^20, 2),
    (2^21, 8), (2^23, 2), (16384, 128) and a coset LDE at (2^20, 2); then at
    the main paths' shapes (2^21, 128), (2^20, 128) inverse, (2^18, 257) and
@@ -76,7 +79,7 @@ line each, any failure an uncaught exception and a nonzero exit:
     (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
     layers and K4's chunks by rows, widths, row strides and 16-byte
-    alignment, K5's products
+    alignment, K1's tree runs by height, levels and alignment, K5's products
     by n and width (both directions' tables) and the grind's chunks by
     count, tail blocks, witness offset and bits, on random inputs of those
     shapes.
@@ -94,7 +97,9 @@ rate, 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 33.45 T/s (one warp
 instruction per scheduler per clock, the most any integer mix can reach;
 1.98 GHz is the clock of the data sheet's 67 TFLOP/s fp32), and for K5
 also its 16 * 2 * n^2 * M int8 tensor operations over the data sheet's
-dense int8 peak, 1,979 TOPS.  Instruction counts are lower bounds read off
+dense int8 peak, 1,979 TOPS.  A tree of compress layers (K1's tree kernel)
+reads its input layer once and writes one digest a node, one permutation
+each.  Instruction counts are lower bounds read off
 the sources: a Montgomery product 5 (three multiplies, a subtract, a
 select), a modular add 2, an NTT butterfly 9 (4 in a transform's stage 0,
 whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
@@ -211,6 +216,13 @@ def _bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _tree_bound(n: int, levels: int):
+    """The bound of the ``levels`` compress layers above n digests: n
+    digests read, each output digest written, one permutation each."""
+    out_rows = n - (n >> levels)
+    return _bound(n * 32 + out_rows * 32, out_rows * KECCAK_F_OPS)
+
+
 def import_port():
     """Import the port's modules this script drives (and nothing of JAX)."""
     import types
@@ -254,6 +266,7 @@ def _drive(kernels, fn, path_kernels):
 _SHAPE_KERNELS = {
     "dft": ("ntt_pass0", "ntt_pass"),
     "keccak_hash_rows": ("keccak_sponge",),
+    "keccak_compress_levels": ("keccak_tree",),
     "poseidon2_hash_rows": ("poseidon2_sponge",),
     "poseidon2_compress": ("poseidon2_sponge",),
     "poseidon2_absorb": ("poseidon2_absorb",),
@@ -268,7 +281,8 @@ def _record_shapes(port, seen: dict, path: str):
     operands of every kernel wrapper call: K2's ``dft`` by height, width and
     direction; K1's and K3's ``hash_rows`` / ``compress`` and K4's
     ``absorb_rows`` by rows, and each operand's width, row stride and
-    16-byte alignment; K5's
+    16-byte alignment; K1's ``compress_levels`` by rows, levels and
+    alignment; K5's
     ``mod_matmul_axis`` by n and width; the grind's ``verdicts`` by count,
     tail blocks, witness offset and bits."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
@@ -279,6 +293,8 @@ def _record_shapes(port, seen: dict, path: str):
     keys = {
         (nk, "dft"): lambda x, inverse=False: ("dft", int(x.shape[0]), int(x.shape[1]), bool(inverse)),
         (kk, "hash_rows"): lambda a, b=None: ("keccak_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
+        (kk, "compress_levels"): lambda d, levels: (
+            "keccak_compress_levels", int(d.shape[0]), int(levels), d.data_ptr() % 16 // 4),
         (pk, "hash_rows"): lambda a, b=None: ("poseidon2_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "compress"): lambda a, b: ("poseidon2_compress", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "absorb_rows"): lambda s, c, first=False: (
@@ -331,6 +347,9 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             pre, tail = rand_u32((25, 2)).view(torch.int64).view(25), rand_u32((key[2], 34)).view(torch.int64)
             got = port.grind.verdicts(0, n, pre, tail, key[3], key[4])
             want = port.grind.verdicts_plain(0, n, pre, tail, key[3], key[4])
+        elif kind == "keccak_compress_levels":
+            d = rand_u32((n * 8 + key[3],))[key[3]:].view(n, 4, 2)
+            got, want = torch.cat(kk.compress_levels(d, key[2])), torch.cat(kk.compress_levels_plain(d, key[2]))
         elif kind == "poseidon2_absorb":
             state, chunk = rand_monty((n, pk.WIDTH)), operand(rand_monty, n, *key[2:5])
             got = pk.absorb_rows(state.clone(), chunk, key[5])
@@ -601,8 +620,9 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
     cold = time.perf_counter() - t0
     launches, warm, timings, blobs, peaks, rng_shapes = {}, {}, {}, {}, {}, {}
     for narrow, path, path_kernels in (
-        ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_GRIND)),
-        (None, "config2-k2", (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_GRIND)),
+        ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_GRIND)),
+        (None, "config2-k2", (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
+                              kernels.KECCAK_GRIND)),
     ):
         torch.cuda.reset_peak_memory_stats(dev)
         timings[path] = {}
@@ -722,6 +742,23 @@ def main() -> int:
             items = -(-k // 2)  # u32 pairs form the u64 items of the rate-17 sponge
             perms = n * -(-items // keccak_kernel.RATE)
             results["keccak_sponge"] = (err, ms, plain_ms, *_bound(n * k * 4 + n * 32, perms * KECCAK_F_OPS))
+    err = 0
+    for log_n in range(1, 24):  # the fib prove's trees: 2^23 and 2^22 leaves, FRI 2^23 .. 2^2
+        d = rand_u32((1 << log_n, 4, 2))
+        got = torch.cat(keccak_kernel.compress_levels(d, log_n))
+        want = torch.cat(keccak_kernel.compress_levels_plain(d, log_n))
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(torch, got, want))
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K1 tree over 2^{log_n} digests: kernel != plain (max_abs_err {err})")
+    ms = _cuda_ms(torch, lambda: keccak_kernel.compress_levels(d, log_n), 10)
+    plain_ms = _cuda_ms(torch, lambda: keccak_kernel.compress_levels_plain(d, log_n), 1)
+    plan = keccak_kernel.tree_plan(log_n, log_n)
+    bound_ms, bound_by = _tree_bound(1 << log_n, log_n)
+    results["keccak_tree"] = (err, ms, plain_ms, bound_ms, bound_by, {"shape": [1 << log_n, 4, 2], "plan": plan})
+    k1_lines.append(f"compress_levels exact at 2^1..2^{log_n} digests; the tree over 2^{log_n} ({len(plan)} "
+                    f"launches): {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    del d, got, want
     print("[2] K1 keccak sponge == plain (exact): " + "; ".join(k1_lines), flush=True)
 
     # -- 3. K2 vs plain --------------------------------------------------------
@@ -782,7 +819,7 @@ def main() -> int:
 
     with _record_shapes(port, seen, "fib"):
         ((cfg, pis, blob), warm), fib_launches = _drive(
-            kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.NTT_PASS0, kernels.NTT_PASS))
+            kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS))
     peak = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     ok = verify(cfg, air, deserialize_proof(blob), pis)

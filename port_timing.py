@@ -6,6 +6,7 @@
     python3 port_timing.py verify [--log-n 20] [--pcs-from DIR]
     python3 port_timing.py k2 [--tree DIR]
     python3 port_timing.py p2 [--tree DIR]
+    python3 port_timing.py k1 [--tree DIR]
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
 
@@ -25,7 +26,12 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   time and launches beside the summed bound of those launches (the bound of
   this tree's ``chip_smoke.py``, also with ``--tree``, computed from each
   call's operands) and the loss,
-  time minus bound, and the 20 ops with the most device time.  The
+  time minus bound, K1's device time and launches split by rows per launch
+  (the profiled prove's K1 kernels in launch order, each matched to the
+  rows its launch took, in buckets < 2^12, 2^12-2^16 and >= 2^16 rows;
+  beside it the stream time between CUDA events around each launch, which
+  also holds the host's launch path where the card waits for it), and the
+  20 ops with the most device time.  The
   profiler's own host cost lengthens the profiled wall clock, so the idle
   share is an upper bound.  ``--tree DIR`` profiles DIR's
   ``tpu_stark_torch`` (as for ``warm``).
@@ -59,23 +65,45 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   trees' outputs compare by their hashes), and checks (2^16, 493) and a
   (4096, 128) absorb against the plain versions.  ``--tree DIR`` as for
   ``warm``: run parent, change, change, parent in one chip call.
+* ``k1``: times K1 with CUDA events at the main paths' shapes: leaves
+  (2^20, 6), (2^23, 6) and (2^22, 8), 2^20 compress pairs (8 + 8 words),
+  the compress layers of trees over 2^23, 2^16 and 2^10 digests (one
+  ``compress_levels`` call, or in a tree without it one ``hash_rows`` launch
+  per layer), and the grind kernel over a 2^17-candidate chunk; prints each
+  time beside the issue-rate bound and the SHA-256 of each output (inputs
+  from a fixed seed, so two trees' outputs compare by their hashes).  In a
+  tree with ``keccak_kernel.run_plan`` it also times the 2^23 and 2^16
+  trees under the alternative launch plans ``K1_TREE_PLANS``, each held
+  equal to the default's layers.  ``--tree DIR`` as for ``warm``.
 * ``sass``: builds the kernels of this tree (``--tree DIR``: of DIR) with
   nvcc, prints the build time, ptxas's register and spill report, and the
   SASS instruction mix of K4 (``p2_absorb_kernel``) and K3
   (``p2_sponge_kernel<8>``) by class, per permutation: the static count of
   the chunk loop's body, with any loop inside it weighted by its trip count
-  (the rolled round loops: 4, 13 and 4).  Then it runs ``probe`` and
+  (the rolled round loops: 4, 13 and 4); and of K1's kernels
+  (``keccak_rows_kernel``, ``keccak_tree_kernel``, ``keccak_grind_kernel``)
+  per round: the body of the innermost loop with the most LOP3 (the rolled
+  round loop, one round a trip), and per permutation 24 rounds.  Then it runs ``probe`` and
   prints each kernel's per-pipe bound at its table shape (K4 absorbing
-  (2^21, 128), K3 hashing (2^16, 493) leaves): the permutations times the
+  (2^21, 128), K3 hashing (2^16, 493) leaves, K1 hashing (2^20, 6)
+  leaves): the permutations times the
   larger of the FMA pipe's slots (IMAD.WIDE and IMAD.HI take two) over the
   rate ``IMAD only`` reached and the ALU pipe's instructions over the rate
   ``IADD3 only`` reached, at the card's SM count and the clock the probe
-  ran at.  The whole dump goes to ``tpu_stark_torch/build/sass_<tree>.txt``;
+  ran at.  For K1's kernels, whose ALU work is all LOP3 and SHF, it prints
+  a per-pipe model instead: the ALU pipe's instructions over the rate
+  ``LOP3 + SHF.L.W, even`` reached, at the clock that run measured (a
+  model, not a bound: the kernel's own clock is not read).  The whole dump goes to ``tpu_stark_torch/build/sass_<tree>.txt``;
   ``--from FILE`` re-reads such a dump without a card (no bound).
-* ``probe``: the integer pipes of the card.  Builds seven kernels of long
+* ``probe``: the integer pipes of the card.  Builds thirteen kernels of long
   independent dependency chains (``IADD3`` only, ``IMAD`` only, an even mix
-  of the two, ``IMAD.WIDE`` only, ``IMAD.HI`` only, ``VIADDMNMX`` only, and
-  the kernels' reduced Montgomery product), runs each with every block resident
+  of the two, ``IMAD.WIDE`` only, ``IMAD.HI`` only, ``VIADDMNMX`` only,
+  the kernels' reduced Montgomery product, ``LOP3`` only (chi's
+  a ^ (~b & c)), ``SHF.L.W`` only (funnel shifts), even mixes of LOP3 with
+  IMAD, with IMAD.HI and with SHF, and three LOP3 chains beside one chain
+  of a 64-bit rotation's half in its FMA-pipe form, hi(l 2^s) + h 2^s by
+  IMAD and IMAD.HI with 2^s a kernel argument), runs each with every block
+  resident
   at once, and prints what each class reached, in results per SM per SM
   clock (clock64 in the kernel), from each kernel's SASS loop body.
 * ``verify``: proves config 4 at 2^log_n rows and times the port's
@@ -142,11 +170,11 @@ def _keccak_setup(dev, log_n: int):
     return air, trace, config
 
 
-# profiler kernel names -> the hand-written kernel they belong to
+# the hand-written kernel -> the profiler kernel names that belong to it
 KERNEL_KEYS = (
-    ("K1 keccak_sponge", "keccak_rows_kernel"), ("K2 ntt_pass", "ntt_pass_kernel"),
-    ("K3 poseidon2_sponge", "p2_sponge_kernel"), ("K4 poseidon2_absorb", "p2_absorb_kernel"),
-    ("K5 mxu_mm", "mxu_mm_kernel"), ("grind", "keccak_grind"),
+    ("K1 keccak_sponge", ("keccak_rows_kernel", "keccak_tree_kernel")), ("K2 ntt_pass", ("ntt_pass_kernel",)),
+    ("K3 poseidon2_sponge", ("p2_sponge_kernel",)), ("K4 poseidon2_absorb", ("p2_absorb_kernel",)),
+    ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)),
 )
 
 
@@ -170,6 +198,9 @@ class _Bounds:
             n, items = int(a.shape[0]), -(-(k(a) + k(b)) // 2)
             return "K1 keccak_sponge", cs._bound(n * (k(a) + k(b)) * 4 + n * 32,
                                                  n * -(-items // keccak_kernel.RATE) * cs.KECCAK_F_OPS)[0]
+
+        def tree(digests, levels):
+            return "K1 keccak_sponge", cs._tree_bound(int(digests.shape[0]), levels)[0]
 
         def dft(x, inverse=False):
             h, w = int(x.shape[0]), int(x.shape[1])
@@ -202,12 +233,14 @@ class _Bounds:
             (poseidon2_kernel, "hash_rows", sponge),
             (poseidon2_kernel, "compress", lambda a, b: sponge(a, b, poseidon2_kernel.WIDTH)),
             (poseidon2_kernel, "absorb_rows", absorb), (mxu_ntt, "mod_matmul_axis", mxu),
-            (grind, "verdicts", verdicts),
+            (grind, "verdicts", verdicts), (keccak_kernel, "compress_levels", tree),
         ]
         self._orig = []
 
     def __enter__(self):
         for mod, name, bound in self._wrap:
+            if not hasattr(mod, name):  # an older tree (--tree) without this wrapper
+                continue
             orig = getattr(mod, name)
             self._orig.append((mod, name, orig))
 
@@ -223,6 +256,60 @@ class _Bounds:
     def __exit__(self, *exc):
         for mod, name, orig in self._orig:
             setattr(mod, name, orig)
+
+
+K1_BUCKETS = ((0, 1 << 12, "< 2^12"), (1 << 12, 1 << 16, "2^12-2^16"), (1 << 16, 1 << 62, ">= 2^16"))
+
+
+class _K1Launches:
+    """While open, notes the rows of every K1 launch (each ``hash_rows``
+    call and each launch of a tree's compress layers: its input digests),
+    in launch order, with CUDA events around it."""
+
+    def __init__(self, torch):
+        from tpu_stark_torch.hash import keccak_kernel
+
+        self.torch, self.kk, self.noted, self._orig = torch, keccak_kernel, [], []
+
+    def _wrap(self, name, rows):
+        orig = getattr(self.kk, name)
+        self._orig.append((name, orig))
+        torch = self.torch
+
+        def timed(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(*args, **kw)
+            end.record()
+            self.noted.append((rows(*args, **kw), start, end))
+            return out
+
+        setattr(self.kk, name, timed)
+
+    def __enter__(self):
+        self._wrap("hash_rows", lambda a, b=None: int(a.shape[0]))
+        if hasattr(self.kk, "_tree_launch"):  # one tree launch: its input digests
+            self._wrap("_tree_launch", lambda src, n_in, *rest: int(n_in))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig:
+            setattr(self.kk, name, orig)
+
+    def report(self, kernel_events) -> str:
+        """The buckets, from the profiler's K1 kernel events (their device
+        time) matched in order to the noted launches."""
+        self.torch.cuda.synchronize()
+        kernel_events = sorted(kernel_events, key=lambda e: e.time_range.start)
+        if len(kernel_events) != len(self.noted):
+            return f"K1 by rows per launch: {len(kernel_events)} kernels for {len(self.noted)} launches, not matched"
+        parts = []
+        for lo, hi, label in K1_BUCKETS:
+            idx = [i for i, (rows, _s, _e) in enumerate(self.noted) if lo <= rows < hi]
+            device = sum(kernel_events[i].time_range.elapsed_us() for i in idx) / 1e3
+            stream = sum(self.noted[i][1].elapsed_time(self.noted[i][2]) for i in idx)
+            parts.append(f"{label} rows: {len(idx)} launches, device {device:.3f} ms (stream {stream:.3f} ms)")
+        return "K1 by rows per launch: " + "; ".join(parts)
 
 
 def _chain_setup(dev, log_n: int):
@@ -289,20 +376,24 @@ def profile(torch, dev, args) -> None:
     if args.reps:
         print(f"{label}: warm median {sorted(walls[1:])[args.reps // 2]:.3f}s of {args.reps}", flush=True)
     profiled = {}
-    with _Bounds() as bounds, torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with _Bounds() as bounds, _K1Launches(torch) as k1, \
+            torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, lambda: run(profiled))
     on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
     print(f"profiled {wall:.3f}s ({_phases(profiled)}); device time {dev_s:.3f}s, idle "
           f"{100 * (1 - dev_s / wall):.1f}% of the profiled wall clock; "
           f"{sum(e.count for e in on_device)} device kernels and copies")
-    for name, key in KERNEL_KEYS:
-        evs = [e for e in on_device if key in e.key]
+    for name, keys in KERNEL_KEYS:
+        evs = [e for e in on_device if any(key in e.key for key in keys)]
         ms = sum(e.self_device_time_total for e in evs) / 1e3
         bound = bounds.ms.get(name, 0.0)
         print(f"{name}: {ms:.3f} ms of device time in {sum(e.count for e in evs)} launches "
               f"({bounds.calls.get(name, 0)} wrapper calls); summed bound {bound:.3f} ms; "
               f"loss (time - bound) {ms - bound:.3f} ms", flush=True)
+    k1_keys = dict(KERNEL_KEYS)["K1 keccak_sponge"]
+    print(k1.report([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and any(key in e.name for key in k1_keys)]), flush=True)
     for e in sorted(on_device, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"  {e.self_device_time_total / 1e3:10.1f} ms  {e.count:7d}x  {e.key[:90]}")
 
@@ -511,6 +602,107 @@ def p2_timing(torch, dev, args) -> None:
         del x
 
 
+K1_SHAPES = (("leaf (1048576, 6)", "leaf", 1 << 20, 6), ("leaf (8388608, 6)", "leaf", 1 << 23, 6),
+             ("leaf (4194304, 8)", "leaf", 1 << 22, 8), ("compress 1048576 pairs", "compress", 1 << 20, 8),
+             ("tree over 8388608 digests", "tree", 1 << 23, 0), ("tree over 65536 digests", "tree", 1 << 16, 0),
+             ("tree over 1024 digests", "tree", 1 << 10, 0))
+
+
+def k1_timing(torch, dev, args) -> None:
+    import hashlib
+
+    from tpu_stark_torch.challenger import grind
+    from tpu_stark_torch.hash import keccak_kernel as kk
+
+    cs = _chip_smoke()
+    gen = torch.Generator(device=dev)
+
+    def rand(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+
+    def layers(d, levels):
+        if hasattr(kk, "compress_levels"):
+            return kk.compress_levels(d, levels)
+        out = []
+        for _ in range(levels):
+            d = kk.hash_rows(d.reshape(-1, 16))
+            out.append(d)
+        return out
+
+    def sha(out):
+        out = out if isinstance(out, (list, tuple)) else [out]
+        return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+
+    small, left, right, d = rand((1000, 40), 1), rand((999, 8), 2), rand((999, 8), 3), rand((1 << 12, 4, 2), 4)
+    if not torch.equal(kk.hash_rows(small), kk.hash_rows_plain(small)):
+        raise AssertionError("K1 (1000, 40) != plain")
+    if not torch.equal(kk.hash_rows(left, right), kk.hash_rows_plain(left, right)):
+        raise AssertionError("K1 999 compress pairs != plain")
+    want = [kk.hash_rows_plain(d.reshape(-1, 16))]
+    for _ in range(11):
+        want.append(kk.hash_rows_plain(want[-1].reshape(-1, 16)))
+    if not all(torch.equal(g, w) for g, w in zip(layers(d, 12), want)):
+        raise AssertionError("K1 tree over 4096 digests != plain")
+    print("K1 (1000, 40), 999 compress pairs, a tree over 4096 digests == plain (exact)", flush=True)
+    for label, kind, n, k in K1_SHAPES:
+        if kind == "tree":
+            x = rand((n, 4, 2), n)
+            levels = n.bit_length() - 1
+
+            def run():
+                return layers(x, levels)
+            bound = cs._tree_bound(n, levels)
+        else:
+            x = rand((n, k), n + k)
+            y = rand((n, k), 11) if kind == "compress" else None
+
+            def run():
+                return kk.hash_rows(x, y)
+            k_all = k * (2 if y is not None else 1)
+            chunks = -(-(-(-k_all // 2)) // kk.RATE)  # u32 pairs form the items of the rate-17 sponge
+            bound = cs._bound(n * k_all * 4 + n * 32, n * chunks * cs.KECCAK_F_OPS)
+        digest = sha(run())
+        ms = cs._cuda_ms(torch, run, 10)
+        print(f"{label}: {ms:.4f} ms, {100 * bound[0] / ms:.1f}% of {bound[0]:.4f} ms ({bound[1]}); "
+              f"output sha256 {digest}", flush=True)
+        if kind == "tree" and hasattr(kk, "run_plan") and levels in K1_TREE_PLANS:
+            want = run()
+            for name, plan in K1_TREE_PLANS[levels]:
+                got = kk.run_plan(x, plan)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"{label} under {name} ({plan}): not the default plan's layers")
+                ms = cs._cuda_ms(torch, lambda: kk.run_plan(x, plan), 10)
+                print(f"  plan {name}: {len(plan)} launches {plan}: {ms:.4f} ms", flush=True)
+        del x
+    data = bytes(range(7, 107))  # a 100-byte transcript: one tail block
+    prefix, tail, w_off = grind._plan(data)
+    pre, tl = grind._operands(prefix, tail, dev)
+    flags = grind.verdicts(0, 1 << 17, pre, tl, w_off, 16)
+    if not torch.equal(flags, grind.verdicts_plain(0, 1 << 17, pre, tl, w_off, 16)):
+        raise AssertionError("grind kernel != plain")
+    ms = cs._cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, 16), 20)
+    bound = cs._bound((1 << 17) + 8 * (25 + 17 * int(tl.shape[0])), (1 << 17) * int(tl.shape[0]) * cs.KECCAK_F_OPS)
+    print(f"grind 2^17 candidates, {int(tl.shape[0])} block(s): {ms:.4f} ms, {100 * bound[0] / ms:.1f}% of "
+          f"{bound[0]:.4f} ms ({bound[1]}); == plain; output sha256 {sha(flags)}", flush=True)
+
+
+# alternative launch plans (keccak_kernel.run_plan's (sub_log, lv) launches) of the
+# compress layers of a tree over 2^23 and over 2^16 digests; tree_plan's: bands
+# of 5 levels above 2^16 digests, then groups of 8
+K1_TREE_PLANS = {
+    23: (("groups of 8 from the bottom", [(8, 8), (8, 8), (7, 7)]),
+         ("bands of 3", [(8, 3), (8, 3), (6, 1), (8, 8), (8, 8)]),
+         ("bands of 4", [(9, 4), (8, 3), (8, 8), (8, 8)]),
+         ("groups of 6", [(10, 5), (7, 2), (6, 6), (6, 6), (4, 4)]),
+         ("groups of 7", [(10, 5), (7, 2), (7, 7), (7, 7), (2, 2)]),
+         ("bands to 2^14", [(10, 5), (9, 4), (8, 8), (6, 6)]),
+         ("bands to 2^18", [(10, 5), (8, 8), (8, 8), (2, 2)])),
+    16: (("groups of 6", [(6, 6), (6, 6), (4, 4)]),
+         ("groups of 7", [(7, 7), (7, 7), (2, 2)]),
+         ("bands to 2^14", [(7, 2), (8, 8), (6, 6)])),
+}
+
 SASS_KERNELS = (("K4 p2_absorb_kernel", "p2_absorb_kernel"), ("K3 p2_sponge_kernel<8>", "p2_sponge_kernelILi8E"))
 # SASS opcode classes (prefix match in this order) and the pipe each runs on
 SASS_CLASSES = (
@@ -629,14 +821,47 @@ def _pipes(mix) -> tuple:
 def _mix_line(mix) -> str:
     fma = sum(mix.get(c, 0) for c in FMA_PIPE)
     alu = sum(mix.get(c, 0) for c in ALU_PIPE)
-    parts = ", ".join(f"{c} {mix[c]}" for c, _ in SASS_CLASSES + (("other", ()),) if mix.get(c))
-    return f"total {sum(mix.values())}: FMA pipe {fma}, ALU pipe {alu}; {parts}"
+    parts = ", ".join(f"{c} {mix[c]:g}" for c, _ in SASS_CLASSES + (("other", ()),) if mix.get(c))
+    return f"total {sum(mix.values()):g}: FMA pipe {fma:g}, ALU pipe {alu:g}; {parts}"
+
+
+K1_SASS_KERNELS = (("K1 keccak_rows_kernel", "keccak_rows_kernel"), ("K1 keccak_tree_kernel", "keccak_tree_kernel"),
+                   ("grind keccak_grind_kernel", "keccak_grind_kernel"))
+ROUNDS = 24
+
+
+def _per_round(code):
+    """K1's rolled round loop (``#pragma unroll 1``: one round a trip):
+    (mix per round, note), from the innermost loop with the most LOP3."""
+    loops = _loops(code)
+    inner = [(s, e) for s, e in loops if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e) for s2, e2 in loops)]
+    best, best_lop3 = None, 0
+    for s_, e in inner:
+        n = sum(1 for a, op, _t in code if s_ <= a <= e and op.startswith("LOP3"))
+        if n > best_lop3:
+            best, best_lop3 = (s_, e), n
+    if best is None:
+        return None, "no round loop (unrolled): not read"
+    mix = _mix(op for a, op, _t in code if best[0] <= a <= best[1])
+    return mix, f"round loop 0x{best[0]:x}-0x{best[1]:x}"
 
 
 def sass_report(text: str) -> dict:
     """Prints and returns {kernel label: mix per permutation}."""
     funcs = _sass_functions(text)
     mixes = {}
+    for label, key in K1_SASS_KERNELS:
+        names = [n for n in funcs if key in n]
+        if not names:
+            print(f"{label}: not in the listing", flush=True)
+            continue
+        code = funcs[names[0]]
+        mix, note = _per_round(code)
+        if mix is None:
+            print(f"{label}: {len(code)} instructions in the function; {note}", flush=True)
+            continue
+        print(f"{label}: {len(code)} instructions in the function; per round ({note}): {_mix_line(mix)}", flush=True)
+        mixes[label] = {c: n * ROUNDS for c, n in mix.items()}
     for label, key in SASS_KERNELS:
         names = [n for n in funcs if key in n]
         if not names:
@@ -653,7 +878,10 @@ def sass_report(text: str) -> dict:
 
 # each kernel's table shape: (kernel label, shape, permutations)
 PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) * 128 // 8),
-                     ("K3 p2_sponge_kernel<8>", "leaf (65536, 493)", (1 << 16) * -(-493 // 8)))
+                     ("K3 p2_sponge_kernel<8>", "leaf (65536, 493)", (1 << 16) * -(-493 // 8)),
+                     ("K1 keccak_rows_kernel", "leaf (1048576, 6)", 1 << 20),
+                     ("K1 keccak_tree_kernel", "a tree over 8388608 digests", (1 << 23) - 1),
+                     ("grind keccak_grind_kernel", "2^17 candidates, one block", 1 << 17))
 
 
 def _cuobjdump() -> str:
@@ -677,21 +905,21 @@ def sass(torch, dev, args) -> None:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
             entry = m.group(1)
-        elif entry and "p2_" in entry and ("registers" in line or "spill" in line):
+        elif entry and ("p2_" in entry or "keccak" in entry) and ("registers" in line or "spill" in line):
             print(f"  {entry}: {line.strip()}", flush=True)
     text = subprocess.run([_cuobjdump(), "-sass", build.path], capture_output=True, text=True,
                           check=True, timeout=600).stdout
     tag = os.path.basename(os.path.normpath(args.tree)) if args.tree else "this"
     os.makedirs(BUILD_OUT, exist_ok=True)
     path = os.path.join(BUILD_OUT, f"sass_{tag}.txt")
-    with open(path, "w") as f:  # the listing of the Poseidon2 kernels only
+    with open(path, "w") as f:  # the listing of the Poseidon2 and Keccak kernels only
         keep = False
         for line in text.splitlines(keepends=True):
             if "Function :" in line:
-                keep = "p2_" in line
+                keep = "p2_" in line or "keccak" in line
             if keep:
                 f.write(line)
-    print(f"SASS of {build.path}'s Poseidon2 kernels in {path}", flush=True)
+    print(f"SASS of {build.path}'s Poseidon2 and Keccak kernels in {path}", flush=True)
     mixes = sass_report(text)
     rates = probe(torch, dev, args)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -700,10 +928,13 @@ def sass(torch, dev, args) -> None:
             print(f"{label}: no per-pipe bound (no permutation read off the SASS)", flush=True)
             continue
         fma, alu = _pipes(mixes[label])
-        per_sm_clock = max(fma / rates["fma"], alu / rates["alu"])
-        ms = perms * per_sm_clock / (sms * rates["ghz"] * 1e9) * 1e3
-        print(f"{label} per-pipe bound at {shape}: {ms:.4f} ms ({fma} FMA slots / {rates['fma']:.2f} and "
-              f"{alu} ALU / {rates['alu']:.2f} per SM per clock, {sms} SMs at {rates['ghz']:.3f} GHz)", flush=True)
+        if "keccak" in label:  # all LOP3 and SHF: their mix's rate, at the clock it ran at
+            name, alu_rate, ghz = "per-pipe model", rates["lop3_shf"], rates["lop3_shf_ghz"]
+        else:
+            name, alu_rate, ghz = "per-pipe bound", rates["alu"], rates["ghz"]
+        ms = perms * max(fma / rates["fma"], alu / alu_rate) / (sms * ghz * 1e9) * 1e3
+        print(f"{label} {name} at {shape}: {ms:.4f} ms ({fma:g} FMA slots / {rates['fma']:.2f} and "
+              f"{alu:g} ALU / {alu_rate:.2f} per SM per clock, {sms} SMs at {ghz:.3f} GHz)", flush=True)
 
 
 PROBE_SRC = r"""
@@ -714,11 +945,21 @@ PROBE_SRC = r"""
 // 1: IMAD (a * b + c), 2: chains 0 and 2 IADD3, 1 and 3 IMAD, 3: IMAD.WIDE.U32
 // with a 64-bit addend (lo * hi + w), 4: IMAD.HI.U32 (hi(a * b) + c),
 // 5: VIADDMNMX.U32 (min(a - P, b)), 6: the kernels' Montgomery product
-// a = min(r, r - P) with r = hi(a b) - hi(m P) + P, m = lo(a b) P^-1.
+// a = min(r, r - P) with r = hi(a b) - hi(m P) + P, m = lo(a b) P^-1,
+// 7: LOP3 (chi's a ^ (~b & c)), 8: SHF.L.W (funnel shifts), 9: chains 0
+// and 2 LOP3, 1 and 3 IMAD, 10: 0 and 2 LOP3, 1 and 3 IMAD.HI, 11: 0 and 2
+// LOP3, 1 and 3 SHF.L.W, 12: chains 0-2 LOP3, chain 3 a rotation half in
+// its FMA-pipe form hi(l mul) + h mul (IMAD, IMAD.HI; mul = 2^s, an
+// argument, so that ptxas cannot turn the products into shifts).
 constexpr int STEPS = 8;
 constexpr int CH = 4;
+__device__ __forceinline__ uint32_t rot_half(uint32_t l, uint32_t h, uint32_t mul) {
+  uint32_t d;
+  asm("mad.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(l), "r"(mul), "r"(h * mul));
+  return d;
+}
 template <int KIND>
-__global__ void probe_kernel(uint32_t* out, long long* cyc, int iters, uint32_t seed) {
+__global__ void probe_kernel(uint32_t* out, long long* cyc, int iters, uint32_t seed, uint32_t mul) {
   const uint32_t t = blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t a[CH], b[CH], c[CH];
   uint64_t w[CH];
@@ -737,11 +978,27 @@ __global__ void probe_kernel(uint32_t* out, long long* cyc, int iters, uint32_t 
     for (int s = 0; s < STEPS; ++s) {
 #pragma unroll
       for (int j = 0; j < CH; ++j) {
-        if (KIND == 0 || (KIND == 2 && j % 2 == 0)) {
+        if (KIND == 7 || (KIND >= 9 && KIND <= 11 && j % 2 == 0) || (KIND == 12 && j < 3)) {
+          a[j] = a[j] ^ (~b[j] & c[j]);
+          b[j] = b[j] ^ (~c[j] & a[j]);
+          c[j] = c[j] ^ (~a[j] & b[j]);
+        } else if (KIND == 8 || KIND == 11) {
+          a[j] = __funnelshift_l(a[j], b[j], 7);
+          b[j] = __funnelshift_l(b[j], c[j], 13);
+          c[j] = __funnelshift_l(c[j], a[j], 19);
+        } else if (KIND == 12) {
+          a[j] = rot_half(b[j], a[j], mul);
+          b[j] = rot_half(c[j], b[j], mul);
+          c[j] = rot_half(a[j], c[j], mul);
+        } else if (KIND == 10) {
+          a[j] = __umulhi(a[j], b[j]) + c[j];
+          b[j] = __umulhi(b[j], c[j]) + a[j];
+          c[j] = __umulhi(c[j], a[j]) + b[j];
+        } else if (KIND == 0 || (KIND == 2 && j % 2 == 0)) {
           a[j] = a[j] + b[j] + c[j];
           b[j] = b[j] + c[j] + a[j];
           c[j] = c[j] + a[j] + b[j];
-        } else if (KIND == 1 || KIND == 2) {
+        } else if (KIND == 1 || KIND == 2 || KIND == 9) {
           a[j] = a[j] * b[j] + c[j];
           b[j] = b[j] * c[j] + a[j];
           c[j] = c[j] * a[j] + b[j];
@@ -773,28 +1030,32 @@ __global__ void probe_kernel(uint32_t* out, long long* cyc, int iters, uint32_t 
   if (threadIdx.x == 0) cyc[blockIdx.x] = t1 - t0;
 }
 
+template <int KIND>
+void launch(int blocks, int threads, int iters, uint32_t seed, uint32_t* out, long long* cyc, cudaStream_t s) {
+  probe_kernel<KIND><<<blocks, threads, 0, s>>>(out, cyc, iters, seed, 1u << 7);
+}
+
 extern "C" int probe_run(int kind, int blocks, int threads, int iters, uint32_t seed, uint32_t* out,
                          long long* cyc, cudaStream_t s) {
-  switch (kind) {
-    case 0: probe_kernel<0><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    case 1: probe_kernel<1><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    case 2: probe_kernel<2><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    case 3: probe_kernel<3><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    case 4: probe_kernel<4><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    case 5: probe_kernel<5><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-    default: probe_kernel<6><<<blocks, threads, 0, s>>>(out, cyc, iters, seed); break;
-  }
+  using L = void (*)(int, int, int, uint32_t, uint32_t*, long long*, cudaStream_t);
+  static const L kinds[] = {launch<0>, launch<1>, launch<2>, launch<3>, launch<4>, launch<5>, launch<6>,
+                            launch<7>, launch<8>, launch<9>, launch<10>, launch<11>, launch<12>};
+  kinds[kind](blocks, threads, iters, seed, out, cyc, s);
   return (int)cudaGetLastError();
 }
 """
 PROBE_KINDS = ("IADD3 only", "IMAD only", "IADD3 + IMAD, even", "IMAD.WIDE only", "IMAD.HI only",
-               "VIADDMNMX only", "the kernels' reduced Montgomery product")
+               "VIADDMNMX only", "the kernels' reduced Montgomery product", "LOP3 only", "SHF.L.W only",
+               "LOP3 + IMAD, even", "LOP3 + IMAD.HI, even", "LOP3 + SHF.L.W, even",
+               "3 LOP3 chains + 1 FMA-pipe rotation-half chain")
 
 
 def probe(torch, dev, args) -> dict:
     """Prints each kind's rates; returns {"fma": the FMA pipe's results per
     SM per clock under ``IMAD only``, "alu": the ALU pipe's under ``IADD3
-    only``, "ghz": the slowest SM clock of the runs}."""
+    only``, "ghz": the slowest SM clock of the runs, "lop3_shf": the ALU
+    pipe's under ``LOP3 + SHF.L.W, even``, "lop3_shf_ghz": that run's SM
+    clock}."""
     import ctypes
 
     from tpu_stark_torch import kernels
@@ -852,17 +1113,19 @@ def probe(torch, dev, args) -> dict:
             pipe_rates["alu"] = alu * per
         elif kind == 1:
             pipe_rates["fma"] = fma * per
+        elif kind == 11:
+            pipe_rates["lop3_shf"], pipe_rates["lop3_shf_ghz"] = alu * per, cycles / ms / 1e6
     return pipe_rates
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "sass", "probe"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "sass", "probe"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
-    parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, sass)")
+    parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--pcs-from", help="take TwoAdicFriPcs.open (warm) or also time .verify (verify) "
                         "from this directory's tree")
@@ -882,7 +1145,7 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "sass": sass, "probe": probe}[args.what](torch, dev, args)
+     "k1": k1_timing, "sass": sass, "probe": probe}[args.what](torch, dev, args)
     return 0
 
 

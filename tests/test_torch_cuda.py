@@ -1,7 +1,7 @@
-"""Kernels K1-K5 and the grind kernel on the card against their plain
-torch versions, and the port's n = 8 proofs (the BASELINE config 2 one on
-both NTT routes) and a keccak-air wide proof on the card against the golden
-files and the JAX fixtures.  Exact
+"""Kernels K1-K5 (K1's tree kernel too) and the grind kernel on the card
+against their plain torch versions, and the port's n = 8 proofs (the
+BASELINE config 2 one on both NTT routes) and a keccak-air wide proof on
+the card against the golden files and the JAX fixtures.  Exact
 comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -52,6 +52,83 @@ def test_keccak_kernel_split_rows_equal_plain(dev):
     left = torch.randint(-(1 << 31), 1 << 31, (999, 8), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
     right = torch.randint(-(1 << 31), 1 << 31, (999, 8), generator=g, device=dev, dtype=torch.int64).to(torch.int32)
     assert torch.equal(keccak_kernel.hash_rows(left, right), keccak_kernel.hash_rows_plain(left, right))
+
+
+def _u32(dev, shape, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randint(-(1 << 31), 1 << 31, shape, generator=g, device=dev, dtype=torch.int64).to(torch.int32)
+
+
+def _layers_equal(got, want):
+    return len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("log_n", range(1, 24))
+def test_keccak_tree_equals_plain(dev, log_n):
+    """Every compress layer of a tree over 2^log_n digests (2 to 2^23, the
+    fib prove's heights) in ``tree_plan``'s launches, against the plain
+    layer loop."""
+    d = _u32(dev, (1 << log_n, 4, 2), log_n)
+    before = kernels.KECCAK_TREE.launches
+    got = keccak_kernel.compress_levels(d, log_n)
+    assert kernels.KECCAK_TREE.launches == before + len(keccak_kernel.tree_plan(log_n, log_n))
+    assert _layers_equal(got, keccak_kernel.compress_levels_plain(d, log_n))
+
+
+@pytest.mark.parametrize("log_n,levels", [
+    (7, 7), (8, 8), (9, 9), (9, 1), (15, 15), (16, 16), (16, 3), (17, 17), (17, 1), (17, 9),
+    (20, 20), (21, 21), (21, 5), (22, 22), (22, 6), (22, 13)])
+def test_keccak_tree_at_plan_boundaries(dev, log_n, levels):
+    """Around the plan's group sizes (a subtree of 2^(TOP_LOG - 1), 2^TOP_LOG
+    and 2^(TOP_LOG + 1) digests a block; layers at 2^BIG_LOG and a band more
+    or less), runs that stop below the root, and other launch plans through
+    ``run_plan``."""
+    assert (keccak_kernel.TOP_LOG, keccak_kernel.BIG_LOG, keccak_kernel.BAND_LEVELS) == (8, 16, 5)
+    d = _u32(dev, (1 << log_n, 4, 2), 1000 * log_n + levels)
+    want = keccak_kernel.compress_levels_plain(d, levels)
+    assert _layers_equal(keccak_kernel.compress_levels(d, levels), want)
+    for plan in _other_plans(log_n, levels):
+        assert _layers_equal(keccak_kernel.run_plan(d, plan), want)
+
+
+def _other_plans(log_n, levels):
+    """Launch plans of the same levels besides tree_plan's: groups of 6 from
+    the bottom, and bands of 3 levels whose blocks keep 32 nodes at the top
+    (a subtree no larger than its layer or MAX_SUB_LOG)."""
+    groups, bands, m, left = [], [], log_n, levels
+    while left:
+        groups.append((min(6, left), min(6, left)))
+        left -= groups[-1][1]
+    left = levels
+    while left:
+        lv = min(3, left)
+        bands.append((min(lv + 5, m, keccak_kernel.MAX_SUB_LOG), lv))
+        m, left = m - lv, left - lv
+    return groups, bands
+
+
+@pytest.mark.parametrize("offset_words", [8, 24, 1, 3])
+def test_keccak_tree_on_a_layer_with_an_offset_base(dev, offset_words):
+    """A layer that is a slice of a larger buffer: whole digests in (16-byte
+    aligned) and single words in (4 bytes past a boundary)."""
+    n = 1 << 12
+    flat = _u32(dev, (n * 8 + offset_words,), offset_words)
+    d = flat[offset_words:].view(n, 4, 2)
+    assert _layers_equal(keccak_kernel.compress_levels(d, 12), keccak_kernel.compress_levels_plain(d, 12))
+
+
+def test_keccak_wrappers_never_run_plain_on_the_card(dev, monkeypatch):
+    """A CUDA tensor reaches the kernels, never the plain versions."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    a, d = _u32(dev, (100, 6), 1), _u32(dev, (64, 4, 2), 2)
+    want_rows, want_tree = keccak_kernel.hash_rows_plain(a), keccak_kernel.compress_levels_plain(d, 6)
+    monkeypatch.setattr(keccak_kernel, "hash_rows_plain", refuse)
+    monkeypatch.setattr(keccak_kernel, "compress_levels_plain", refuse)
+    assert torch.equal(keccak_kernel.hash_rows(a), want_rows)
+    assert _layers_equal(keccak_kernel.compress_levels(d, 6), want_tree)
 
 
 @pytest.mark.parametrize("log_h", [1, 2, 5, 8, 9, 12, 13, 17, 21])

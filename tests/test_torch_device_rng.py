@@ -14,6 +14,7 @@ here read the small samples.  Regenerate it with JAX on the CPU:
 """
 
 import hashlib
+import inspect
 import json
 import pathlib
 import sys
@@ -28,6 +29,7 @@ from tpu_stark.challenger.grind import device_grind as j_device_grind
 from tpu_stark.compat.device_rng import DeviceRng as JRng
 from tpu_stark_torch.compat import device_rng as drng
 from tpu_stark_torch.compat.device_rng import DeviceRng
+from tpu_stark_torch.compat import from_jax
 from tpu_stark_torch.compat.from_jax import device_rng_from_state
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.prover.config import make_zk_rng
@@ -87,6 +89,13 @@ def test_carried_mid_stream():
     for rows, cols in [(16, 4), (100, 2)]:
         assert np.array_equal(_u32(t.sample_babybear_matrix_monty(rows, cols)),
                               np.asarray(j.sample_babybear_matrix_monty(rows, cols)))
+
+
+def test_carry_helpers_default_to_the_card():
+    """Like the port's other entry points, the helpers that carry JAX state
+    across put it on the card unless the caller asks for the CPU."""
+    for fn in (from_jax.device_rng_from_state, from_jax.prover_data_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_make_zk_rng_modes():

@@ -89,3 +89,32 @@ def test_single_row_tree():
     troot, tdata = MerkleTreeMmcs().commit([bb.to_tensor(m, "cpu")])
     jroot, _ = JMmcs().commit([jnp.asarray(m)])
     assert troot == jroot and len(tdata.layers) == 1
+
+
+@pytest.mark.parametrize("hiding", [False, True])
+@pytest.mark.parametrize("shapes,runs", [
+    (SHAPES, [1, 1, 2]),  # 16 rows, injections at 8 and 4
+    ([(64, 2), (8, 3)], [3, 3]),  # one injection three levels up
+    ([(32, 4)], [5]),  # no injection: one run to the root
+])
+def test_compress_layers_runs_between_injections(hiding, shapes, runs, monkeypatch):
+    """The tree asks its hash stack for each run of compress layers up to
+    the next injection height (``compress_layers``), injects there, and
+    gives JAX's layers and root, with hiding too."""
+    seen = []
+    orig = MerkleTreeMmcs.compress_layers
+
+    def noted(digests, levels):
+        seen.append(levels)
+        return orig(digests, levels)
+
+    monkeypatch.setattr(MerkleTreeMmcs, "compress_layers", staticmethod(noted))
+    rng = np.random.default_rng(7)
+    mats = [rng.integers(0, bb.P, size=s, dtype=np.uint32) for s in shapes]
+    jroot, jdata = JMmcs(hiding=hiding, rng=JRng.seed_from_u64(7)).commit([jnp.asarray(m) for m in mats])
+    troot, tdata = MerkleTreeMmcs(hiding=hiding, rng=SmallRng.seed_from_u64(7)).commit(
+        [bb.to_tensor(m, "cpu") for m in mats])
+    assert seen == runs
+    assert troot == jroot and len(tdata.layers) == len(jdata.layers)
+    for tl, jl in zip(tdata.layers, jdata.layers):
+        assert np.array_equal(bb.to_numpy(tl), np.asarray(jl))

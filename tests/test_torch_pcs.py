@@ -65,6 +65,7 @@ def test_jax_commit_port_open(layout):
         r_coeffs=[np.asarray(r) for r in jdata.r_coeffs],
         domains=[(d.log_n, d.shift) for d in jdata.domains],
         widths=jdata.widths,
+        device="cpu",
     )
     tpcs.rng = from_jax.smallrng_from_state(jpcs.rng.s)
     tpcs.val_mmcs._rng = from_jax.smallrng_from_state(jpcs.val_mmcs._rng.s)

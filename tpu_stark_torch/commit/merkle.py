@@ -9,9 +9,11 @@
 Matrices of several power-of-two heights share one tree: the tallest form
 the leaf layer, shorter ones are injected at the layer of their height
 (digest = compress(compress(left, right), hash(injected rows))).  Rows hash
-in canonical u32 form.  Every layer is one launch of kernel K1 on the
-device, and all layers stay there; openings gather the few rows and
-siblings they need in one transfer.  Verification is host code.
+in canonical u32 form.  The leaf layer is one launch of kernel K1 on the
+device, and each run of compress layers up to the next injection height a
+few launches of its tree kernel (``keccak_kernel.compress_levels``); all
+layers stay on the device, and openings gather the few rows and siblings
+they need in one transfer.  Verification is host code.
 """
 
 from __future__ import annotations
@@ -89,11 +91,12 @@ def build_layers_from_digests(
     h = max_h
     layers = [digests]
     while h > 1:
-        h >>= 1
-        digests = mmcs.compress_layer(digests)
+        nxt = max((g for g in groups if g < h), default=1)  # the next injection height, or the root
+        run = mmcs.compress_layers(layers[-1], (h // nxt).bit_length() - 1)
+        h = nxt
         if h in groups:
-            digests = mmcs.compress(digests, mmcs.leaf_layer(groups[h]))
-        layers.append(digests)
+            run[-1] = mmcs.compress(run[-1], mmcs.leaf_layer(groups[h]))
+        layers.extend(run)
     return layers
 
 
@@ -112,10 +115,11 @@ class MerkleTreeMmcs:
         return sponge.hash_field_rows_batched(bb.to_u32(torch.cat(list(mats), dim=1)))
 
     @staticmethod
-    def compress_layer(digests: torch.Tensor) -> torch.Tensor:
-        """Compress neighbouring digests: rows 2i, 2i+1 of a contiguous
-        (N, 4, 2) layer are exactly the (N/2, 16) u32 rows left || right."""
-        return keccak_kernel.hash_rows(digests.reshape(-1, 16))
+    def compress_layers(digests: torch.Tensor, levels: int) -> List[torch.Tensor]:
+        """The ``levels`` layers above a layer (a run between injection
+        heights), row i of each the compress of rows 2i, 2i + 1 below, in
+        a few launches of K1's tree kernel."""
+        return keccak_kernel.compress_levels(digests, levels)
 
     compress = staticmethod(sponge.compress_digests_batched)
 

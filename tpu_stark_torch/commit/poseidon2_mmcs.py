@@ -74,8 +74,13 @@ class Poseidon2Mmcs(MerkleTreeMmcs):
         return poseidon2_kernel.hash_rows(*mats)
 
     @staticmethod
-    def compress_layer(digests: torch.Tensor) -> torch.Tensor:
-        return poseidon2_kernel.compress(digests[0::2], digests[1::2])
+    def compress_layers(digests: torch.Tensor, levels: int) -> List[torch.Tensor]:
+        """One K3 compress launch a layer."""
+        out = []
+        for _ in range(levels):
+            digests = poseidon2_kernel.compress(digests[0::2], digests[1::2])
+            out.append(digests)
+        return out
 
     compress = staticmethod(poseidon2_kernel.compress)
 

@@ -2,7 +2,9 @@
 
 With these a test can commit with ``tpu_stark`` and open with
 ``tpu_stark_torch``, so each stage is compared on the same data.  The caller
-pulls the JAX arrays with ``np.asarray``; nothing here imports jax.
+pulls the JAX arrays with ``np.asarray``; nothing here imports jax.  Like
+the port's other entry points, both helpers put what they make on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ def smallrng_from_state(words: Sequence[int]) -> SmallRng:
     return SmallRng([int(w) for w in words])
 
 
-def device_rng_from_state(key_words: Sequence[int], counter: int, device="cpu") -> DeviceRng:
+def device_rng_from_state(key_words: Sequence[int], counter: int, device="cuda") -> DeviceRng:
     """A DeviceRng continuing a JAX ``DeviceRng`` from its key data
     (``jax.random.key_data(rng._key)``, two u32) and its call counter."""
     return DeviceRng.from_state((int(key_words[0]), int(key_words[1])), counter, device)
@@ -40,7 +42,7 @@ def prover_data_from_numpy(
     r_coeffs: Sequence[np.ndarray],  # Monty uint32 plain-frame coefficients
     domains: Sequence[Tuple[int, int]],  # (log_n, shift) per matrix
     widths: Sequence[int],
-    device="cpu",
+    device="cuda",
 ) -> PcsProverData:
     """The port's ``PcsProverData`` from a JAX ``PcsProverData``'s arrays."""
 

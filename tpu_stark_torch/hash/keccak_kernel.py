@@ -8,22 +8,30 @@ items, each rate-17 chunk overwrites the front of the state, and the
 permutation runs after every chunk.  Out: (N, 4, 2) int32 = 4 u64 words as
 [lo, hi] (the same bits as JAX's uint32 digests).
 
-Replaces ``tpu_stark/hash/pallas_keccak.py::_sponge_kernel`` (wrappers
-``hash_field_rows`` and ``compress_digests``).  On the H100 the kernel
-(``csrc/keccak_sponge.cu``) is integer-ALU bound: one thread per row holds
-the 25 lanes as native 64-bit registers and runs 24 fully unrolled rounds per
-chunk.  It takes any N (no tile padding, which the Pallas kernel needed) and
-any width, and compress reads left and right directly, with no concatenated
-copy.
+``compress_levels(digests, levels)`` returns the ``levels`` Merkle layers
+above a contiguous (N, 4, 2) layer, N a power of two: layer l is
+(N / 2^l, 4, 2), its row i the compress (the hash of the 16 words) of rows
+2i and 2i + 1 of layer l - 1.
 
-``hash_rows_plain`` is the plain torch version: int64 lanes, vectorized
-over rows.  The wrapper runs it only for CPU tensors; for a CUDA tensor it
-launches the kernel or raises.
+Both replace ``tpu_stark/hash/pallas_keccak.py::_sponge_kernel`` (wrappers
+``hash_field_rows`` and ``compress_digests``).  On the H100 the kernels
+(``csrc/keccak_sponge.cu``) are bound by the ALU pipe, where LOP3 and the
+funnel shift run: one thread per row holds the 25 lanes as u32 halves and
+runs a round in the least count of those.  ``hash_rows`` takes any N (no
+tile padding, which the Pallas kernel needed) and any width, and a
+compress of two 8-word operands reads both directly (other splits, which
+only the tests pass, are concatenated first).  ``compress_levels`` builds a tree's layers in a few
+launches of the tree kernel (``tree_plan``): a block compresses a subtree
+through shared memory and writes every level to its layer.
+
+``hash_rows_plain`` and ``compress_levels_plain`` are the plain torch
+versions: int64 lanes, vectorized over rows.  The wrappers run them only
+for CPU tensors; for a CUDA tensor they launch the kernels or raise.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,6 +130,8 @@ def hash_rows(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor
         raise ValueError("keccak sponge: left and right rows disagree")
     if ka + kb == 0:
         raise ValueError("empty sponge input")
+    if b is not None and (ka, kb) != (8, 8):  # the kernel reads two operands of a compress only
+        a, b = torch.cat([a, b], dim=1), None
     a = a.contiguous()
     b = None if b is None else b.contiguous()
     out = torch.empty((n, OUT, 2), dtype=torch.int32, device=a.device)
@@ -131,9 +141,90 @@ def hash_rows(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor
     kernels.KECCAK_SPONGE.launches += 1
     kernels.check(
         so.ts_keccak_rows(
-            a.data_ptr(), ka, None if b is None else b.data_ptr(), kb, n,
+            a.data_ptr(), int(a.shape[1]), None if b is None else b.data_ptr(), n,
             out.data_ptr(), kernels.stream_handle(a.device),
         ),
         "keccak sponge",
     )
     return out
+
+
+# compress_levels' launch plan (tree_plan)
+TOP_LOG = 8  # a group of at most 2^TOP_LOG digests a block, one permutation a thread a level
+BAND_LEVELS = 5  # levels a band launch builds; its blocks keep 32 nodes (a full warp) at the top
+BIG_LOG = 16  # layers of more than 2^BIG_LOG digests are built by band launches
+MAX_SUB_LOG = BAND_LEVELS + 5  # a block's subtree, at most (the kernel's limit: 24 KB of shared memory)
+
+
+def tree_plan(log_n: int, levels: int) -> List[Tuple[int, int]]:
+    """The tree kernel's launches for the ``levels`` layers above 2^log_n
+    digests, bottom first: (sub_log, lv) = each block compresses a subtree
+    of 2^sub_log digests through lv levels.  Layers of more than 2^BIG_LOG
+    digests go through bands of BAND_LEVELS levels (a subtree of
+    2^(lv + 5) digests, 32 nodes at its top: no warp idles in part);
+    then groups of TOP_LOG levels, each block a whole subtree of
+    2^lv digests (one permutation a thread a level), the last one block."""
+    if not 0 <= levels <= log_n:
+        raise ValueError(f"keccak tree: {levels} levels above 2^{log_n} digests")
+    plan = []
+    while levels:
+        if log_n > BIG_LOG:
+            lv = min(BAND_LEVELS, log_n - BIG_LOG, levels)
+            sub = lv + 5
+        else:
+            lv = sub = min(TOP_LOG, levels)
+        plan.append((sub, lv))
+        log_n -= lv
+        levels -= lv
+    return plan
+
+
+def compress_levels_plain(digests: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    out = []
+    for _ in range(levels):
+        digests = hash_rows_plain(digests.reshape(-1, 2 * OUT * 2))
+        out.append(digests)
+    return out
+
+
+def _tree_launch(src: torch.Tensor, n_in: int, sub_log: int, lv: int, out: torch.Tensor) -> None:
+    """One launch of the tree kernel: levels 1..lv above the n_in digests
+    at ``src`` into ``out`` (those layers one after another)."""
+    kernels.KECCAK_TREE.launches += 1
+    kernels.check(
+        kernels.lib().ts_keccak_tree(src.data_ptr(), n_in, sub_log, lv, out.data_ptr(),
+                                     kernels.stream_handle(src.device)),
+        "keccak tree",
+    )
+
+
+def run_plan(digests: torch.Tensor, plan: List[Tuple[int, int]]) -> List[torch.Tensor]:
+    """The layers above a contiguous (N, 4, 2) CUDA layer, built by the
+    launches of ``plan`` (``tree_plan``'s form, each sub_log at most
+    MAX_SUB_LOG), as views of one buffer."""
+    n, levels = int(digests.shape[0]), sum(lv for _, lv in plan)
+    out = torch.empty((n - (n >> levels), OUT, 2), dtype=torch.int32, device=digests.device)
+    layers = [out[n - (n >> (l - 1)) : n - (n >> l)] for l in range(1, levels + 1)]
+    src, n_in, done = digests, n, 0
+    for sub_log, lv in plan:
+        _tree_launch(src, n_in, sub_log, lv, layers[done])
+        done += lv
+        src, n_in = layers[done - 1], n_in >> lv
+    return layers
+
+
+def compress_levels(digests: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    """The ``levels`` layers above an (N, 4, 2) int32 layer, N a power of
+    two, 0 <= levels <= log2 N: layer l is (N / 2^l, 4, 2)."""
+    n = int(digests.shape[0])
+    if tuple(digests.shape[1:]) != (OUT, 2) or n < 1 or n & (n - 1):
+        raise ValueError(f"keccak tree: a layer of shape {tuple(digests.shape)}")
+    if not 0 <= levels < n.bit_length():
+        raise ValueError(f"keccak tree: {levels} levels above {n} digests")
+    if digests.device.type == "cpu":
+        return compress_levels_plain(digests, levels)
+    if digests.device.type != "cuda":
+        raise ValueError(f"keccak tree: unsupported device {digests.device}")
+    if digests.dtype != torch.int32:
+        raise TypeError("keccak tree takes int32 (u32-bit) digests")
+    return run_plan(digests.contiguous(), tree_plan(n.bit_length() - 1, levels))

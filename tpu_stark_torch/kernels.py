@@ -47,6 +47,11 @@ KECCAK_SPONGE = KernelInfo(
     "keccak_sponge", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/hash/pallas_keccak.py:56",
 )
+# the compress layers of a Merkle tree, several levels a launch
+KECCAK_TREE = KernelInfo(
+    "keccak_tree", "tpu_stark_torch/csrc/keccak_sponge.cu",
+    "tpu_stark/hash/pallas_keccak.py:56",
+)
 NTT_PASS0 = KernelInfo(
     "ntt_pass0", "tpu_stark_torch/csrc/ntt.cu",
     "tpu_stark/ntt/pallas_ntt.py:114",
@@ -72,7 +77,8 @@ KECCAK_GRIND = KernelInfo(
     "keccak_grind", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/challenger/grind.py:74",
 )
-ALL = (KECCAK_SPONGE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM, KECCAK_GRIND)
+ALL = (KECCAK_SPONGE, KECCAK_TREE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
+       KECCAK_GRIND)
 
 
 def reset_launch_counts() -> None:
@@ -158,8 +164,10 @@ def lib() -> ctypes.CDLL:
         if _lib is None:
             so = ctypes.CDLL(build().path)
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-            so.ts_keccak_rows.argtypes = [vp, i64, vp, i64, i64, vp, vp]
+            so.ts_keccak_rows.argtypes = [vp, i64, vp, i64, vp, vp]
             so.ts_keccak_rows.restype = i32
+            so.ts_keccak_tree.argtypes = [vp, i64, i32, i32, vp, vp]
+            so.ts_keccak_tree.restype = i32
             so.ts_ntt_pass.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
             so.ts_ntt_pass.restype = i32
             so.ts_poseidon2_rows.argtypes = [vp, i64, i64, vp, i64, i64, i64, i32, vp, vp]
