@@ -56,9 +56,13 @@ line each, any failure an uncaught exception and a nonzero exit:
     equal the JAX package's (JAX_PROOF_BYTES);
 14. K5 (the limb-matmul DFT on the integer tensor cores) against its plain
     version, exact, at (256, 65536), (128, 131072) and ragged widths for
-    n = 64, 32, 16; then the narrow NTT route (``narrow_ntt="mxu"``)
-    against K2 at (2^16, 2), (2^21, 2), (2^22, 4), (2^23, 2) and
-    (2^20, 32), forward and inverse, each timed beside K2;
+    n = 64, 32, 16, each timed; then every level (B, A, R) of config 2's
+    narrow-route transforms (CONFIG2_TRANSFORMS; an inner level through
+    ``mod_matmul_twiddle_moved``, the product, twiddle and moved axis in one
+    launch), exact against its plain version and timed beside its bound,
+    with a prove's launches summed; then the narrow NTT route
+    (``narrow_ntt="mxu"``) against K2 at (2^16, 2), (2^21, 2), (2^22, 4),
+    (2^23, 2) and (2^20, 32), forward and inverse, each timed beside K2;
 15. the device zk rng against JAX's samples
     (tests/golden/torch_device_rng_jax.json: seeds 1 and 7, every stream
     tag, counters 0-2, up to (2^21, 4)), timed; the grind kernel against
@@ -79,10 +83,11 @@ line each, any failure an uncaught exception and a nonzero exit:
     (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
     layers and K4's chunks by rows, widths, row strides and 16-byte
-    alignment, K1's tree runs by height, levels and alignment, K5's products
-    by n and width (both directions' tables) and the grind's chunks by
-    count, tail blocks, witness offset and bits, on random inputs of those
-    shapes.
+    alignment, K1's tree runs by height, levels and alignment, K5's leaf
+    products by n and width (both directions' tables) and its inner levels
+    by n, A, R and direction (config 2's set must be phase 14's), and the
+    grind's chunks by count, tail blocks, witness offset and bits, on
+    random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
 summed over the five main paths; time, plain time and the bound of each
@@ -97,14 +102,18 @@ rate, 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz = 33.45 T/s (one warp
 instruction per scheduler per clock, the most any integer mix can reach;
 1.98 GHz is the clock of the data sheet's 67 TFLOP/s fp32), and for K5
 also its 16 * 2 * n^2 * M int8 tensor operations over the data sheet's
-dense int8 peak, 1,979 TOPS.  A tree of compress layers (K1's tree kernel)
+dense int8 peak, 1,979 TOPS; a K5 level's bytes count x read and the
+result written once, the limb table and, at an inner level, the (A, B)
+twiddle table read once (``k5_bound``).  A tree of compress layers (K1's tree kernel)
 reads its input layer once and writes one digest a node, one permutation
 each.  Instruction counts are lower bounds read off
 the sources: a Montgomery product 5 (three multiplies, a subtract, a
 select), a modular add 2, an NTT butterfly 9 (4 in a transform's stage 0,
 whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
-shifts per 64-bit rotation), K5's epilogue 30 per output (the 7-diagonal
-recombine in 64-bit adds and shifts, one REDC, a 64-bit remainder by P).
+shifts per 64-bit rotation), K5's epilogue 17 per output (the 7-diagonal
+recombine in five wide multiply-adds and a 64-bit add, two Montgomery
+steps, a conditional subtract) and at an inner level a Montgomery product
+more for the twiddle.
 
 A Poseidon2 permutation (K3, K4) counts the least int32 work of
 csrc/poseidon2_sponge.cu's arithmetic, 5,892 instructions: a lazy
@@ -205,7 +214,8 @@ def _ntt_ops(n: int, stages: int, first: bool) -> int:
 
 
 INT8_TENSOR_OPS_PER_S = 1.979e15
-MXU_EPILOGUE_OPS = 30  # per output of K5
+MXU_EPILOGUE_OPS = 17  # per output of K5 (see the module docstring)
+MONTY_MUL_OPS = 5
 
 
 def _bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
@@ -214,6 +224,53 @@ def _bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(n_ops / INT32_OPS_PER_S, n_tensor_ops / INT8_TENSOR_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k5_bound(b: int, a: int, r: int):
+    """The bound of one level of the limb-matmul DFT on x viewed as (B, A,
+    R): x read and the result written once, the (4, B, B) limb table and,
+    for an inner level (A > 1), the (A, B) twiddle table read once; the
+    epilogue's int32 instructions (and the twiddle's Montgomery product);
+    16 limb products of 2 B^2 A R int8 operations."""
+    m = a * r
+    n_bytes = 8 * b * m + 4 * b * b + (4 * a * b if a > 1 else 0)
+    n_ops = b * m * (MXU_EPILOGUE_OPS + (MONTY_MUL_OPS if a > 1 else 0))
+    return _bound(n_bytes, n_ops, 32 * b * b * m)
+
+
+def k5_levels(h: int, w: int):
+    """The levels of ``mxu_ntt.dft_axis0`` on an (h, w) matrix, outermost
+    first: (B, A, R) with x viewed as (B, A, R), B the DFT size; the leaf
+    has A = 1 (R = h * w / B)."""
+    out, n, r = [], h, w
+    while n > 256:
+        b = 1 << min((n.bit_length() - 1) // 2, 8)
+        out.append((b, n // b, r))
+        n, r = n // b, r * b
+    out.append((n, 1, r))
+    return out
+
+
+# phase 14's K5 leaves (n, M) and narrow-route transforms (h, w)
+K5_TIMED = ((256, 65536), (128, 131072), (64, 262147), (32, 524269), (16, 1048573))
+ROUTE_TIMED = ((1 << 16, 2), (1 << 21, 2), (1 << 22, 4), (1 << 23, 2), (1 << 20, 32))
+
+
+# config 2's narrow-route transforms at 2^20 (h, w, inverse), one call each a
+# prove, as ``port_timing.py k5`` records them from a prove (phase 13 holds
+# the noted level shapes of phase 16's warm prove to these)
+CONFIG2_TRANSFORMS = ((1 << 20, 2, True), (1 << 20, 8, True), (1 << 21, 2, False), (1 << 21, 2, True),
+                      (1 << 21, 4, False), (1 << 21, 4, True), (1 << 21, 8, False), (1 << 22, 2, False),
+                      (1 << 22, 4, False))
+
+
+def config2_levels():
+    """{(B, A, R, inverse): launches a prove} of CONFIG2_TRANSFORMS."""
+    out = {}
+    for h, w, inverse in CONFIG2_TRANSFORMS:
+        for b, a, r in k5_levels(h, w):
+            out[(b, a, r, inverse)] = out.get((b, a, r, inverse), 0) + 1
+    return out
 
 
 def _tree_bound(n: int, levels: int):
@@ -271,6 +328,7 @@ _SHAPE_KERNELS = {
     "poseidon2_compress": ("poseidon2_sponge",),
     "poseidon2_absorb": ("poseidon2_absorb",),
     "mod_matmul_axis": ("mxu_mm",),
+    "mod_matmul_twiddle_moved": ("mxu_mm",),
     "grind_verdicts": ("keccak_grind",),
 }
 
@@ -283,7 +341,8 @@ def _record_shapes(port, seen: dict, path: str):
     ``absorb_rows`` by rows, and each operand's width, row stride and
     16-byte alignment; K1's ``compress_levels`` by rows, levels and
     alignment; K5's
-    ``mod_matmul_axis`` by n and width; the grind's ``verdicts`` by count,
+    ``mod_matmul_axis`` by n and width and ``mod_matmul_twiddle_moved`` by
+    n, A, R and direction; the grind's ``verdicts`` by count,
     tail blocks, witness offset and bits."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
 
@@ -301,6 +360,9 @@ def _record_shapes(port, seen: dict, path: str):
             "poseidon2_absorb", int(c.shape[0]), *rows(c), bool(first)),
         (port.mxu_ntt, "mod_matmul_axis"): lambda x, w: (
             "mod_matmul_axis", int(x.shape[0]), x.numel() // int(x.shape[0])),
+        (port.mxu_ntt, "mod_matmul_twiddle_moved"): lambda x, w, tw: (
+            "mod_matmul_twiddle_moved", int(x.shape[0]), int(x.shape[1]), x.numel() // int(x.shape[0] * x.shape[1]),
+            w is port.mxu_ntt._DEVICE_TABLES.get((str(x.device), "limbs", (int(x.shape[0]),), True))),
         (port.grind, "verdicts"): lambda start, count, pre, tail, w_off, bits: (
             "grind_verdicts", int(count), int(tail.shape[0]), int(w_off), int(bits)),
     }
@@ -343,6 +405,10 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             both = [mx.limbs_on(n, inverse, x.device) for inverse in (False, True)]
             got = torch.stack([mx.mod_matmul_axis(x, w) for w in both])
             want = torch.stack([mx.mod_matmul_axis_plain(x, w) for w in both])
+        elif kind == "mod_matmul_twiddle_moved":
+            x = rand_monty((n, key[2], key[3]))
+            w, tw = mx.limbs_on(n, key[4], x.device), mx.twiddles_on(key[2], n, key[4], x.device)
+            got, want = mx.mod_matmul_twiddle_moved(x, w, tw), mx.mod_matmul_twiddle_moved_plain(x, w, tw)
         elif kind == "grind_verdicts":
             pre, tail = rand_u32((25, 2)).view(torch.int64).view(25), rand_u32((key[2], 34)).view(torch.int64)
             got = port.grind.verdicts(0, n, pre, tail, key[3], key[4])
@@ -479,7 +545,7 @@ def _phase14_mxu(torch, port, rand_monty, results) -> str:
     route against K2; returns the phase's line."""
     mx, radix2 = port.mxu_ntt, port.radix2
     lines = []
-    for n, m in [(256, 65536), (128, 131072), (64, 262147), (32, 524269), (16, 1048573)]:
+    for n, m in K5_TIMED:
         x = rand_monty((n, m))
         err = 0
         for inverse in (False, True):
@@ -495,12 +561,36 @@ def _phase14_mxu(torch, port, rand_monty, results) -> str:
         lines.append(f"({n}, {m}): {ms:.4f} ms ({tensor_ops / ms / 1e9:.1f} int8 TOPS)")
         if n == 256:
             plain_ms = _cuda_ms(torch, lambda: mx.mod_matmul_axis_plain(x, limbs), 2)
-            results["mxu_mm"] = (err, ms, plain_ms, *_bound(
-                2 * n * m * 4 + 4 * n * n, n * m * MXU_EPILOGUE_OPS, tensor_ops))
+            results["mxu_mm"] = (err, ms, plain_ms, *k5_bound(n, 1, m))
             lines[-1] += f" vs plain {plain_ms:.3f} ms, bound {results['mxu_mm'][3]:.4f} ms"
         del x
+    levels, total_ms, total_bound = [], 0.0, 0.0
+    for (b, a, r, inverse), count in sorted(config2_levels().items()):
+        x = rand_monty((b, a, r))
+        w = mx.limbs_on(b, inverse, x.device)
+        if a == 1:
+            def fn():
+                return mx.mod_matmul_axis(x, w)
+            want = mx.mod_matmul_axis_plain(x, w)
+        else:
+            tw = mx.twiddles_on(a, b, inverse, x.device)
+
+            def fn():
+                return mx.mod_matmul_twiddle_moved(x, w, tw)
+            want = mx.mod_matmul_twiddle_moved_plain(x, w, tw)
+        got = fn()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 level ({b}, {a}, {r}) inverse={inverse}: kernel != plain "
+                                 f"(max_abs_err {_max_abs_err(torch, got, want)})")
+        ms = _cuda_ms(torch, fn, 20)
+        bound, by = k5_bound(b, a, r)
+        total_ms, total_bound = total_ms + count * ms, total_bound + count * bound
+        levels.append(f"({b}, {a}, {r}){' inv' if inverse else ''} x{count} {ms:.4f} ms "
+                      f"({100 * bound / ms:.0f}% of {bound:.4f}, {by})")
+        del x, got, want
     route = []
-    for h, w in [(1 << 16, 2), (1 << 21, 2), (1 << 22, 4), (1 << 23, 2), (1 << 20, 32)]:
+    for h, w in ROUTE_TIMED:
         x = rand_monty((h, w))
         for inverse in (False, True):
             fn = radix2.idft_batch if inverse else radix2.dft_batch
@@ -511,7 +601,9 @@ def _phase14_mxu(torch, port, rand_monty, results) -> str:
         route.append(f"({h}, {w}): route {mxu_ms:.4f} ms vs K2 {k2_ms:.4f} ms")
         del x
     return ("[14] K5 mxu matmul == plain (exact): " + "; ".join(lines)
-            + ". Narrow route == K2 (dft and idft, exact); dft times: " + "; ".join(route))
+            + f". Config 2's K5 levels (B, A, R), each == plain (exact), timed: " + "; ".join(levels)
+            + f"; a prove's {sum(config2_levels().values())} launches {total_ms:.4f} ms against "
+            f"{total_bound:.4f} ms. Narrow route == K2 (dft and idft, exact); dft times: " + "; ".join(route))
 
 
 def _phase15_rng_grind(torch, port, dev, results) -> str:
@@ -1099,8 +1191,15 @@ def main() -> int:
             shape_err[name] = max(shape_err.get(name, 0), err)
     dft_shapes = ", ".join(
         f"({k[1]}, {k[2]}){' inv' if k[3] else ''}" for k in sorted(seen) if k[0] == "dft" and "keccak-air" in seen[k])
+    noted_levels = {(k[1], k[2], k[3], k[4]) for k in seen if k[0] == "mod_matmul_twiddle_moved"
+                    and "config2-mxu" in seen[k]}
+    want_levels = {key for key in config2_levels() if key[1] > 1}
+    if noted_levels != want_levels:
+        raise AssertionError(f"config 2's inner K5 levels {sorted(noted_levels)} are not phase 14's {sorted(want_levels)}")
     mxu_shapes = ", ".join(
         f"({k[1]}, {k[2]})" for k in sorted(seen) if k[0] == "mod_matmul_axis" and "config2-mxu" in seen[k])
+    mxu_shapes += "; inner levels (B, A, R): " + ", ".join(
+        f"({b}, {a}, {r}){' inv' if inv else ''}" for b, a, r, inv in sorted(noted_levels))
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "

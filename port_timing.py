@@ -7,8 +7,10 @@
     python3 port_timing.py k2 [--tree DIR]
     python3 port_timing.py p2 [--tree DIR]
     python3 port_timing.py k1 [--tree DIR]
+    python3 port_timing.py k5 [--tree DIR] [--phases]
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
+    python3 port_timing.py wgmma
 
 Run from the root of a checkout on a machine with a CUDA device.  Each
 subcommand prints the card (nvidia-smi name and power limit) first.
@@ -75,6 +77,25 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   tree with ``keccak_kernel.run_plan`` it also times the 2^23 and 2^16
   trees under the alternative launch plans ``K1_TREE_PLANS``, each held
   equal to the default's layers.  ``--tree DIR`` as for ``warm``.
+* ``k5``: K5, the limb-matmul DFT.  nvcc's time and ptxas's report for
+  ``mxu_ntt.cu`` alone; one BASELINE config 2 prove at 2^20 on the narrow
+  route with its transforms noted; then every level (B, A, R) of those
+  transforms (an inner level through ``mod_matmul_twiddle_moved``, or in a
+  tree without it the product, ``bb.mul`` by the twiddles and the moved
+  axis as a copy; the leaf through ``mod_matmul_axis``) and the leaves of
+  ``chip_smoke.py``'s phase 14, each timed with CUDA events beside its
+  bound (``chip_smoke.k5_bound``) with the SHA-256 of its output (inputs
+  from a fixed seed, so two trees' outputs compare by their hashes); the
+  narrow route against K2 at phase 14's five shapes; the prove's route
+  transforms (``dft_axis0``, each as often as a prove runs it) under
+  ``torch.profiler``: K5's device time and launches, and every other
+  kernel or copy they launch; and, as a yardstick only (not K5's
+  function), ``torch._int_mm`` at the volume of K5's 16 limb products at
+  (256, 65536).  ``--tree DIR`` as for ``warm``.  ``--phases`` also builds
+  ``mxu_ntt.cu`` alone with ``-DMXU_PHASE_CLOCKS`` and prints, at
+  ``K5_PHASE_SHAPES``, each phase's share of the warpgroups' SM clocks
+  (raw wait and split, wgmma products with the next tile's cp.async issue
+  inside their window, epilogue and stores).
 * ``sass``: builds the kernels of this tree (``--tree DIR``: of DIR) with
   nvcc, prints the build time, ptxas's register and spill report, and the
   SASS instruction mix of K4 (``p2_absorb_kernel``) and K3
@@ -106,6 +127,10 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   resident
   at once, and prints what each class reached, in results per SM per SM
   clock (clock64 in the kernel), from each kernel's SASS loop body.
+* ``wgmma``: the u8 wgmma's throughput on the card, by shape (m64n16k32,
+  m64n32k32, m64n64k32) and operand source (both in shared memory, or A in
+  registers), with K5's pattern of 16 products into 7 accumulators (see
+  ``wgmma``'s docstring): what bounds K5's product.
 * ``verify``: proves config 4 at 2^log_n rows and times the port's
   ``verify`` of it twice; with ``--pcs-from DIR`` it then times it once
   more with ``TwoAdicFriPcs.verify`` taken from DIR's
@@ -221,8 +246,11 @@ class _Bounds:
 
         def mxu(x, w):
             n = int(x.shape[0])
-            m = x.numel() // n
-            return "K5 mxu_mm", cs._bound(2 * n * m * 4 + 4 * n * n, n * m * cs.MXU_EPILOGUE_OPS, 16 * 2 * n * n * m)[0]
+            return "K5 mxu_mm", cs.k5_bound(n, 1, x.numel() // n)[0]
+
+        def mxu_level(x, w, tw):
+            n, a = int(x.shape[0]), int(x.shape[1])
+            return "K5 mxu_mm", cs.k5_bound(n, a, x.numel() // (n * a))[0]
 
         def verdicts(start, count, pre, tail, w_off, bits):
             return "grind", cs._bound(count + 8 * (25 + 17 * int(tail.shape[0])),
@@ -233,6 +261,7 @@ class _Bounds:
             (poseidon2_kernel, "hash_rows", sponge),
             (poseidon2_kernel, "compress", lambda a, b: sponge(a, b, poseidon2_kernel.WIDTH)),
             (poseidon2_kernel, "absorb_rows", absorb), (mxu_ntt, "mod_matmul_axis", mxu),
+            (mxu_ntt, "mod_matmul_twiddle_moved", mxu_level),
             (grind, "verdicts", verdicts), (keccak_kernel, "compress_levels", tree),
         ]
         self._orig = []
@@ -687,6 +716,209 @@ def k1_timing(torch, dev, args) -> None:
           f"{bound[0]:.4f} ms ({bound[1]}); == plain; output sha256 {sha(flags)}", flush=True)
 
 
+def _k5_level_fn(torch, mx, bb, x, b, a, inverse, dev):
+    """One level of the route on x (B, A, R): the leaf's product, or an
+    inner level's product, twiddle and moved axis, through the fused wrapper
+    where the tree has one, else the parent's composition."""
+    limbs = mx.limbs_on(b, inverse, dev)
+    if a == 1:
+        return lambda: mx.mod_matmul_axis(x, limbs)
+    if hasattr(mx, "mod_matmul_twiddle_moved"):
+        tw = mx.twiddles_on(a, b, inverse, dev)
+        return lambda: mx.mod_matmul_twiddle_moved(x, limbs, tw)
+    tw = mx._on_device("twiddle", (a, b), inverse, dev,
+                       lambda: bb.to_tensor(mx.twiddle_monty(a, b, inverse).T.copy(), "cpu"))
+    return lambda: bb.mul(mx.mod_matmul_axis(x, limbs), tw.view(b, a, 1)).movedim(1, 0).contiguous()
+
+
+K5_PHASE_SHAPES = ((256, 1, 65536), (128, 1, 131072), (64, 1, 262144), (16, 1, 1048576), (256, 8192, 2),
+                   (256, 16384, 4), (64, 128, 2048), (128, 128, 1024))
+
+
+def _k5_phases(torch, dev, cs, src, rand) -> None:
+    """K5 built alone with -DMXU_PHASE_CLOCKS: each shape's SM clocks by
+    phase (summed over warpgroups), as shares of their sum."""
+    import ctypes
+
+    from tpu_stark_torch import kernels
+    from tpu_stark_torch.ntt import mxu_ntt as mx
+
+    if "MXU_PHASE_CLOCKS" not in open(src).read():
+        print("phases: this tree's mxu_ntt.cu has no phase clocks", flush=True)
+        return
+    so = os.path.join(BUILD_OUT, "libk5_phases.so")
+    build = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DMXU_PHASE_CLOCKS", "-shared", "-o", so, src],
+                           capture_output=True, text=True, timeout=600)
+    if build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} with phase clocks:\n{build.stdout}{build.stderr}")
+    lib = ctypes.CDLL(so)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.ts_mxu_mm.argtypes = [vp, vp, vp, vp, i32, i64, i64, vp]
+    lib.ts_mxu_mm.restype = i32
+    lib.ts_mxu_phase_clocks.argtypes = [vp, i32]
+    lib.ts_mxu_phase_clocks.restype = i32
+    clocks = (ctypes.c_ulonglong * 4)()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    for b, a, r in K5_PHASE_SHAPES:
+        x = rand((b, a, r), b + a + r)
+        w = mx.limbs_on(b, False, dev)
+        tw = mx.twiddles_on(a, b, False, dev) if a > 1 else None
+        out = torch.empty((a, b, r), dtype=torch.int32, device=dev)
+
+        def run():
+            kernels.check(lib.ts_mxu_mm(x.data_ptr(), mx._image_of(w).data_ptr(), None if tw is None else tw.data_ptr(),
+                                        out.data_ptr(), b, a, r, stream), "K5 with phase clocks")
+
+        run()
+        torch.cuda.synchronize()
+        want = mx.mod_matmul_axis(x, w) if a == 1 else mx.mod_matmul_twiddle_moved(x, w, tw)
+        if not torch.equal(out.view(want.shape), want):
+            raise AssertionError(f"K5 with phase clocks at ({b}, {a}, {r}) != the kernel's result")
+        kernels.check(lib.ts_mxu_phase_clocks(None, 1), "phase clock reset")
+        ms = cs._cuda_ms(torch, run, 10)
+        kernels.check(lib.ts_mxu_phase_clocks(ctypes.addressof(clocks), 0), "phase clock read")
+        split, issue, product, units = (float(c) for c in clocks)
+        parts = {"raw wait + split": split, "wgmma products": product, "epilogue + stores": units - product}
+        total = sum(parts.values())
+        print(f"phases ({b}, {a}, {r}), {ms:.4f} ms with clocks: " + ", ".join(
+            f"{k} {100 * v / total:.1f}%" for k, v in parts.items())
+            + f" (the next tile's cp.async issue, inside the products' window: {100 * issue / total:.1f}%)",
+            flush=True)
+        del x, out
+
+
+def k5_timing(torch, dev, args) -> None:
+    import hashlib
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from tpu_stark_torch import kernels
+    from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
+    from tpu_stark_torch.fields import babybear as bb
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
+    from tpu_stark_torch.ntt import mxu_ntt as mx
+    from tpu_stark_torch.ntt import radix2
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.prove import prove
+
+    cs = _chip_smoke()
+    src = os.path.join(os.path.dirname(kernels.SRC_DIR), "csrc", "mxu_ntt.cu")
+    obj = os.path.join(BUILD_OUT, "k5_alone.o")
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    t0 = time.perf_counter()
+    alone = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-c", "-o", obj, src],
+                           capture_output=True, text=True, timeout=600)
+    if alone.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{alone.stdout}{alone.stderr}")
+    print(f"nvcc of mxu_ntt.cu alone: {time.perf_counter() - t0:.2f}s; ptxas: " + " | ".join(
+        ln.strip() for ln in (alone.stdout + alone.stderr).splitlines()
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln), flush=True)
+    kernels.lib()
+    gen = torch.Generator(device=dev)
+
+    def rand(shape, seed):
+        gen.manual_seed(seed)
+        return torch.randint(0, bb.P, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+
+    def sha(t):
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+    # the main path's transforms: one config 2 prove at 2^20 on the narrow route
+    seen = {}
+    originals = {name: getattr(mx, name) for name in ("dft_batch", "idft_batch")}
+
+    def noted(name):
+        def call(mat, _orig=originals[name]):
+            key = (int(mat.shape[0]), int(mat.shape[1]), name == "idft_batch")
+            seen[key] = seen.get(key, 0) + 1
+            return _orig(mat)
+        return call
+
+    n = 1 << 20
+    for name in originals:
+        setattr(mx, name, noted(name))
+    try:
+        prove(create_config(create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt="mxu"),
+              FibonacciAir(), generate_trace_rows(0, 1, n), [0, 1, fibonacci_value(0, 1, n)])
+        torch.cuda.synchronize()
+    finally:
+        for name, orig in originals.items():
+            setattr(mx, name, orig)
+    levels = {}
+    for (h, w, inverse), count in sorted(seen.items()):
+        for depth, (b, a, r) in enumerate(cs.k5_levels(h, w)):
+            levels.setdefault((b, a, r, inverse), []).append((h, w, depth, count))
+    print("config 2 2^20 (narrow_ntt='mxu'): transforms " + "; ".join(
+        f"({h}, {w}){' inv' if inv else ''} x{c}" for (h, w, inv), c in sorted(seen.items())), flush=True)
+    print(f"K5 levels (B, A, R) of those transforms: {len(levels)} shapes, "
+          f"{sum(c for v in levels.values() for *_x, c in v)} launches a prove", flush=True)
+
+    def timed_level(label, b, a, r, inverse, seed):
+        x = rand((b, a, r), seed)
+        fn = _k5_level_fn(torch, mx, bb, x, b, a, inverse, dev)
+        digest = sha(fn())
+        ms = cs._cuda_ms(torch, fn, 20)
+        bound, by = cs.k5_bound(b, a, r)
+        print(f"{label}: {ms:.4f} ms, {100 * bound / ms:.1f}% of {bound:.4f} ms ({by}); "
+              f"{32 * b * b * a * r / ms / 1e9:.1f} int8 TOPS; output sha256 {digest}", flush=True)
+        del x
+        return ms, bound
+
+    for (b, a, r, inverse), where in sorted(levels.items()):
+        calls = sum(c for *_x, c in where)
+        ms, bound = timed_level(
+            f"config 2 level (B={b}, A={a}, R={r}){' inv' if inverse else ''} "
+            f"[{', '.join(f'({h}, {w}) depth {d}' for h, w, d, _c in where)}; {calls} a prove]",
+            b, a, r, inverse, b + a + r)
+        print(f"  a prove's {calls} launches: {calls * ms:.4f} ms against {calls * bound:.4f} ms", flush=True)
+    for b, m in cs.K5_TIMED:
+        timed_level(f"leaf ({b}, {m})", b, 1, m, False, b + m)
+    for h, w in cs.ROUTE_TIMED:
+        x = rand((h, w), h + w)
+        for inverse in (False, True):
+            fn = radix2.idft_batch if inverse else radix2.dft_batch
+            if not torch.equal(fn(x, "mxu"), fn(x)):
+                raise AssertionError(f"narrow route ({h}, {w}) inverse={inverse} != K2")
+        mxu_ms = cs._cuda_ms(torch, lambda: radix2.dft_batch(x, "mxu"), 10)
+        k2_ms = cs._cuda_ms(torch, lambda: radix2.dft_batch(x), 10)
+        bound = sum(cs.k5_bound(b, a, r)[0] for b, a, r in cs.k5_levels(h, w))
+        print(f"route ({h}, {w}) == K2 (dft, idft); dft: route {mxu_ms:.4f} ms vs K2 {k2_ms:.4f} ms; "
+              f"the levels' summed bound {bound:.4f} ms; output sha256 {sha(radix2.dft_batch(x, 'mxu'))}",
+              flush=True)
+        del x
+    # what a prove's route transforms launch: dft_axis0 alone (no h^-1 scale)
+    inputs = [(rand((h, w), h + w), inverse, count) for (h, w, inverse), count in sorted(seen.items())]
+    for x, inverse, _count in inputs:
+        mx.dft_axis0(x, inverse)
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, inverse, count in inputs:
+            for _ in range(count):
+                mx.dft_axis0(x, inverse)
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    k5 = [e for e in on_device if "mxu_mm" in e.key]
+    other = [e for e in on_device if "mxu_mm" not in e.key]
+    print(f"config 2's route transforms (dft_axis0, each as often as a prove runs it), profiled: K5 "
+          f"{sum(e.self_device_time_total for e in k5) / 1e3:.4f} ms in {sum(e.count for e in k5)} launches; "
+          f"other device work {sum(e.self_device_time_total for e in other) / 1e3:.4f} ms in "
+          f"{sum(e.count for e in other)} kernels and copies", flush=True)
+    for e in sorted(other, key=lambda e: -e.self_device_time_total)[:TOP]:
+        print(f"  {e.self_device_time_total / 1e3:10.4f} ms  {e.count:5d}x  {e.key[:90]}", flush=True)
+    if args.phases:
+        _k5_phases(torch, dev, cs, src, rand)
+    # a yardstick, not the same function: one int8 GEMM of the 16 limb products' volume at (256, 65536)
+    a8 = torch.randint(-128, 128, (65536, 4 * 256), dtype=torch.int8, device=dev)
+    b8 = torch.randint(-128, 128, (4 * 256, 4 * 256), dtype=torch.int8, device=dev)
+    try:
+        ms = cs._cuda_ms(torch, lambda: torch._int_mm(a8, b8), 20)
+        print(f"yardstick (not K5's function): torch._int_mm (65536, 1024) x (1024, 1024) s8 -> s32, "
+              f"the volume of K5's 16 limb products at (256, 65536): {ms:.4f} ms", flush=True)
+    except RuntimeError as e:
+        print(f"yardstick torch._int_mm: not run ({e})", flush=True)
+
+
 # alternative launch plans (keccak_kernel.run_plan's (sub_log, lv) launches) of the
 # compress layers of a tree over 2^23 and over 2^16 digests; tree_plan's: bands
 # of 5 levels above 2^16 digests, then groups of 8
@@ -876,6 +1108,22 @@ def sass_report(text: str) -> dict:
     return mixes
 
 
+def k5_sass_report(text: str) -> None:
+    """K5's instantiations (``mxu_mm_kernel<NW, TW>``): instructions in
+    the function, the integer wgmma products (IGMMA; HGMMA is the
+    placeholder ptxas adds for a wait), the warpgroup fences and waits, and
+    the rest by class."""
+    kinds = ("IGMMA", "HGMMA", "IMMA", "WARPGROUP")
+    for name, code in _sass_functions(text).items():
+        if "mxu_mm_kernel" not in name:
+            continue
+        ops = [op for _a, op, _t in code]
+        count = {k: sum(op.startswith(k) for op in ops) for k in kinds}
+        rest = _mix(op for op in ops if not op.startswith(kinds))
+        print(f"K5 {name[-40:]}: {len(ops)} instructions; " + ", ".join(f"{k} {count[k]}" for k in kinds)
+              + f"; the rest {_mix_line(rest)}", flush=True)
+
+
 # each kernel's table shape: (kernel label, shape, permutations)
 PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) * 128 // 8),
                      ("K3 p2_sponge_kernel<8>", "leaf (65536, 493)", (1 << 16) * -(-493 // 8)),
@@ -894,7 +1142,9 @@ def sass(torch, dev, args) -> None:
 
     if args.from_file:
         with open(args.from_file) as f:
-            sass_report(f.read())
+            text = f.read()
+        k5_sass_report(text)
+        sass_report(text)
         return
     from tpu_stark_torch import kernels
 
@@ -905,7 +1155,8 @@ def sass(torch, dev, args) -> None:
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
             entry = m.group(1)
-        elif entry and ("p2_" in entry or "keccak" in entry) and ("registers" in line or "spill" in line):
+        elif entry and ("p2_" in entry or "keccak" in entry or "mxu" in entry) and "(C75" not in line and (
+                "registers" in line or "spill" in line or "smem" in line):
             print(f"  {entry}: {line.strip()}", flush=True)
     text = subprocess.run([_cuobjdump(), "-sass", build.path], capture_output=True, text=True,
                           check=True, timeout=600).stdout
@@ -916,10 +1167,11 @@ def sass(torch, dev, args) -> None:
         keep = False
         for line in text.splitlines(keepends=True):
             if "Function :" in line:
-                keep = "p2_" in line or "keccak" in line
+                keep = "p2_" in line or "keccak" in line or "mxu" in line
             if keep:
                 f.write(line)
-    print(f"SASS of {build.path}'s Poseidon2 and Keccak kernels in {path}", flush=True)
+    print(f"SASS of {build.path}'s Poseidon2, Keccak and K5 kernels in {path}", flush=True)
+    k5_sass_report(text)
     mixes = sass_report(text)
     rates = probe(torch, dev, args)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1118,15 +1370,151 @@ def probe(torch, dev, args) -> dict:
     return pipe_rates
 
 
+WGMMA_SRC = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+template <int N> struct W;
+template <> struct W<16> {
+  static __device__ __forceinline__ void ss(int32_t* d, uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7}, %8, %9, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]) : "l"(a), "l"(b));
+  }
+  static __device__ __forceinline__ void rs(int32_t* d, const uint32_t* a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n16k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7}, {%8,%9,%10,%11}, %12, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]) : "r"(a[0]),"r"(a[1]),"r"(a[2]),"r"(a[3]), "l"(b));
+  }
+};
+#define R16(X) X(0) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13) X(14) X(15)
+template <> struct W<32> {
+  static __device__ __forceinline__ void ss(int32_t* d, uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]),"+r"(d[8]),"+r"(d[9]),"+r"(d[10]),"+r"(d[11]),"+r"(d[12]),"+r"(d[13]),"+r"(d[14]),"+r"(d[15]) : "l"(a), "l"(b));
+  }
+  static __device__ __forceinline__ void rs(int32_t* d, const uint32_t* a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n32k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16,%17,%18,%19}, %20, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]),"+r"(d[8]),"+r"(d[9]),"+r"(d[10]),"+r"(d[11]),"+r"(d[12]),"+r"(d[13]),"+r"(d[14]),"+r"(d[15]) : "r"(a[0]),"r"(a[1]),"r"(a[2]),"r"(a[3]), "l"(b));
+  }
+};
+template <> struct W<64> {
+  static __device__ __forceinline__ void ss(int32_t* d, uint64_t a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]),"+r"(d[8]),"+r"(d[9]),"+r"(d[10]),"+r"(d[11]),"+r"(d[12]),"+r"(d[13]),"+r"(d[14]),"+r"(d[15]),
+        "+r"(d[16]),"+r"(d[17]),"+r"(d[18]),"+r"(d[19]),"+r"(d[20]),"+r"(d[21]),"+r"(d[22]),"+r"(d[23]),"+r"(d[24]),"+r"(d[25]),"+r"(d[26]),"+r"(d[27]),"+r"(d[28]),"+r"(d[29]),"+r"(d[30]),"+r"(d[31]) : "l"(a), "l"(b));
+  }
+  static __device__ __forceinline__ void rs(int32_t* d, const uint32_t* a, uint64_t b) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\nwgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 {%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32,%33,%34,%35}, %36, p;\n}\n"
+      : "+r"(d[0]),"+r"(d[1]),"+r"(d[2]),"+r"(d[3]),"+r"(d[4]),"+r"(d[5]),"+r"(d[6]),"+r"(d[7]),"+r"(d[8]),"+r"(d[9]),"+r"(d[10]),"+r"(d[11]),"+r"(d[12]),"+r"(d[13]),"+r"(d[14]),"+r"(d[15]),
+        "+r"(d[16]),"+r"(d[17]),"+r"(d[18]),"+r"(d[19]),"+r"(d[20]),"+r"(d[21]),"+r"(d[22]),"+r"(d[23]),"+r"(d[24]),"+r"(d[25]),"+r"(d[26]),"+r"(d[27]),"+r"(d[28]),"+r"(d[29]),"+r"(d[30]),"+r"(d[31]) : "r"(a[0]),"r"(a[1]),"r"(a[2]),"r"(a[3]), "l"(b));
+  }
+};
+// NACC accumulators, 16 wgmmas a group (acc[(i + j) % NACC], K5's pattern at NACC = 7), GROUPS
+// groups between waits; operands at fixed shared-memory addresses (their values do not matter)
+template <int N, int NACC, bool RS, int GROUPS>
+__global__ void __launch_bounds__(256, 1) bench(int iters, long long* cyc, int* sink) {
+  __shared__ __align__(128) uint8_t sm[40 * 1024];
+  for (int e = threadIdx.x; e < 10240; e += blockDim.x) reinterpret_cast<uint32_t*>(sm)[e] = e * 2654435761u;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  int32_t acc[NACC][N / 2];
+  for (int s = 0; s < NACC; ++s) for (int k = 0; k < N / 2; ++k) acc[s][k] = 0;
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(sm);
+  uint32_t a[4][4];
+  for (int i = 0; i < 4; ++i) for (int k = 0; k < 4; ++k) a[i][k] = reinterpret_cast<uint32_t*>(sm)[threadIdx.x * 4 + k + i];
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int g = 0; g < GROUPS; ++g) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint64_t da = make_desc(base + i * 2048 + g * 256, 128, 256);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint64_t db = make_desc(base + 16384 + j * 4096 + g * 256, 128, 256);
+          if (RS) W<N>::rs(acc[(i + j) % NACC], a[i], db); else W<N>::ss(acc[(i + j) % NACC], da, db);
+        }
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  int x = 0;
+  for (int s = 0; s < NACC; ++s) for (int k = 0; k < N / 2; ++k) x ^= acc[s][k];
+  const long long t1 = clock64();
+  sink[blockIdx.x * blockDim.x + threadIdx.x] = x;
+  if (threadIdx.x == 0) cyc[blockIdx.x] = t1 - t0;
+}
+template <int N, int NACC, bool RS, int GROUPS>
+void run(int blocks, int threads, int iters, long long* cyc, int* sink) { bench<N, NACC, RS, GROUPS><<<blocks, threads>>>(iters, cyc, sink); }
+extern "C" int wg_run(int kind, int blocks, int threads, int iters, long long* cyc, int* sink) {
+  using F = void (*)(int, int, int, long long*, int*);
+  static const F f[] = {run<16, 7, false, 8>, run<32, 7, false, 8>, run<64, 4, false, 8>, run<32, 1, false, 8>,
+                        run<32, 7, true, 8>};
+  f[kind](blocks, threads, iters, cyc, sink);
+  return (int)cudaGetLastError();
+}
+"""
+WGMMA_KINDS = (("m64n16k32 SS, 7 accumulators", 16), ("m64n32k32 SS, 7 accumulators", 32),
+               ("m64n64k32 SS, 4 accumulators", 64), ("m64n32k32 SS, 1 accumulator", 32),
+               ("m64n32k32 RS (A in registers), 7 accumulators", 32))
+
+
+def wgmma(torch, dev, args) -> None:
+    """u8 x u8 -> s32 wgmma throughput by shape and operand source: a
+    kernel issuing groups of 16 wgmmas (K5's limb products) back to back,
+    one and two warpgroups a block, one block a SM; prints clocks per
+    wgmma and the SM's int8 multiply-adds per clock against the data
+    sheet's 4,096 (1,979 TOPS over 132 SMs at 1.83 GHz), and ptxas's
+    serialization notes (C7511/C7512)."""
+    import ctypes
+
+    from tpu_stark_torch import kernels
+
+    out_dir = os.path.join(BUILD_OUT, "wgmma")
+    os.makedirs(out_dir, exist_ok=True)
+    cu, so = os.path.join(out_dir, "wgmma_bench.cu"), os.path.join(out_dir, "libwgmma_bench.so")
+    with open(cu, "w") as f:
+        f.write(WGMMA_SRC)
+    build = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", so, cu],
+                           capture_output=True, text=True, timeout=600)
+    if build.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the wgmma bench:\n{build.stdout}{build.stderr}")
+    for ln in (build.stdout + build.stderr).splitlines():
+        if "C7511" in ln or "C7512" in ln:
+            print("ptxas: " + ln.strip()[:200], flush=True)
+    lib = ctypes.CDLL(so)
+    lib.wg_run.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    lib.wg_run.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cyc = torch.zeros(sms, dtype=torch.int64, device=dev)
+    sink = torch.zeros(sms * 256, dtype=torch.int32, device=dev)
+    iters, groups = 200, 8
+    for kind, (label, n) in enumerate(WGMMA_KINDS):
+        for threads in (128, 256):
+            for _ in range(2):  # the first run warms up
+                kernels.check(lib.wg_run(kind, sms, threads, iters, cyc.data_ptr(), sink.data_ptr()), "the wgmma bench")
+                torch.cuda.synchronize()
+            clocks = int(cyc.max())
+            per_wg = iters * groups * 16
+            macs = 64 * n * 32 * per_wg * (threads // 128)
+            print(f"{label}, {threads // 128} warpgroup(s): {clocks / per_wg:.1f} clocks a wgmma a warpgroup; "
+                  f"{macs / clocks:.0f} int8 MAC per SM per clock ({100 * macs / clocks / 4096:.0f}% of 4,096)",
+                  flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "sass", "probe"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "sass", "probe", "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
-    parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, sass)")
+    parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, k5, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
+    parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
     parser.add_argument("--pcs-from", help="take TwoAdicFriPcs.open (warm) or also time .verify (verify) "
                         "from this directory's tree")
     args = parser.parse_args()
@@ -1145,7 +1533,7 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "k1": k1_timing, "sass": sass, "probe": probe}[args.what](torch, dev, args)
+     "k1": k1_timing, "k5": k5_timing, "sass": sass, "probe": probe, "wgmma": wgmma}[args.what](torch, dev, args)
     return 0
 
 

@@ -1,7 +1,8 @@
-"""Kernels K1-K5 (K1's tree kernel too) and the grind kernel on the card
-against their plain torch versions, and the port's n = 8 proofs (the
-BASELINE config 2 one on both NTT routes) and a keccak-air wide proof on
-the card against the golden files and the JAX fixtures.  Exact
+"""Kernels K1-K5 (K1's tree kernel and K5's fused inner level too) and
+the grind kernel on the card against their plain torch versions, and the
+port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and a
+keccak-air wide proof on the card against the golden files and the JAX
+fixtures.  Exact
 comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -321,6 +322,87 @@ def test_narrow_route_on_card_equals_k2(dev, h, w):
     assert torch.equal(mxu.dft_batch(x), k2.dft_batch(x))
     assert torch.equal(mxu.idft_batch(x), k2.idft_batch(x))
     assert kernels.MXU_MM.launches > before
+
+
+def _route_levels(h, w):
+    """(B, A, R) of each level of mxu_ntt.dft_axis0 on (h, w), outermost
+    first; the leaf has A = 1."""
+    out, n, r = [], h, w
+    while n > mxu_ntt.MAX_DIRECT:
+        b = 1 << min((n.bit_length() - 1) // 2, 8)
+        out.append((b, n // b, r))
+        n, r = n // b, r * b
+    out.append((n, 1, r))
+    return out
+
+
+def _fused_plain(x, w, tw, rows=1 << 22):
+    """The inner level's plain version, in slices of the A axis (its
+    columns are independent) so that the int64 and float64 temporaries stay
+    small at 2^28 elements."""
+    b, a = int(x.shape[0]), int(x.shape[1])
+    step = max(1, rows // (b * (x.numel() // (b * a))))
+    return torch.cat([mxu_ntt.mod_matmul_twiddle_moved_plain(x[:, a0:a0 + step].contiguous(), w, tw[a0:a0 + step])
+                      for a0 in range(0, a, step)])
+
+
+@pytest.mark.parametrize("log_h", range(16, 24))
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 32])
+def test_mxu_fused_levels_equal_plain(dev, log_h, w):
+    """Every level the route makes for (2^log_h, w), both directions: the
+    fused inner level (product, twiddle, moved store) and the leaf."""
+    for b, a, r in _route_levels(1 << log_h, w):
+        x = _monty(dev, (b, a, r), b + a + r + w)
+        for inverse in (False, True):
+            lw = mxu_ntt.limbs_on(b, inverse, dev)
+            if a == 1:
+                got, want = mxu_ntt.mod_matmul_axis(x, lw), mxu_ntt.mod_matmul_axis_plain(x, lw)
+            else:
+                tw = mxu_ntt.twiddles_on(a, b, inverse, dev)
+                got, want = mxu_ntt.mod_matmul_twiddle_moved(x, lw, tw), _fused_plain(x, lw, tw)
+            assert torch.equal(got, want), (b, a, r, inverse)
+        del x
+
+
+@pytest.mark.parametrize("b,a,r", [(16, 32, 1), (32, 32, 2), (64, 128, 3), (256, 512, 1), (16, 8, 37),
+                                   (128, 2, 70), (256, 4, 33), (64, 64, 100), (32, 1024, 5)])
+def test_mxu_fused_ragged_equals_plain(dev, b, a, r):
+    """Ragged R (tiles of whole a's with a partial last tile, tiles of one
+    a's columns with a partial tail) and R below and above the tile."""
+    x = _monty(dev, (b, a, r), b * a + r)
+    for inverse in (False, True):
+        lw, tw = mxu_ntt.limbs_on(b, inverse, dev), mxu_ntt.twiddles_on(a, b, inverse, dev)
+        assert torch.equal(mxu_ntt.mod_matmul_twiddle_moved(x, lw, tw), _fused_plain(x, lw, tw))
+
+
+def test_mxu_fused_extremes_equal_plain(dev):
+    """All-(p-1) data (the largest diagonals) and zeros, through the fused
+    epilogue with both store paths (R below and above the tile)."""
+    for b, a, r in [(256, 64, 2), (64, 16, 512)]:
+        lw, tw = mxu_ntt.limbs_on(b, False, dev), mxu_ntt.twiddles_on(a, b, False, dev)
+        for fill in (bb.P - 1, 0):
+            x = torch.full((b, a, r), fill, dtype=torch.int32, device=dev)
+            assert torch.equal(mxu_ntt.mod_matmul_twiddle_moved(x, lw, tw), _fused_plain(x, lw, tw))
+
+
+@pytest.mark.parametrize("h,w", [(1 << 16, 2), (1 << 20, 8), (1 << 23, 2)])
+def test_mxu_route_launches_one_kernel_a_level(dev, h, w):
+    """dft_axis0 launches K5 once a level and nothing else: the launch
+    count rises by the number of levels, and the profiler sees only K5's
+    kernels between input and output (tables made by a first call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _monty(dev, (h, w), h + w)
+    for inverse in (False, True):
+        mxu_ntt.dft_axis0(x, inverse)
+        torch.cuda.synchronize()
+        before = kernels.MXU_MM.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mxu_ntt.dft_axis0(x, inverse)
+            torch.cuda.synchronize()
+        assert kernels.MXU_MM.launches - before == len(_route_levels(h, w))
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert names and all("mxu_mm_kernel" in name for name in names), names
 
 
 @pytest.mark.parametrize("n_bytes", [32, 132, 134, 200, 268])

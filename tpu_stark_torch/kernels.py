@@ -174,7 +174,7 @@ def lib() -> ctypes.CDLL:
             so.ts_poseidon2_rows.restype = i32
             so.ts_poseidon2_absorb.argtypes = [vp, vp, i64, i64, i64, i32, vp]
             so.ts_poseidon2_absorb.restype = i32
-            so.ts_mxu_mm.argtypes = [vp, vp, vp, i32, i64, vp]
+            so.ts_mxu_mm.argtypes = [vp, vp, vp, vp, i32, i64, i64, vp]
             so.ts_mxu_mm.restype = i32
             so.ts_keccak_grind.argtypes = [vp, vp, i32, i32, i32, ctypes.c_uint64, i64, vp, vp]
             so.ts_keccak_grind.restype = i32

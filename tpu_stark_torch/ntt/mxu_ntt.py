@@ -11,15 +11,25 @@
   diagonals recombine into a 3-word (96-bit) integer, reduced by one
   Montgomery REDC step back into Monty form.
 
-``mod_matmul_axis(x, w_limbs)`` is K5's wrapper (replaces
-``_mm_kernel`` / ``_mod_matmul_axis_pallas``): on a CUDA tensor it launches
-the kernel, which runs the limb products as u8 x u8 -> s32 integer
-tensor-core products, or raises; on a CPU tensor it runs
-``mod_matmul_axis_plain``, the plain version (``_mod_matmul_axis``): limb
-products as float64 matrix products (exact, n * 255^2 < 2^53, and out of
-TF32's reach), int64 diagonals, the 3-word recombine and
-``reduce_3word_monty_plain``.  Unlike the TPU kernel it takes any M: no
-(n, 512) tiles and no fallback for ragged widths.
+K5 (``csrc/mxu_ntt.cu``) replaces ``_mm_kernel`` /
+``_mod_matmul_axis_pallas`` and runs every level of ``dft_axis0`` in one
+launch, through two wrappers:
+
+* ``mod_matmul_axis(x, w_limbs)``: the leaf level, out[c, m] for x (n, M);
+* ``mod_matmul_twiddle_moved(x, w_limbs, tw)``: an inner level, the product
+  along axis 0 of x viewed as (B, A, ...), times the 4-step twiddles
+  w^(a*c), stored with the A axis moved to the front: (A, B, ...), the
+  tensor the next level transforms.
+
+On a CUDA tensor each launches the kernel (its limb products are u8 x u8
+-> s32 ``wgmma`` products) or raises; on a CPU tensor each runs its plain
+version: ``mod_matmul_axis_plain`` (``_mod_matmul_axis``: limb products as
+float64 matrix products, exact since n * 255^2 < 2^53 and out of TF32's
+reach, int64 diagonals, the 3-word recombine and
+``reduce_3word_monty_plain``), and ``mod_matmul_twiddle_moved_plain``,
+that product, then ``bb.mul`` by the twiddles and the moved axis as a copy:
+the JAX package's sequence in ``_dft_axis0``.  Unlike the TPU kernel it
+takes any M: no (n, 512) tiles and no fallback for ragged widths.
 """
 
 from __future__ import annotations
@@ -122,14 +132,51 @@ def limbs_on(n: int, inverse: bool, device) -> torch.Tensor:
                       lambda: torch.from_numpy(dft_matrix_limbs(n, inverse)))
 
 
-def _kernel_table(w_limbs: torch.Tensor) -> torch.Tensor:
-    """K5's operand layout of a (4, n, n) limb table: (4, n, K) with
-    wt[j, c, b] = w_limbs[j, b, c], K = max(n, 32), zero past n."""
+def twiddles_on(a: int, b: int, inverse: bool, device) -> torch.Tensor:
+    """The (A, B) Monty twiddles w^(a*c) of an inner level, on ``device``."""
+    return _on_device("twiddle", (a, b), inverse, device,
+                      lambda: bb.to_tensor(twiddle_monty(a, b, inverse), "cpu"))
+
+
+def slice_rows(n: int) -> int:
+    """Output rows c in one block's slice of the kernel's table."""
+    return n if n <= 128 else 64
+
+
+def kernel_image(w_limbs: torch.Tensor) -> torch.Tensor:
+    """The table K5 reads, flat uint8, for a (4, n, n) limb table of W: the
+    limbs of W * R mod p (one more Montgomery factor, which the kernel's
+    two-step reduction takes out), transposed to K-major rows c, zero past
+    n up to K = max(n, 32), and laid out as the kernel's shared memory
+    holds it: per slice of ``slice_rows(n)`` rows c, per limb j, core
+    matrices of 8 rows x 16 bytes, element (c, k) at (c // 8) * 8K +
+    (k // 16) * 128 + (c % 8) * 16 + k % 16."""
     n = int(w_limbs.shape[1])
-    k = max(n, 32)
-    wt = torch.zeros((4, n, k), dtype=torch.uint8, device=w_limbs.device)
-    wt[:, :, :n] = w_limbs.transpose(1, 2)
-    return wt
+    k, nc = max(n, 32), slice_rows(n)
+    w = sum(w_limbs[j].to(torch.int64) << (8 * j) for j in range(4))  # W[b, c]
+    w = (w << 32) % bb.P
+    t = torch.zeros((4, n, k), dtype=torch.uint8, device=w_limbs.device)
+    for j in range(4):
+        t[j, :, :n] = ((w >> (8 * j)) & 0xFF).to(torch.uint8).T
+    t = t.view(4, n // nc, nc // 8, 8, k // 16, 16).permute(1, 0, 2, 4, 3, 5)
+    return t.contiguous().view(-1)
+
+
+_IMAGES: Dict[int, Tuple[torch.Tensor, int, torch.Tensor]] = {}
+
+
+def _image_of(w_limbs: torch.Tensor) -> torch.Tensor:
+    """``kernel_image(w_limbs)``, made once per table tensor (the entry
+    keeps the tensor alive, so its id is not reused; an in-place change of
+    the table makes a new image)."""
+    hit = _IMAGES.get(id(w_limbs))
+    if hit is not None and hit[0] is w_limbs and hit[1] == w_limbs._version:
+        return hit[2]
+    if len(_IMAGES) >= 64:
+        _IMAGES.clear()
+    image = kernel_image(w_limbs)
+    _IMAGES[id(w_limbs)] = (w_limbs, w_limbs._version, image)
+    return image
 
 
 # ---------------------------------------------------------------------------
@@ -180,35 +227,76 @@ def mod_matmul_axis_plain(x: torch.Tensor, w_limbs: torch.Tensor) -> torch.Tenso
     return _accumulate_and_reduce(diags).reshape((n,) + rest)
 
 
-def mod_matmul_axis(x: torch.Tensor, w_limbs: torch.Tensor) -> torch.Tensor:
-    """K5: ``mod_matmul_axis_plain``'s function, the kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return mod_matmul_axis_plain(x, w_limbs)
-    if x.device.type != "cuda":
-        raise ValueError(f"mxu matmul: unsupported device {x.device}")
-    n = int(x.shape[0])
+def mod_matmul_twiddle_moved_plain(x: torch.Tensor, w_limbs: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """y[a, c, ...] = REDC(sum_b x[b, a, ...] * W[b, c]) * tw[a, c] (Monty)
+    for x (B, A, ...) and the (A, B) twiddles: ``mod_matmul_axis_plain``,
+    the twiddle product and the moved axis, as ``_dft_axis0`` runs them."""
+    b, a = int(x.shape[0]), int(x.shape[1])
+    t = bb.mul(mod_matmul_axis_plain(x, w_limbs), tw.T.reshape(b, a, *([1] * (x.dim() - 2))))
+    return t.movedim(1, 0).contiguous()
+
+
+def _checked(x: torch.Tensor, w_limbs: torch.Tensor, tw=None) -> int:
+    """Raise on what the kernel does not take (the device last, so that
+    each refusal shows on a meta tensor); return n."""
+    n = int(x.shape[0]) if x.dim() else 0
     if x.dtype != torch.int32 or w_limbs.dtype != torch.uint8:
         raise TypeError("mxu matmul takes int32 Monty data and a uint8 limb table")
     if tuple(w_limbs.shape) != (4, n, n) or w_limbs.device != x.device:
         raise ValueError(f"mxu matmul: limb table {tuple(w_limbs.shape)} on {w_limbs.device} "
                          f"for {n} rows on {x.device}")
-    if not (MIN_KERNEL_N <= n <= MAX_DIRECT):
-        raise ValueError(f"mxu matmul: the kernel takes 16 <= n <= 256, got {n}")
-    rest = tuple(x.shape[1:])
-    x2 = x.reshape(n, -1).contiguous()
-    m = int(x2.shape[1])
-    out = torch.empty_like(x2)
-    if m == 0:
-        return out.reshape((n,) + rest)
-    wt = _kernel_table(w_limbs)
+    if not (MIN_KERNEL_N <= n <= MAX_DIRECT) or n & (n - 1):
+        raise ValueError(f"mxu matmul: the kernel takes n = 16, 32, 64, 128 or 256, got {n}")
+    if not x.is_contiguous():
+        raise ValueError("mxu matmul: the kernel takes a contiguous x")
+    if tw is not None:
+        a = int(x.shape[1]) if x.dim() > 1 else -1
+        if (tw.dtype != torch.int32 or tuple(tw.shape) != (a, n) or tw.device != x.device
+                or not tw.is_contiguous()):
+            raise ValueError(f"mxu matmul: twiddles {tw.dtype} {tuple(tw.shape)} on {tw.device} for x "
+                             f"{tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"mxu matmul: unsupported device {x.device}")
+    return n
+
+
+def _launch(x: torch.Tensor, w_limbs: torch.Tensor, tw, out: torch.Tensor, a: int, r: int) -> None:
     so = kernels.lib()
     kernels.MXU_MM.launches += 1
     kernels.check(
-        so.ts_mxu_mm(x2.data_ptr(), wt.data_ptr(), out.data_ptr(), n, m, kernels.stream_handle(x.device)),
+        so.ts_mxu_mm(x.data_ptr(), _image_of(w_limbs).data_ptr(), None if tw is None else tw.data_ptr(),
+                     out.data_ptr(), int(x.shape[0]), a, r, kernels.stream_handle(x.device)),
         "mxu matmul",
     )
-    return out.reshape((n,) + rest)
+
+
+def mod_matmul_axis(x: torch.Tensor, w_limbs: torch.Tensor) -> torch.Tensor:
+    """K5 at the leaf: ``mod_matmul_axis_plain``'s function, the kernel on
+    a CUDA tensor, the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return mod_matmul_axis_plain(x, w_limbs)
+    n = _checked(x, w_limbs)
+    out = torch.empty_like(x)
+    m = x.numel() // n
+    if m:
+        _launch(x, w_limbs, None, out, 1, m)
+    return out
+
+
+def mod_matmul_twiddle_moved(x: torch.Tensor, w_limbs: torch.Tensor, tw: torch.Tensor) -> torch.Tensor:
+    """K5 at an inner level: ``mod_matmul_twiddle_moved_plain``'s function
+    for x (B, A, ...) and the (A, B) int32 twiddles, the kernel on a CUDA
+    tensor (one launch: product, twiddle and moved store), the plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return mod_matmul_twiddle_moved_plain(x, w_limbs, tw)
+    n = _checked(x, w_limbs, tw)
+    a = int(x.shape[1])
+    out = torch.empty((a, n) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+    r = x.numel() // (n * a) if a else 0
+    if r:
+        _launch(x, w_limbs, tw, out, a, r)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -216,24 +304,23 @@ def mod_matmul_axis(x: torch.Tensor, w_limbs: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def dft_axis0(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Unscaled DFT along axis 0 (length a power of two), natural order in
-    and out, any trailing batch axes; Monty in and out."""
+    and out, any trailing batch axes; Monty in and out.  One K5 launch a
+    level on the card."""
     n = int(x.shape[0])
     log_n = log2_strict(n)
+    x = x.contiguous()
     if n <= MAX_DIRECT:
         return mod_matmul_axis(x, limbs_on(n, inverse, x.device))
     log_b = min(log_n // 2, 8)
     b = 1 << log_b
     a = n // b
     rest = tuple(x.shape[1:])
-    # x[a + A*b] -> X[b, a, ...]; inner DFT over b for each a
-    t1 = mod_matmul_axis(x.reshape(b, a, *rest), limbs_on(b, inverse, x.device))
-    tw = _on_device("twiddle", (a, b), inverse, x.device,
-                    lambda: bb.to_tensor(twiddle_monty(a, b, inverse).T.copy(), "cpu"))
-    t2 = bb.mul(t1, tw.view(b, a, *([1] * len(rest))))
-    # outer DFT over a (recursive), axis 1 moved to the front (a copy)
-    t3 = dft_axis0(t2.movedim(1, 0).contiguous(), inverse)
-    # y[c + B*d] = t3[d, c, ...]
-    return t3.reshape((n,) + rest)
+    # x[a + A*b] -> X[b, a, ...]: the inner DFT over b for each a, times
+    # w^(a*c), with the a axis moved to the front: (A, B, ...)
+    t = mod_matmul_twiddle_moved(x.reshape(b, a, *rest), limbs_on(b, inverse, x.device),
+                                 twiddles_on(a, b, inverse, x.device))
+    # the outer DFT over a (recursive); y[c + B*d] = t3[d, c, ...]
+    return dft_axis0(t, inverse).reshape((n,) + rest)
 
 
 def dft_batch(mat: torch.Tensor) -> torch.Tensor:
