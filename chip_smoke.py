@@ -77,9 +77,19 @@ line each, any failure an uncaught exception and a nonzero exit:
     memory, the port's verifier, and the same warm prove with
     ``narrow_ntt=None`` (its own launch counts), whose bytes must be equal,
     and whose length must equal the JAX package's (JAX_PROOF_BYTES);
+17. the application surface: ``python -m tpu_stark_torch.app --backend
+    cuda fib bench`` in-process (launch counts reset just before it, read
+    just after): ``cuda available: True``, the contract string ``fib_air
+    zk ok (n=8, x=21)``, the policy line naming the card, and the DFT
+    harness's 11 cases in its three CUDA tiers, each checked exactly against
+    its CPU tier; then the prove twins (``tpu_stark_torch.bench.prove``) of
+    config 2 at 2^12 (``fib 12 keccak zk 1 bench``), the chain at 2^6 and
+    keccak-air at 128 rows, each driven alone, each proof as long as the
+    JAX package's proof of its configuration in the golden fixtures
+    (``TWINS``);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16)
-    called its wrapper with: K2's transforms by height, width and direction
+    and phase 17's runs called its wrapper with: K2's transforms by height, width and direction
     (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
     layers and K4's chunks by rows, widths, row strides and 16-byte
@@ -90,8 +100,8 @@ line each, any failure an uncaught exception and a nonzero exit:
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the five main paths; time, plain time and the bound of each
-kernel at the shape it was timed; the largest error of phases 2-16), and
+summed over the main paths: the five warm proves and phase 17's four runs; time, plain time and the bound of each
+kernel at the shape it was timed; the largest error of phases 2-17), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -133,6 +143,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -286,6 +297,9 @@ def import_port():
 
     from tpu_stark_torch import kernels
     from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.app.__main__ import main as app_main
+    from tpu_stark_torch.bench import harness
+    from tpu_stark_torch.bench import prove as bench_prove
     from tpu_stark_torch.challenger import grind
     from tpu_stark_torch.challenger.challenger import Challenger, HashChallenger
     from tpu_stark_torch.compat.device_rng import DeviceRng
@@ -760,6 +774,83 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
     return line, launches
 
 
+
+# phase 17's prove twins: (path, arguments, the golden fixture and key whose
+# JAX proof has the twin's configuration, the kernels the path must launch)
+TWINS = (
+    ("twin-fib", ["fib", "12", "keccak", "zk", "1", "bench"], ("torch_fib_zk_device_jax_proofs.json", "12"),
+     ("KECCAK_SPONGE", "KECCAK_TREE", "NTT_PASS0", "NTT_PASS", "KECCAK_GRIND")),
+    ("twin-chain", ["chain", "6"], ("torch_poseidon2_jax_proofs.json", "chain_6"),
+     ("NTT_PASS0", "POSEIDON2_SPONGE")),
+    # 7: the perms_5 fixture's 128 rows, generate_trace(128 // 24, seed=1)
+    ("twin-keccak-air", ["keccak-air", "7", "bench", "1"], ("torch_keccak_air_jax_proofs.json", "perms_5"),
+     ("NTT_PASS0", "POSEIDON2_SPONGE", "POSEIDON2_ABSORB")),
+)
+
+
+def _phase17_app_bench(torch, port, kind: str, seen: dict):
+    """The application surface: ``python -m tpu_stark_torch.app --backend
+    cuda fib bench`` in-process (the contract string, the policy line, the
+    harness's 11 cases in all three CUDA tiers, each checked exactly against
+    the CPU tier), then the prove twins at small heights, each proof as long
+    as the JAX package's proof of its configuration.  Returns (the phase's
+    line, {path: launches})."""
+    kernels, harness = port.kernels, port.harness
+    checked = []
+    real_run_case = harness.run_case
+
+    def run_case(h, w, use_cuda, device="cuda"):
+        res = real_run_case(h, w, use_cuda, device)  # raises unless the card's output is the CPU tier's
+        if use_cuda:
+            checked.append((h, w))
+        return res
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        return out, buf.getvalue().splitlines()
+
+    launches = {}
+    harness.run_case = run_case
+    try:
+        with _record_shapes(port, seen, "app"):
+            (rc, lines), launches["app"] = _drive(
+                kernels, lambda: quiet(port.app_main, ["--backend", "cuda", "fib", "bench"]),
+                (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS))
+    finally:
+        harness.run_case = real_run_case
+    dft_lines = [ln for ln in lines if ln.startswith("dft ")]
+    policy = [ln for ln in lines if ln.startswith("policy: ")]
+    if rc != 0 or lines[0] != "cuda available: True" or "fib_air zk ok (n=8, x=21)" not in lines:
+        raise AssertionError("the app's output is not the contract's:\n" + "\n".join(lines))
+    if len(policy) != 1 or kind not in policy[0]:
+        raise AssertionError(f"the app's policy line does not name {kind!r}: {policy}")
+    if len(dft_lines) != len(harness.DEFAULT_CASES) or not all(
+            f" {tier}=" in ln for ln in dft_lines for tier in ("cuda_e2e", "cuda_batched", "cuda_kernel")):
+        raise AssertionError("the app's benchmark lines are not 11 cases in all three CUDA tiers:\n"
+                             + "\n".join(lines))
+    if checked != list(harness.DEFAULT_CASES):
+        raise AssertionError(f"the harness's exact check ran on {checked}, not on its 11 cases")
+    twins = []
+    for path, argv, (fixture, key), path_kernels in TWINS:
+        with open(os.path.join(GOLDEN, fixture)) as f:
+            want = json.load(f)[key]["len"]
+        with _record_shapes(port, seen, path):
+            (out, _lines), launches[path] = _drive(
+                kernels, lambda: quiet(port.bench_prove.main, argv),
+                [getattr(kernels, name) for name in path_kernels])
+        if out["proof_bytes"] != want or not out["peak_hbm_gb"] or out["narrow"] != "none":
+            raise AssertionError(f"{path}: {out} is not {want} B of proof (JAX's, {fixture} {key})")
+        used = {k: n for k, n in launches[path].items() if n}
+        twins.append(f"{' '.join(argv)} -> {json.dumps(out)}, launches {used}")
+    line = (f"[17] app --backend cuda fib bench: contract string ok; {policy[0]}; the harness's exact check "
+            f"against the CPU tier passed at its {len(checked)} cases: " + " | ".join(dft_lines)
+            + f"; launches {launches['app']}. Prove twins, each proof as long as JAX's of its configuration: "
+            + " | ".join(twins))
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -1176,8 +1267,13 @@ def main() -> int:
     line, c2_launches = _phase16_config2(torch, port, dev, seen, 20)
     print(line, flush=True)
 
+    # -- 17. the app, the DFT harness and the prove twins -------------------------
+    line, app_launches = _phase17_app_bench(torch, port, kind, seen)
+    print(line, flush=True)
+
     # -- 13. every kernel vs plain at every shape of the five main paths --------
-    path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches}
+    path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
+                     **app_launches}
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
         missing = [name for name, n in launches.items() if n > 0 and name not in noted]
@@ -1200,7 +1296,7 @@ def main() -> int:
         f"({k[1]}, {k[2]})" for k in sorted(seen) if k[0] == "mod_matmul_axis" and "config2-mxu" in seen[k])
     mxu_shapes += "; inner levels (B, A, R): " + ", ".join(
         f"({b}, {a}, {r}){' inv' if inv else ''}" for b, a, r, inv in sorted(noted_levels))
-    print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves "
+    print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "
           f"products: {mxu_shapes}", flush=True)

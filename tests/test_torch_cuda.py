@@ -2,8 +2,8 @@
 the grind kernel on the card against their plain torch versions, and the
 port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and a
 keccak-air wide proof on the card against the golden files and the JAX
-fixtures.  Exact
-comparisons.  Every test needs a CUDA device and skips without one; this
+fixtures; the app, the DFT harness (its exact check against the CPU tier),
+the NTT oracle and the prove twins on the card.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py -q
@@ -433,3 +433,77 @@ def test_config2_n8_proof_on_card_matches_jax(dev):
         proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
         assert kernels.KECCAK_GRIND.launches > before
         assert serialize_proof(proof).hex() == fixture["3"]["proof_hex"]
+
+
+def test_harness_case_on_card_equals_cpu_tier(dev):
+    from tpu_stark_torch.bench import harness
+
+    before = kernels.NTT_PASS0.launches
+    res = harness.run_case(1024, 8, use_cuda=True, device=dev)  # raises unless the card's output is the CPU tier's
+    runs = harness.WARMUP + harness.REPEATS
+    assert kernels.NTT_PASS0.launches - before == runs * (1 + harness.E2E_BATCH + harness.KERNEL_INNER) + 1
+    for tier in (res.cuda_e2e, res.cuda_batched, res.cuda_kernel):
+        assert 0 < tier.avg_ms and tier.median_ms <= tier.p95_ms
+    line = res.format_line()
+    assert line.startswith("dft 1024x8: cpu=") and "cuda_e2e=" in line and "cuda_kernel=" in line
+
+
+def test_dft_benchmark_report_on_card(dev):
+    from tpu_stark_torch.bench import harness
+
+    out = harness.run_dft_benchmark([(256, 8), (256, 16000)])
+    lines = out.splitlines()
+    assert lines[0].startswith("policy: ") and torch.cuda.get_device_name(dev) in lines[0]
+    assert "kernels yes" in lines[0]
+    assert [ln.split(":")[0] for ln in lines[1:]] == ["dft 256x8", "dft 256x16000"]
+    assert all("cuda_batched=" in ln for ln in lines[1:])
+
+
+def test_app_on_card(dev):
+    from tpu_stark_torch.app import api
+    from tpu_stark_torch.backend import registry
+
+    saved = registry.backend_kind()
+    try:
+        api.set_backend("cuda")
+        assert registry.device().type == "cuda"
+        before = kernels.KECCAK_SPONGE.launches
+        assert api.run_fib_air_zk() == "fib_air zk ok (n=8, x=21)"
+        assert kernels.KECCAK_SPONGE.launches > before
+        assert api.run_poseidon2_chain(3) == "poseidon2_chain ok (rows=2^3)"
+    finally:
+        registry.set_backend(saved)
+
+
+def test_reference_oracle_on_card(dev):
+    import numpy as np
+
+    from tpu_stark_torch.ntt.reference import naive_dft_matrix
+
+    mat = np.random.default_rng(16).integers(0, bb.P, size=(16, 3), dtype=np.uint64).astype(np.uint32)
+    for shift in (1, bb.GENERATOR):
+        got = radix2.coset_dft_batch(bb.to_tensor(bb.np_to_monty(mat), dev), shift)
+        assert np.array_equal(bb.np_from_monty(bb.to_numpy(got)), naive_dft_matrix(mat, shift))
+
+
+def test_prove_twins_on_card_have_jax_lengths(dev, capsys):
+    from tpu_stark_torch.bench import prove as bench_prove
+
+    golden = pathlib.Path(__file__).parent / "golden"
+    config2 = json.loads((golden / "torch_fib_zk_device_jax_proofs.json").read_text())
+    chain = json.loads((golden / "torch_poseidon2_jax_proofs.json").read_text())
+    out = bench_prove.main(["fib", "10", "keccak", "zk", "1", "bench", "--device", str(dev)])
+    assert out["metric"] == "fib_air_zk_prove_2^10_keccak_bench"
+    assert out["proof_bytes"] == config2["10"]["len"]
+    assert out["peak_hbm_gb"] > 0 and torch.cuda.get_device_name(dev) in out["device"]
+    out = bench_prove.main(["chain", "3", "--device", str(dev), "--narrow", "mxu"])
+    assert (out["proof_bytes"], out["narrow"]) == (chain["chain_3"]["len"], "mxu")
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == out
+
+
+def test_ntt_twin_on_card(dev):
+    from tpu_stark_torch.bench import ntt as bench_ntt
+
+    out = bench_ntt.main(["--device", str(dev)])
+    assert out["metric"] == "babybear_ntt_kernel_16384x128" and out["unit"] == "Melems/s"
+    assert out["value"] > 0 and out["vs_baseline"] == out["value"] / 135.0
