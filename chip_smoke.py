@@ -84,24 +84,46 @@ line each, any failure an uncaught exception and a nonzero exit:
     harness's 11 cases in its three CUDA tiers, each checked exactly against
     its CPU tier; then the prove twins (``tpu_stark_torch.bench.prove``) of
     config 2 at 2^12 (``fib 12 keccak zk 1 bench``), the chain at 2^6 and
-    keccak-air at 128 rows, each driven alone, each proof as long as the
-    JAX package's proof of its configuration in the golden fixtures
+    keccak-air at 128 rows and on the reference's stack (``keccak-air 6
+    test 1 keccak zk``) at 64 rows, each driven alone, each proof as long as
+    the JAX package's proof of its configuration in the golden fixtures
     (``TWINS``);
+18. K1's carried-state absorb (``keccak_kernel.absorb_rows`` /
+    ``finalize_rows``) against its plain version, exact: 30 pending words
+    and 38 of a (2^22, 64) chunk on a carried random state (timed beside its
+    bound and the ALU pipe's model), the finalize of 4 trace and 4 salt
+    words, 33 pending words, a state and chunk off 16-byte boundaries, and
+    ``KeccakRowStream`` over odd-width chunks against one-shot K1;
+19. the zk wide fixture (tests/golden/torch_keccak_air_wide_zk_jax_proofs.
+    json: keccak-air at 64 rows, zk, the Keccak stack in 4 column chunks
+    and the Poseidon2 stack in one) by SHA-256 and length; each verifies;
+20. keccak-air at 2^20 x 3608 through ``prove_wide`` on the reference's
+    stack (``create_config()``'s Keccak trees and zk with the device rng,
+    benchmark FRI; 2^21 committed rows, 2^22 LDE rows, 57 chunks, 8
+    quotient chunks): trace generation timed on its own, one cold prove
+    only (launch counts reset just before it, read just after; the warm
+    numbers come from its twin, ``python -m tpu_stark_torch.bench.prove
+    keccak-air 20 bench 1 keccak zk``), phase times, peak device memory and
+    the port's verifier; no JAX log of this configuration exists, so the
+    proof's length is the port's own;
 13. (run last) every kernel against its plain version, exact, at every
-    operand shape the five warm proves (phases 6, 9, 12 and the two of 16)
-    and phase 17's runs called its wrapper with: K2's transforms by height, width and direction
+    operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
+    phase 17's runs and phase 20's prove called its wrapper with: K2's
+    transforms by height, width and direction
     (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
     layers and K4's chunks by rows, widths, row strides and 16-byte
-    alignment, K1's tree runs by height, levels and alignment, K5's leaf
+    alignment, K1's tree runs by height, levels and alignment, K1's absorb
+    and finalize by rows, the pending and new words' widths, strides and
+    alignment (phase 20's, printed), K5's leaf
     products by n and width (both directions' tables) and its inner levels
     by n, A, R and direction (config 2's set must be phase 14's), and the
     grind's chunks by count, tail blocks, witness offset and bits, on
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the main paths: the five warm proves and phase 17's four runs; time, plain time and the bound of each
-kernel at the shape it was timed; the largest error of phases 2-17), and
+summed over the main paths: the five warm proves, phase 17's five runs and phase 20's prove; time, plain time
+and the bound of each kernel at the shape it was timed; the largest error of phases 2-20), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -116,7 +138,9 @@ dense int8 peak, 1,979 TOPS; a K5 level's bytes count x read and the
 result written once, the limb table and, at an inner level, the (A, B)
 twiddle table read once (``k5_bound``).  A tree of compress layers (K1's tree kernel)
 reads its input layer once and writes one digest a node, one permutation
-each.  Instruction counts are lower bounds read off
+each; K1's absorb reads and writes its 200-byte state a row (the digest
+instead of the state in a finalize) and reads each word once, one
+permutation a rate block (``keccak_absorb_bound``).  Instruction counts are lower bounds read off
 the sources: a Montgomery product 5 (three multiplies, a subtract, a
 select), a modular add 2, an NTT butterfly 9 (4 in a transform's stage 0,
 whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
@@ -291,6 +315,29 @@ def _tree_bound(n: int, levels: int):
     return _bound(n * 32 + out_rows * 32, out_rows * KECCAK_F_OPS)
 
 
+# K1's carried-state absorb: its per-pipe model counts keccak_rows_kernel's
+# ALU-pipe SASS a round (185, all LOP3 and SHF, read off by port_timing.py sass)
+# over the ALU pipe's nominal rate, half an SM's issue rate (port_timing.py
+# probe reaches it for LOP3 + SHF): a model of the kernel's round, not a bound
+KECCAK_ROUND_ALU_SASS = 185
+ALU_PIPE_OPS_PER_S = 132 * 2 * 32 * 1.98e9
+
+
+def keccak_absorb_bound(n: int, p: int, k: int, first: bool, fin: bool):
+    """The bound of one absorb (``fin``: finalize) over n rows of p pending
+    and k new words: the state read (unless ``first``) and written (the
+    digest instead when ``fin``), the words read once; one permutation a
+    whole block (and the last partial one when ``fin``)."""
+    words = p + k
+    perms = words // 34 + (1 if fin and words % 34 else 0)
+    n_bytes = n * ((0 if first else 200) + (32 if fin else 200) + 4 * words)
+    return _bound(n_bytes, n * perms * KECCAK_F_OPS)
+
+
+def keccak_alu_model_ms(perms: int) -> float:
+    return perms * 24 * KECCAK_ROUND_ALU_SASS / ALU_PIPE_OPS_PER_S * 1e3
+
+
 def import_port():
     """Import the port's modules this script drives (and nothing of JAX)."""
     import types
@@ -308,7 +355,7 @@ def import_port():
     from tpu_stark_torch.compat import native
     from tpu_stark_torch.fields import babybear as bb
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
-    from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
+    from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel, sponge
     from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel, radix2
     from tpu_stark_torch.prover import prove as prove_mod
     from tpu_stark_torch.prover import wide
@@ -338,6 +385,8 @@ _SHAPE_KERNELS = {
     "dft": ("ntt_pass0", "ntt_pass"),
     "keccak_hash_rows": ("keccak_sponge",),
     "keccak_compress_levels": ("keccak_tree",),
+    "keccak_absorb": ("keccak_absorb",),
+    "keccak_finalize": ("keccak_absorb",),
     "poseidon2_hash_rows": ("poseidon2_sponge",),
     "poseidon2_compress": ("poseidon2_sponge",),
     "poseidon2_absorb": ("poseidon2_absorb",),
@@ -354,6 +403,8 @@ def _record_shapes(port, seen: dict, path: str):
     direction; K1's and K3's ``hash_rows`` / ``compress`` and K4's
     ``absorb_rows`` by rows, and each operand's width, row stride and
     16-byte alignment; K1's ``compress_levels`` by rows, levels and
+    alignment; K1's ``absorb_rows`` and ``finalize_rows`` by rows, each
+    operand's width, row stride and alignment, ``first`` and the state's
     alignment; K5's
     ``mod_matmul_axis`` by n and width and ``mod_matmul_twiddle_moved`` by
     n, A, R and direction; the grind's ``verdicts`` by count,
@@ -368,6 +419,10 @@ def _record_shapes(port, seen: dict, path: str):
         (kk, "hash_rows"): lambda a, b=None: ("keccak_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
         (kk, "compress_levels"): lambda d, levels: (
             "keccak_compress_levels", int(d.shape[0]), int(levels), d.data_ptr() % 16 // 4),
+        (kk, "absorb_rows"): lambda st, m, first=False, pend=None: (
+            "keccak_absorb", int(st.shape[1]), *rows(m), *rows(pend), bool(first), st.data_ptr() % 16 // 4),
+        (kk, "finalize_rows"): lambda st, pend, first=False: (
+            "keccak_finalize", int(st.shape[1]), *rows(pend), bool(first), st.data_ptr() % 16 // 4),
         (pk, "hash_rows"): lambda a, b=None: ("poseidon2_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "compress"): lambda a, b: ("poseidon2_compress", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "absorb_rows"): lambda s, c, first=False: (
@@ -430,6 +485,20 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         elif kind == "keccak_compress_levels":
             d = rand_u32((n * 8 + key[3],))[key[3]:].view(n, 4, 2)
             got, want = torch.cat(kk.compress_levels(d, key[2])), torch.cat(kk.compress_levels_plain(d, key[2]))
+        elif kind in ("keccak_absorb", "keccak_finalize"):
+            flat = rand_u32((50 * n + key[-1],))
+            state = flat[key[-1]:].view(50, n)
+            want_state = state.clone()
+            if kind == "keccak_absorb":
+                mat = operand(rand_u32, n, *key[2:5])
+                mat = torch.empty((n, 0), dtype=torch.int32, device=flat.device) if mat is None else mat
+                pend, first = operand(rand_u32, n, *key[5:8]), key[8]
+                got = kk.absorb_rows(state, mat, first, pend)
+                want = kk.absorb_rows_plain(want_state, mat, first, pend)
+            else:
+                pend, first = operand(rand_u32, n, *key[2:5]), key[5]
+                got = kk.finalize_rows(state, pend, first)
+                want = kk.finalize_rows_plain(want_state, pend, first)
         elif kind == "poseidon2_absorb":
             state, chunk = rand_monty((n, pk.WIDTH)), operand(rand_monty, n, *key[2:5])
             got = pk.absorb_rows(state.clone(), chunk, key[5])
@@ -785,6 +854,10 @@ TWINS = (
     # 7: the perms_5 fixture's 128 rows, generate_trace(128 // 24, seed=1)
     ("twin-keccak-air", ["keccak-air", "7", "bench", "1"], ("torch_keccak_air_jax_proofs.json", "perms_5"),
      ("NTT_PASS0", "POSEIDON2_SPONGE", "POSEIDON2_ABSORB")),
+    # the reference's stack at 64 rows: as long as the zk fixture's proof
+    ("twin-keccak-air-zk", ["keccak-air", "6", "test", "1", "keccak", "zk"],
+     ("torch_keccak_air_wide_zk_jax_proofs.json", "keccak_4chunks"),
+     ("NTT_PASS0", "KECCAK_SPONGE", "KECCAK_TREE", "KECCAK_ABSORB")),
 )
 
 
@@ -848,6 +921,135 @@ def _phase17_app_bench(torch, port, kind: str, seen: dict):
             f"against the CPU tier passed at its {len(checked)} cases: " + " | ".join(dft_lines)
             + f"; launches {launches['app']}. Prove twins, each proof as long as JAX's of its configuration: "
             + " | ".join(twins))
+    return line, launches
+
+
+# phase 18: the absorb timed at the zk wide commit's chunk: 2^22 LDE rows,
+# 30 pending words and the first 38 of a 64-column chunk (two blocks)
+K1_ABSORB_TIMED = (1 << 22, 30, 38)
+
+
+def _phase18_absorb(torch, port, rand_u32, results) -> str:
+    """K1's carried-state absorb against its plain version, exactly: the
+    timed chunk on a carried random state, 33 pending words, a stream of
+    odd-width chunks against one-shot K1, the finalize of 4 trace and 4 salt
+    words, and a state and operands off 16-byte boundaries.  Returns the
+    phase's line."""
+    kk = port.keccak_kernel
+    err = 0
+
+    def check(label, got, want):
+        nonlocal err
+        torch.cuda.synchronize()
+        e = _max_abs_err(torch, got, want)
+        err = max(err, e)
+        if e != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K1 absorb {label}: kernel != plain (max_abs_err {e})")
+
+    n, p, k = K1_ABSORB_TIMED
+    state, chunk, pend = rand_u32((50, n)), rand_u32((n, 64)), rand_u32((n, p))
+    check(f"({n}, {p} + {k}) on a carried state",
+          kk.absorb_rows(state.clone(), chunk[:, :k], pend=pend), kk.absorb_rows_plain(state.clone(), chunk[:, :k], pend=pend))
+    salts = rand_u32((n, 8))
+    check(f"finalize ({n}, 4 + 4 salt words)", kk.finalize_rows(state, salts), kk.finalize_rows_plain(state, salts))
+    m = rand_u32((4097, 33 + 35))
+    st = rand_u32((50, 4097))
+    check("(4097, 33 pending + 35)", kk.absorb_rows(st.clone(), m[:, 33:], pend=m[:, :33]),
+          kk.absorb_rows_plain(st.clone(), m[:, 33:], pend=m[:, :33]))
+    for mis in (1, 2, 3):  # the state and the operands 4 mis bytes past a 16-byte boundary
+        flat = rand_u32((50 * 4097 + mis,))
+        st = flat[mis:].view(50, 4097)
+        mm = rand_u32((4097 * 70 + mis,))[mis:].view(4097, 70)
+        want = kk.absorb_rows_plain(st.clone(), mm[:, 1:69])
+        check(f"(4097, 68) misaligned by {4 * mis} B", kk.absorb_rows(st, mm[:, 1:69]), want)
+    wide = rand_u32((4097, 64 + 63 + 65 + 1 + 7))
+    stream = port.sponge.KeccakRowStream(4097, wide.device)
+    off = 0
+    for wc in (64, 63, 65, 1, 7):  # odd widths: a u32 pair straddles chunks
+        stream.absorb_cols(wide[:, off : off + wc])
+        off += wc
+    check("stream of chunks 64, 63, 65, 1, 7 vs one-shot K1", stream.finalize(), kk.hash_rows(wide))
+    ms = _cuda_ms(torch, lambda: kk.absorb_rows(state, chunk[:, :k], pend=pend), 20)
+    plain_ms = _cuda_ms(torch, lambda: kk.absorb_rows_plain(state, chunk[:, :k], pend=pend), 1)
+    bound_ms, bound_by = keccak_absorb_bound(n, p, k, False, False)
+    model_ms = keccak_alu_model_ms(2 * n)
+    results["keccak_absorb"] = (err, ms, plain_ms, bound_ms, bound_by,
+                                {"shape": [n, p, k], "alu_model_ms": round(model_ms, 6)})
+    return (f"[18] K1 carried-state absorb == plain (exact): ({n}, {p} pending + {k}) on a carried state, "
+            f"the finalize of 4 + 4 salt words, 33 pending + 35, a state and chunk off 16-byte boundaries, "
+            f"a stream of odd-width chunks == one-shot K1; ({n}, {p} + {k}): {ms:.4f} ms vs plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), ALU-pipe model {model_ms:.4f} ms "
+            f"({2 * n / ms / 1e3:.1f} Mperm/s)")
+
+
+def _phase19_zk_fixture(torch, port, dev) -> str:
+    """The zk wide fixture's two proofs on the card: SHA-256, length, verify."""
+    with open(os.path.join(GOLDEN, "torch_keccak_air_wide_zk_jax_proofs.json")) as f:
+        fixture = json.load(f)
+    air = port.keccak_air.KeccakAir()
+    for name, want in sorted(fixture.items()):
+        def cfg():
+            return port.create_config(zk=True, hash=want["hash"], device=dev)
+
+        trace = port.keccak_air.generate_trace(2, seed=want["seed"], device=dev)
+        blob = port.serialize_proof(port.wide.prove_wide(cfg(), air, trace, [], col_chunk=want["col_chunk"]))
+        got = {"sha256": hashlib.sha256(blob).hexdigest(), "len": len(blob)}
+        if got["sha256"] != want["sha256"] or got["len"] != want["len"]:
+            raise AssertionError(f"zk keccak-air {name}: {got} != JAX {want}")
+        if not port.verify(cfg(), air, port.deserialize_proof(blob), []):
+            raise AssertionError(f"zk keccak-air {name}: proof does not verify")
+    return (f"[19] zk keccak-air prove_wide at 64 rows ({', '.join(sorted(fixture))}) match the JAX SHA-256 "
+            f"and length; both verify")
+
+
+def _phase20_zk_wide(torch, port, dev, seen, smi: str, log_k: int = 20):
+    """keccak-air at 2^20 x 3608 through ``prove_wide`` on the reference's
+    stack (Keccak, zk, the device rng, benchmark FRI): one cold prove (launch
+    counts reset just before it, read just after), its phases and peak
+    device memory, and the port's verifier.  Returns (line, launches)."""
+    kernels, keccak_air = port.kernels, port.keccak_air
+    t0 = time.perf_counter()
+    trace = keccak_air.generate_trace((1 << log_k) // keccak_air.NUM_ROUNDS, seed=1, device=dev)[: 1 << log_k]
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    air = keccak_air.KeccakAir()
+
+    def cfg():
+        return port.create_config(port.create_benchmark_fri_params(1), zk=True, hash="keccak", device=dev)
+
+    timings = {}
+
+    def cold():
+        t0 = time.perf_counter()
+        out = port.wide.prove_wide(cfg(), air, trace, [], timings=timings)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    with _record_shapes(port, seen, "keccak-air-zk"):
+        (proof, cold_s), launches = _drive(kernels, cold, (
+            kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_ABSORB, kernels.NTT_PASS0,
+            kernels.NTT_PASS, kernels.KECCAK_GRIND))
+    peak = torch.cuda.max_memory_allocated(dev)
+    blob = port.serialize_proof(proof)
+    t0 = time.perf_counter()
+    ok = port.verify(cfg(), air, port.deserialize_proof(blob), [])
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError(f"zk keccak-air 2^{log_k} proof does not verify")
+    if (proof.degree_bits != log_k or proof.log_quotient_degree != 3 or len(proof.commitments.trace) != 4
+            or proof.opening_proof.random_commit is None or len(proof.opening_proof.query_proofs) != 100
+            or len(proof.opened_values.trace_local) != keccak_air.COLS):
+        raise AssertionError(f"zk keccak-air 2^{log_k} proof is not a 100-query Keccak zk proof of "
+                             f"2^{log_k} x 3608 with 8 quotient chunks")
+    phases = ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+    used = {k: n for k, n in launches.items() if n}
+    line = (f"[20] keccak-air n=2^{log_k} x {keccak_air.COLS} prove_wide on the reference's stack (Keccak, zk, "
+            f"device rng, blowup 2, 100 queries, 16 PoW bits; 2^{log_k + 1} committed rows, 2^{log_k + 2} LDE "
+            f"rows, {-(-keccak_air.COLS // port.wide.default_col_chunk(1 << (log_k + 2)))} chunks): trace generation "
+            f"{trace_s:.3f}s; cold (only) {cold_s:.3f}s ({phases}); verify {verify_s:.3f}s ok; proof "
+            f"{len(blob)} B (the port's own: no JAX log of this configuration); launches {used}; peak device "
+            f"memory {peak / 2**30:.3f} GiB (trace included); on {smi}")
     return line, launches
 
 
@@ -1271,9 +1473,19 @@ def main() -> int:
     line, app_launches = _phase17_app_bench(torch, port, kind, seen)
     print(line, flush=True)
 
-    # -- 13. every kernel vs plain at every shape of the five main paths --------
+    # -- 18. K1's carried-state absorb vs plain ----------------------------------
+    print(_phase18_absorb(torch, port, rand_u32, results), flush=True)
+
+    # -- 19. the zk wide fixture on the card --------------------------------------
+    print(_phase19_zk_fixture(torch, port, dev), flush=True)
+
+    # -- 20. keccak-air at 2^20 x 3608 on the reference's stack, zk -----------------
+    line, zk_launches = _phase20_zk_wide(torch, port, dev, seen, smi)
+    print(line, flush=True)
+
+    # -- 13. every kernel vs plain at every shape of the main paths -------------
     path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
-                     **app_launches}
+                     **app_launches, "keccak-air-zk": zk_launches}
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
         missing = [name for name, n in launches.items() if n > 0 and name not in noted]
@@ -1296,7 +1508,12 @@ def main() -> int:
         f"({k[1]}, {k[2]})" for k in sorted(seen) if k[0] == "mod_matmul_axis" and "config2-mxu" in seen[k])
     mxu_shapes += "; inner levels (B, A, R): " + ", ".join(
         f"({b}, {a}, {r}){' inv' if inv else ''}" for b, a, r, inv in sorted(noted_levels))
-    print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the warm proves and phase 17 "
+    absorb_shapes = ", ".join(
+        f"{k[0][7:]} ({k[1]}, {k[5] if k[0] == 'keccak_absorb' else k[2]}"
+        f"{' + ' + str(k[2]) if k[0] == 'keccak_absorb' else ''})"
+        for k in sorted(seen) if k[0] in ("keccak_absorb", "keccak_finalize") and "keccak-air-zk" in seen[k])
+    print(f"[13] K1's absorb at the zk wide prove's operands (pending + new words): {absorb_shapes}", flush=True)
+    print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the main paths and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "
           f"products: {mxu_shapes}", flush=True)

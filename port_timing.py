@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Timing tools for the PyTorch + CUDA port (``tpu_stark_torch``) on one GPU.
 
-    python3 port_timing.py profile [--workload keccak|chain|fib|config2] [--log-n N] [--tree DIR] [--reps 4]
+    python3 port_timing.py profile [--workload keccak|keccak-zk|chain|fib|config2] [--log-n N] [--tree DIR] [--reps 4]
     python3 port_timing.py warm [--tree DIR | --pcs-from DIR] [--reps 4]
     python3 port_timing.py verify [--log-n 20] [--pcs-from DIR]
     python3 port_timing.py k2 [--tree DIR]
@@ -19,7 +19,9 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   off, blowup 2, 100 queries, 16 PoW bits) at 2^log_n rows (``--workload
   chain``: the Poseidon2 chain, BASELINE config 3, at 2^log_n x 493, default
   2^18; ``fib``: fib_air zk at 2^20 on the Keccak stack, cell 1; ``config2``:
-  BASELINE config 2 at 2^20 with ``narrow_ntt="mxu"``) once cold (the
+  BASELINE config 2 at 2^20 with ``narrow_ntt="mxu"``; ``keccak-zk``:
+  keccak-air through ``prove_wide`` on the reference's stack, Keccak trees
+  and zk with the device rng, benchmark FRI) once cold (the
   kernels' build included), ``reps`` times warm and
   unprofiled, then once under ``torch.profiler``, and prints every prove's
   wall clock and phase times, the warm proves' median, the profiled prove's
@@ -33,7 +35,12 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   rows its launch took, in buckets < 2^12, 2^12-2^16 and >= 2^16 rows;
   beside it the stream time between CUDA events around each launch, which
   also holds the host's launch path where the card waits for it), and the
-  20 ops with the most device time.  The
+  20 ops with the most device time.  It also times the device rng's
+  plain-torch Threefry (every ``_sample_monty`` call: the salts, the random
+  codewords and, in zk wide proves, the trace randomizer that every pass
+  over the chunks regenerates) with CUDA events around each call on the
+  prove's stream, and prints its calls, its stream time and its share of
+  the profiled prove's device time and wall clock.  The
   profiler's own host cost lengthens the profiled wall clock, so the idle
   share is an upper bound.  ``--tree DIR`` profiles DIR's
   ``tpu_stark_torch`` (as for ``warm``).
@@ -102,7 +109,8 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   (``p2_sponge_kernel<8>``) by class, per permutation: the static count of
   the chunk loop's body, with any loop inside it weighted by its trip count
   (the rolled round loops: 4, 13 and 4); and of K1's kernels
-  (``keccak_rows_kernel``, ``keccak_tree_kernel``, ``keccak_grind_kernel``)
+  (``keccak_rows_kernel``, ``keccak_tree_kernel``, ``keccak_absorb_kernel``,
+  ``keccak_grind_kernel``)
   per round: the body of the innermost loop with the most LOP3 (the rolled
   round loop, one round a trip), and per permutation 24 rounds.  Then it runs ``probe`` and
   prints each kernel's per-pipe bound at its table shape (K4 absorbing
@@ -180,7 +188,9 @@ def _chip_smoke():
     return mod
 
 
-def _keccak_setup(dev, log_n: int):
+def _keccak_setup(dev, log_n: int, zk: bool = False):
+    """keccak-air at 2^log_n rows: config 4 (Poseidon2, zk off), or with
+    ``zk`` the reference's stack (Keccak, zk, the device rng)."""
     from tpu_stark_torch.air import keccak_air
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
     from tpu_stark_torch.prover.config import create_config
@@ -190,14 +200,16 @@ def _keccak_setup(dev, log_n: int):
     trace = keccak_air.generate_trace(max(1, n // keccak_air.NUM_ROUNDS), seed=1, device=dev)[:n]
 
     def config():
-        return create_config(create_benchmark_fri_params(1), zk=False, hash="poseidon2", device=dev)
+        return create_config(create_benchmark_fri_params(1), zk=zk, hash="keccak" if zk else "poseidon2",
+                             device=dev)
 
     return air, trace, config
 
 
 # the hand-written kernel -> the profiler kernel names that belong to it
 KERNEL_KEYS = (
-    ("K1 keccak_sponge", ("keccak_rows_kernel", "keccak_tree_kernel")), ("K2 ntt_pass", ("ntt_pass_kernel",)),
+    ("K1 keccak_sponge", ("keccak_rows_kernel", "keccak_tree_kernel")),
+    ("K1 keccak_absorb", ("keccak_absorb_kernel",)), ("K2 ntt_pass", ("ntt_pass_kernel",)),
     ("K3 poseidon2_sponge", ("p2_sponge_kernel",)), ("K4 poseidon2_absorb", ("p2_absorb_kernel",)),
     ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)),
 )
@@ -234,6 +246,12 @@ class _Bounds:
             return "K2 ntt_pass", sum(cs._bound(2 * h * w * 4, cs._ntt_ops(h * w, kk, i == 0))[0]
                                       for i, kk in enumerate(ks))
 
+        def keccak_absorb(state, mat, first=False, pend=None):
+            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), k(mat), first, False)[0]
+
+        def keccak_finalize(state, pend, first=False):
+            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), 0, first, True)[0]
+
         def sponge(a, b=None, rate=poseidon2_kernel.RATE):
             n = int(a.shape[0])
             perms = n * -(-(k(a) + k(b)) // rate)
@@ -263,6 +281,7 @@ class _Bounds:
             (poseidon2_kernel, "absorb_rows", absorb), (mxu_ntt, "mod_matmul_axis", mxu),
             (mxu_ntt, "mod_matmul_twiddle_moved", mxu_level),
             (grind, "verdicts", verdicts), (keccak_kernel, "compress_levels", tree),
+            (keccak_kernel, "absorb_rows", keccak_absorb), (keccak_kernel, "finalize_rows", keccak_finalize),
         ]
         self._orig = []
 
@@ -341,6 +360,48 @@ class _K1Launches:
         return "K1 by rows per launch: " + "; ".join(parts)
 
 
+class _RngTime:
+    """While open, times every device-rng sample (``_sample_monty``: plain
+    torch Threefry) with CUDA events around it on the current stream."""
+
+    def __init__(self, torch):
+        from tpu_stark_torch.compat import device_rng
+        from tpu_stark_torch.prover import wide
+
+        self.torch, self.mods, self.noted, self._orig = torch, (device_rng, wide), [], []
+
+    def __enter__(self):
+        torch = self.torch
+        for mod in self.mods:
+            orig = getattr(mod, "_sample_monty", None)
+            if orig is None:  # an older tree (--tree) whose wide prover draws nothing
+                continue
+            self._orig.append((mod, orig))
+
+            def timed(*args, _orig=orig, **kw):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _orig(*args, **kw)
+                end.record()
+                self.noted.append((start, end, out.numel()))
+                return out
+
+            setattr(mod, "_sample_monty", timed)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self._orig:
+            setattr(mod, "_sample_monty", orig)
+
+    def report(self, device_s: float, wall_s: float) -> str:
+        self.torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e, _n in self.noted)
+        elems = sum(n for _s, _e, n in self.noted)
+        return (f"device rng (plain-torch Threefry): {len(self.noted)} samples, {elems} elements, "
+                f"{ms:.3f} ms of stream time: {100 * ms / 1e3 / device_s:.1f}% of the device time, "
+                f"{100 * ms / 1e3 / wall_s:.1f}% of the profiled wall clock")
+
+
 def _chain_setup(dev, log_n: int):
     from tpu_stark_torch.air import poseidon2_air
     from tpu_stark_torch.prover.config import create_config
@@ -391,8 +452,9 @@ def profile(torch, dev, args) -> None:
             return prove(config(), air, trace, pis, timings=timings)
     else:
         log_n = args.log_n or 20
-        air, trace, config = _keccak_setup(dev, log_n)
-        label = f"keccak-air 2^{log_n} x {air.width} prove_wide"
+        zk = args.workload == "keccak-zk"
+        air, trace, config = _keccak_setup(dev, log_n, zk)
+        label = f"keccak-air 2^{log_n} x {air.width} prove_wide{' (Keccak, zk)' if zk else ''}"
 
         def run(timings):
             return prove_wide(config(), air, trace, [], timings=timings)
@@ -405,7 +467,7 @@ def profile(torch, dev, args) -> None:
     if args.reps:
         print(f"{label}: warm median {sorted(walls[1:])[args.reps // 2]:.3f}s of {args.reps}", flush=True)
     profiled = {}
-    with _Bounds() as bounds, _K1Launches(torch) as k1, \
+    with _Bounds() as bounds, _K1Launches(torch) as k1, _RngTime(torch) as rng, \
             torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, lambda: run(profiled))
     on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -420,6 +482,7 @@ def profile(torch, dev, args) -> None:
         print(f"{name}: {ms:.3f} ms of device time in {sum(e.count for e in evs)} launches "
               f"({bounds.calls.get(name, 0)} wrapper calls); summed bound {bound:.3f} ms; "
               f"loss (time - bound) {ms - bound:.3f} ms", flush=True)
+    print(rng.report(dev_s, wall), flush=True)
     k1_keys = dict(KERNEL_KEYS)["K1 keccak_sponge"]
     print(k1.report([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                      and any(key in e.name for key in k1_keys)]), flush=True)
@@ -1058,6 +1121,7 @@ def _mix_line(mix) -> str:
 
 
 K1_SASS_KERNELS = (("K1 keccak_rows_kernel", "keccak_rows_kernel"), ("K1 keccak_tree_kernel", "keccak_tree_kernel"),
+                   ("K1 keccak_absorb_kernel", "keccak_absorb_kernelILb0E"),
                    ("grind keccak_grind_kernel", "keccak_grind_kernel"))
 ROUNDS = 24
 
@@ -1129,6 +1193,7 @@ PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) 
                      ("K3 p2_sponge_kernel<8>", "leaf (65536, 493)", (1 << 16) * -(-493 // 8)),
                      ("K1 keccak_rows_kernel", "leaf (1048576, 6)", 1 << 20),
                      ("K1 keccak_tree_kernel", "a tree over 8388608 digests", (1 << 23) - 1),
+                     ("K1 keccak_absorb_kernel", "absorb 30 + 38 words x 4194304 rows", 2 << 22),
                      ("grind keccak_grind_kernel", "2^17 candidates, one block", 1 << 17))
 
 
@@ -1509,7 +1574,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "sass", "probe", "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
-    parser.add_argument("--workload", choices=("keccak", "chain", "fib", "config2"), default="keccak",
+    parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
     parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, k5, sass)")

@@ -1,8 +1,9 @@
-"""Kernels K1-K5 (K1's tree kernel and K5's fused inner level too) and
+"""Kernels K1-K5 (K1's tree kernel, its carried-state absorb and K5's fused
+inner level too) and
 the grind kernel on the card against their plain torch versions, and the
-port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and a
-keccak-air wide proof on the card against the golden files and the JAX
-fixtures; the app, the DFT harness (its exact check against the CPU tier),
+port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and
+keccak-air wide proofs (zk off, and zk on the Keccak stack) on the card
+against the golden files and the JAX fixtures; the app, the DFT harness (its exact check against the CPU tier),
 the NTT oracle and the prove twins on the card.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
@@ -130,6 +131,79 @@ def test_keccak_wrappers_never_run_plain_on_the_card(dev, monkeypatch):
     monkeypatch.setattr(keccak_kernel, "compress_levels_plain", refuse)
     assert torch.equal(keccak_kernel.hash_rows(a), want_rows)
     assert _layers_equal(keccak_kernel.compress_levels(d, 6), want_tree)
+
+
+@pytest.mark.parametrize(
+    "n,chunking", [(1, (34,)), (37, (7, 30, 34, 10)), (129, (1, 33, 34, 35, 68)), (1000, (64, 64, 64, 64, 4)),
+                   (4097, (64, 64, 20)), (300, (33, 1)), (2048, (128, 128, 4))]
+)
+def test_keccak_absorb_kernel_equals_plain(dev, n, chunking):
+    """K1's carried-state absorb over chunks (pending words and the chunk as
+    two strided operands), from the zero state and a carried one, with the
+    state off a 16-byte boundary, then the finalize: each step equals the
+    plain version, and from the zero state the digests equal hash_rows."""
+    m = _u32(dev, (n, sum(chunking) + 3), 29 * n)[:, 2 : 2 + sum(chunking)]
+    for first in (True, False):
+        flat = _u32(dev, (50 * n + 1,), 31 * n)
+        state = flat[1:].view(50, n)
+        want = state.clone()
+        pend, off, before = None, 0, kernels.KECCAK_ABSORB.launches
+        launches = 0
+        for wc in chunking:
+            blk = m[:, off : off + wc]
+            off += wc
+            p = 0 if pend is None else int(pend.shape[1])
+            blocks = (p + wc) // keccak_kernel.BLOCK_WORDS
+            if blocks == 0:
+                pend = blk if pend is None else torch.cat([pend, blk], dim=1)
+                continue
+            take = blocks * keccak_kernel.BLOCK_WORDS - p
+            keccak_kernel.absorb_rows(state, blk[:, :take], first=first and launches == 0, pend=pend)
+            keccak_kernel.absorb_rows_plain(want, blk[:, :take], first=first and launches == 0, pend=pend)
+            launches += 1
+            torch.cuda.synchronize()
+            assert torch.equal(state, want)
+            pend = blk[:, take:] if take < wc else None
+        got = keccak_kernel.finalize_rows(state, pend, first=first and launches == 0)
+        assert kernels.KECCAK_ABSORB.launches == before + launches + 1
+        assert torch.equal(got, keccak_kernel.finalize_rows_plain(want, pend, first=first and launches == 0))
+        if first:
+            assert torch.equal(got, keccak_kernel.hash_rows(m))
+
+
+def test_keccak_row_stream_never_runs_plain_on_the_card(dev, monkeypatch):
+    from tpu_stark_torch.hash.sponge import KeccakRowStream
+
+    m = _u32(dev, (513, 150), 3)
+    want = keccak_kernel.hash_rows_plain(m)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("absorb_rows_plain", "finalize_rows_plain", "keccak_f_plain", "hash_rows_plain"):
+        monkeypatch.setattr(keccak_kernel, name, refuse)
+    stream = KeccakRowStream(513, dev)
+    for off in range(0, 150, 64):
+        stream.absorb_cols(m[:, off : off + 64])
+    assert torch.equal(stream.finalize(), want)
+
+
+def test_zk_wide_proof_on_card_matches_jax(dev):
+    """The reference's stack in 4 column chunks: the JAX fixture's bytes."""
+    import hashlib
+
+    from tpu_stark_torch.air.keccak_air import KeccakAir, generate_trace
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.wide import prove_wide
+
+    path = pathlib.Path(__file__).parent / "golden" / "torch_keccak_air_wide_zk_jax_proofs.json"
+    want = json.loads(path.read_text())["keccak_4chunks"]
+    before = kernels.KECCAK_ABSORB.launches
+    blob = serialize_proof(prove_wide(create_config(zk=True, hash="keccak", device=dev), KeccakAir(),
+                                      generate_trace(2, seed=8, device=dev), [], col_chunk=1024))
+    assert kernels.KECCAK_ABSORB.launches > before
+    assert hashlib.sha256(blob).hexdigest() == want["sha256"] and len(blob) == want["len"]
 
 
 @pytest.mark.parametrize("log_h", [1, 2, 5, 8, 9, 12, 13, 17, 21])

@@ -7,9 +7,14 @@ the kernels run their plain torch versions here.
   counts; every partition runs on a view of only its declared columns;
 * K4's plain version and ``P2RowStream`` over ragged column chunks equal
   the one-shot sponge and JAX's carry-state absorb;
-* ``commit_wide``'s root equals the dense commit's and JAX's;
-* the row-blocked quotient equals the unblocked one and the dense pass;
-* the unported options raise.
+* ``commit_wide``'s root equals the dense commit's and JAX's, on both
+  stacks, hiding or not (the salts kept as their lazy draw);
+* the zk source: one chunk commits to the dense zk construction's root and
+  JAX's, and its coefficients over several chunks (columns that repeat and
+  straddle chunks) equal JAX's;
+* the row-blocked quotient equals the unblocked one and the dense pass, and
+  a panel folds the zk source's 2n coefficients;
+* JAX's restrictions raise.
 """
 
 import jax.numpy as jnp
@@ -19,6 +24,9 @@ import torch
 
 from tpu_stark.air import keccak_air as jkeccak_air
 from tpu_stark.commit import poseidon2_mmcs as jmmcs
+from tpu_stark.commit.merkle import MerkleTreeMmcs as JMerkle
+from tpu_stark.compat.device_rng import DeviceRng as JRng
+from tpu_stark.compat.device_rng import make_zk_rng as j_make_zk_rng
 from tpu_stark.commit.pcs import TwoAdicFriPcs as JPcs
 from tpu_stark.fri.config import create_test_fri_params as j_test_fri
 from tpu_stark.ntt.dft import Dft as JDft
@@ -28,6 +36,7 @@ from tpu_stark_torch.air.air import BaseAir, get_symbolic_info
 from tpu_stark_torch.commit.merkle import MerkleTreeMmcs
 from tpu_stark_torch.commit.pcs import TwoAdicFriPcs
 from tpu_stark_torch.commit.poseidon2_mmcs import Poseidon2Mmcs
+from tpu_stark_torch.compat.device_rng import DeviceRng
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.fri.config import create_test_fri_params
 from tpu_stark_torch.hash import poseidon2_kernel
@@ -41,8 +50,28 @@ def _monty(seed, shape):
     return bb.np_to_monty(np.random.default_rng(seed).integers(0, bb.P, size=shape, dtype=np.uint32))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The proves here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _pcs(log_blowup=2, mmcs=Poseidon2Mmcs):
     return TwoAdicFriPcs(Dft(device="cpu"), create_test_fri_params(log_blowup), mmcs(), mmcs())
+
+
+def _hiding_pcs(mmcs, hiding=True, zk_layout="tpu"):
+    """A PCS whose (hiding) MMCS salts from the device rng's salt stream."""
+    return TwoAdicFriPcs(Dft(device="cpu"), create_test_fri_params(2),
+                         mmcs(hiding=hiding, rng=DeviceRng(1, "salts", "cpu")), mmcs(), zk_layout=zk_layout)
+
+
+def _j_hiding_pcs(mmcs, hiding=True):
+    return JPcs(JDft(backend="cpu"), j_test_fri(2), mmcs(hiding=hiding, rng=JRng(1, "salts")), None)
 
 
 # ---------------------------------------------------------------------------
@@ -174,26 +203,122 @@ def test_streamed_commit_root_matches_dense_and_jax():
         assert a.proof == b.proof
 
 
+@pytest.mark.parametrize("stack", ["keccak", "poseidon2"])
+@pytest.mark.parametrize("hiding", [False, True])
+def test_streamed_commit_on_both_stacks_matches_dense_and_jax(stack, hiding):
+    """The Keccak stack through ``KeccakRowStream`` (K1's absorb), the
+    Poseidon2 stack through ``P2RowStream``; hiding absorbs the salts after
+    the rows and keeps their lazy draw, whose openings equal the dense
+    commit's."""
+    mmcs, jm = (MerkleTreeMmcs, JMerkle) if stack == "keccak" else (Poseidon2Mmcs, jmmcs.Poseidon2Mmcs)
+    trace = np.random.default_rng(3).integers(0, 2, size=(64, 40), dtype=np.uint32)
+    pcs = _hiding_pcs(mmcs, hiding)
+    domain = pcs.natural_domain_for_degree(64)
+    dense_root, dense = pcs.commit([(domain, bb.to_tensor(bb.np_to_monty(trace), "cpu"))])
+    pcs2 = _hiding_pcs(mmcs, hiding)  # a fresh salt stream
+    src = wide.WideMatrixSource(torch.from_numpy(trace.astype(np.uint8)), pcs2.dft, 2, domain, col_chunk=16)
+    root, data = wide.commit_wide(pcs2, domain, src)
+    assert tuple(root) == tuple(dense_root)
+    jpcs = _j_hiding_pcs(jm, hiding)
+    jdomain = jpcs.natural_domain_for_degree(64)
+    jsrc = jwide.WideMatrixSource(trace.astype(np.uint8), jpcs.dft, 2, jdomain, col_chunk=16)
+    jroot, jdata = jwide.commit_wide(jpcs, jdomain, jsrc)
+    assert tuple(int(v) for v in jroot) == tuple(root)
+    if hiding:
+        salt = data.merkle.salts[0]
+        assert hasattr(salt, "materialize") and pcs2.val_mmcs._rng._counter == 1
+        assert np.array_equal(bb.to_numpy(salt.materialize()), np.asarray(jdata.merkle.salts[0].materialize()))
+    else:
+        assert data.merkle.salts is None
+    for a, b in zip(pcs2.val_mmcs.open_batch_many([3, 200], data.merkle),
+                    pcs.val_mmcs.open_batch_many([3, 200], dense.merkle)):
+        assert all(np.array_equal(x, y) for x, y in zip(a.opened_values, b.opened_values))
+        assert (a.opened_salts is None) == (not hiding)
+        if hiding:
+            assert all(np.array_equal(x, y) for x, y in zip(a.opened_salts, b.opened_salts))
+        assert a.proof == b.proof
+
+
 def test_streamed_commit_unported_stacks_raise():
+    """Both stacks stream, hiding too; what remains is JAX's restriction: a
+    hiding streamed commit under the p3 layout, which appends dense random
+    columns."""
     trace = torch.zeros((16, 8), dtype=torch.uint8)
-    for pcs in (_pcs(mmcs=MerkleTreeMmcs), TwoAdicFriPcs(
-            Dft(device="cpu"), create_test_fri_params(2), Poseidon2Mmcs(hiding=True), Poseidon2Mmcs())):
+    for pcs in (_hiding_pcs(MerkleTreeMmcs, zk_layout="p3"), _hiding_pcs(Poseidon2Mmcs, zk_layout="p3")):
         domain = pcs.natural_domain_for_degree(16)
         src = wide.WideMatrixSource(trace, pcs.dft, 2, domain)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="zk_layout='tpu'"):
             wide.commit_wide(pcs, domain, src)
+        pcs.zk_layout = "tpu"
+        root, _ = wide.commit_wide(pcs, domain, src)
+        assert len(root) in (4, 8)
 
 
 def test_wide_zk_raises():
+    """The zk source commits on the natural domain only; the zk wide prove
+    needs the device rng; a chunk is a multiple of 8 columns."""
     pcs = _pcs()
-    domain = pcs.natural_domain_for_degree(16)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        wide.WideMatrixSource(torch.zeros((16, 8), dtype=torch.uint8), pcs.dft, 2, domain, zk_seed=1)
-    cfg = create_config(zk=True, hash="poseidon2", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    shifted = pcs.natural_domain_for_degree(16).create_disjoint_domain(16)
+    with pytest.raises(ValueError, match="natural domain"):
+        wide.WideMatrixSource(torch.zeros((16, 8), dtype=torch.uint8), pcs.dft, 2, shifted, zk_seed=1)
+    cfg = create_config(zk=True, hash="poseidon2", zk_rng="smallrng", device="cpu")
+    with pytest.raises(ValueError, match="device rng"):
         wide.prove_wide(cfg, keccak_air.KeccakAir(), torch.zeros((64, keccak_air.COLS), dtype=torch.uint8), [])
+    domain = pcs.natural_domain_for_degree(16)
     with pytest.raises(ValueError):
         wide.WideMatrixSource(torch.zeros((16, 8), dtype=torch.uint8), pcs.dft, 2, domain, col_chunk=12)
+
+
+# ---------------------------------------------------------------------------
+# the zk source
+# ---------------------------------------------------------------------------
+def test_zk_source_one_chunk_commits_like_dense_and_jax():
+    """With one chunk the source draws the dense prover's randomizer
+    (fold_in(key, 0) at the full width): the same T' commitment."""
+    n, w = 32, 24
+    trace = np.random.default_rng(4).integers(0, 2, size=(n, w), dtype=np.uint32)
+    pcs = _hiding_pcs(MerkleTreeMmcs)
+    trace_domain = pcs.natural_domain_for_degree(n)
+    r = DeviceRng(1, "trace", "cpu").sample_babybear_matrix_monty(n, w)
+    coeffs = pcs.dft.idft_batch(bb.to_tensor(bb.np_to_monty(trace), "cpu"))
+    committed_domain = pcs.natural_domain_for_degree(2 * n)
+    dense_root, _ = pcs.commit([(committed_domain, pcs.dft.dft_batch(torch.cat([bb.sub(coeffs, r), r])))])
+    pcs2 = _hiding_pcs(MerkleTreeMmcs)
+    src = wide.WideMatrixSource(torch.from_numpy(trace.astype(np.uint8)), pcs2.dft, 2, trace_domain,
+                                col_chunk=24, zk_seed=1)
+    assert (src.n_committed, src.lde_h) == (2 * n, 8 * n)
+    root, _ = wide.commit_wide(pcs2, committed_domain, src)
+    assert tuple(root) == tuple(dense_root)
+    jpcs = _j_hiding_pcs(JMerkle)
+    jsrc = jwide.WideMatrixSource(trace.astype(np.uint8), jpcs.dft, 2, jpcs.natural_domain_for_degree(n),
+                                  col_chunk=24, zk_seed=1)
+    jroot, _ = jwide.commit_wide(jpcs, jpcs.natural_domain_for_degree(2 * n), jsrc)
+    assert tuple(int(v) for v in jroot) == tuple(root)
+    assert np.array_equal(bb.to_numpy(r), np.asarray(j_make_zk_rng("device", 1, "trace")
+                                                     .sample_babybear_matrix_monty(n, w)))
+
+
+def test_zk_source_coefficients_match_jax():
+    """Several chunks, each with its own randomizer stream: the chunk
+    coefficients [q - r ; r] and those of arbitrary columns (repeated, and
+    straddling chunks; the last chunk ragged) equal JAX's."""
+    n, w = 32, 40
+    trace = np.random.default_rng(5).integers(0, 2, size=(n, w), dtype=np.uint8)
+    pcs = _pcs()
+    src = wide.WideMatrixSource(torch.from_numpy(trace), pcs.dft, 2, pcs.natural_domain_for_degree(n),
+                                col_chunk=16, zk_seed=3)
+    jpcs = JPcs(JDft(backend="cpu"), j_test_fri(2), jmmcs.Poseidon2Mmcs(), jmmcs.Poseidon2Mmcs())
+    jsrc = jwide.WideMatrixSource(trace, jpcs.dft, 2, jpcs.natural_domain_for_degree(n), col_chunk=16, zk_seed=3)
+    assert list(src.chunks()) == list(jsrc.chunks()) == [(0, 16), (16, 16), (32, 8)]
+    for off, wc in src.chunks():
+        got = src.tf_coeffs_chunk(off, wc)
+        assert tuple(got.shape) == (2 * n, wc)
+        assert np.array_equal(bb.to_numpy(got), np.asarray(jsrc.tf_coeffs_chunk(off, wc)))
+    cols = np.array([3, 3, 15, 16, 17, 39, 0, 31, 32, 39, 20])
+    got = src.quotient_coeffs_cols(cols)
+    assert np.array_equal(bb.to_numpy(got), np.asarray(jsrc.quotient_coeffs_cols(cols)))
+    # the randomizer rows are the chunk streams' columns
+    assert torch.equal(got[n:, 4], src._rand_chunk(1, 16)[:, 1])
 
 
 # ---------------------------------------------------------------------------
@@ -248,3 +373,20 @@ def test_row_blocked_quotient_matches_unblocked_and_dense():
     dense = _quotient_values(air, on_q, torch.zeros(0, dtype=torch.int32), apows, domain.log_n, q_dom.log_n)
     for j, chunk in enumerate(base):
         assert torch.equal(chunk, dense[j :: 1 << log_qd])
+
+
+def test_panel_on_coset_folds_the_zk_coefficients():
+    """A block's panel from the zk source's 2n coefficients (a fold of 4
+    runs of m = n/2) equals the polynomial evaluated point by point."""
+    n, u = 16, 3
+    pcs = _pcs()
+    tf = bb.to_tensor(_monty(21, (2 * n, u)), "cpu")
+    log_m, shift = 3, 7 * pow(bb.two_adic_generator(4), 3, bb.P) % bb.P
+    got = bb.to_numpy(bb.to_u32(wide._panel_on_coset(pcs.dft, tf, log_m, shift)))
+    coeffs = bb.to_numpy(bb.to_u32(tf))
+    g_m = bb.two_adic_generator(log_m)
+    for i in range(1 << log_m):
+        x = shift * pow(g_m, i, bb.P) % bb.P
+        for c in range(u):
+            want = sum(int(coeffs[j, c]) * pow(x, j, bb.P) for j in range(2 * n)) % bb.P
+            assert int(got[i, c]) == want

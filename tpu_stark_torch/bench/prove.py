@@ -4,12 +4,15 @@
 
     python -m tpu_stark_torch.bench.prove fib [log_n] [keccak|poseidon2] [zk|plain] [reps] [test|bench]
     python -m tpu_stark_torch.bench.prove chain [log_n]
-    python -m tpu_stark_torch.bench.prove keccak-air [log_n] [test|bench] [reps]
+    python -m tpu_stark_torch.bench.prove keccak-air [log_n] [test|bench] [reps] [poseidon2|keccak] [plain|zk]
 
 and two options: ``--narrow none|mxu`` (the NTT route of
 ``create_config(narrow_ntt=...)``) and ``--device`` (default ``cuda``).
 ``test`` = 2 queries, 1 PoW bit, blowup 4; ``bench`` = 100 queries, 16 PoW
-bits, blowup 2.
+bits, blowup 2.  ``keccak-air``'s stack and mode default to
+``bench_keccak_air.py``'s (Poseidon2, zk off); ``keccak zk`` is the
+reference's stack (``create_config()``'s defaults: Keccak trees, zk, the
+device rng).
 
 Each prints the phase times of the cold prove and of every warm one, then as its last line one
 JSON object with the JAX scripts' field names and ``metric`` strings
@@ -134,9 +137,10 @@ def _chain(a, dev, narrow) -> Dict:
 
 def _keccak_air(a, dev, narrow) -> Dict:
     fri = _fri(a.params)
+    zk = a.mode == "zk"
 
     def config():
-        return create_config(fri, zk=False, hash="poseidon2", device=dev, narrow_ntt=narrow)
+        return create_config(fri, zk=zk, hash=a.hash, device=dev, narrow_ntt=narrow)
 
     n = 1 << a.log_n
     t0 = time.perf_counter()
@@ -146,7 +150,8 @@ def _keccak_air(a, dev, narrow) -> Dict:
     air = keccak_air.KeccakAir()
     out = _measure(dev, lambda t: prove_wide(config(), air, trace, [], timings=t),
                    lambda p: verify(config(), air, p, []), a.reps)
-    return {"metric": f"keccak_air_prove_2^{a.log_n}_{a.params}", **out, "tracegen_s": t_tracegen,
+    stack = "" if (a.hash, a.mode) == ("poseidon2", "plain") else f"_{a.hash}_{a.mode}"
+    return {"metric": f"keccak_air_prove_2^{a.log_n}_{a.params}{stack}", **out, "tracegen_s": t_tracegen,
             "trace_cols": int(trace.shape[1])}
 
 
@@ -169,6 +174,8 @@ def parser() -> argparse.ArgumentParser:
     keccak.add_argument("log_n", nargs="?", type=int, default=20)
     keccak.add_argument("params", nargs="?", default="bench", choices=("test", "bench"))
     keccak.add_argument("reps", nargs="?", type=int, default=1)
+    keccak.add_argument("hash", nargs="?", default="poseidon2", choices=("poseidon2", "keccak"))
+    keccak.add_argument("mode", nargs="?", default="plain", choices=("plain", "zk"))
     return p
 
 

@@ -36,10 +36,12 @@ Digest = Tuple[int, ...]  # 4 u64 words (Keccak) or 8 canonical elements (Poseid
 class ProverData:
     """Committed matrices (Monty, device), salts, and all digest layers on
     the device, leaf layer first: (N_l, 4, 2) int32 Keccak words, or
-    (N_l, 8) Monty elements in the Poseidon2 tree."""
+    (N_l, 8) Monty elements in the Poseidon2 tree.  A salt matrix may be
+    kept as the ``LazyMatrix`` of its draw (``compat.device_rng``), which
+    the openings regenerate."""
 
     matrices: List[torch.Tensor]
-    salts: Optional[List[torch.Tensor]]
+    salts: Optional[List]
     layers: List[torch.Tensor]
     root: Digest
 
@@ -156,17 +158,19 @@ class MerkleTreeMmcs:
         root = self._root(layers)
         return root, ProverData(matrices, salts, layers, root)
 
-    def commit_digests(self, matrix, digests: torch.Tensor) -> Tuple[Digest, ProverData]:
+    def commit_digests(self, matrix, digests: torch.Tensor, salts=None) -> Tuple[Digest, ProverData]:
         """Commit one matrix whose leaf-digest layer is already computed
         (the streamed wide commit); ``matrix`` needs only ``shape`` and row
-        gathers (``matrix[rows]``) for the openings.  Not hiding."""
-        if self.hiding:
-            raise NotImplementedError("a hiding commit from ready leaf digests (salts absorbed after the rows)")
+        gathers (``matrix[rows]``) for the openings.  A hiding MMCS takes
+        the salts (a dense matrix or its ``LazyMatrix``) that the leaf
+        digests absorbed after the rows, and keeps them for the openings."""
+        if self.hiding != (salts is not None):
+            raise ValueError("a hiding commit needs the salts its leaves absorbed, and only a hiding one")
         h = int(digests.shape[0])
         log2_strict(h)
         layers = build_layers_from_digests(self, digests, h)
         root = self._root(layers)
-        return root, ProverData([matrix], None, layers, root)
+        return root, ProverData([matrix], None if salts is None else [salts], layers, root)
 
     def _root(self, layers: List[torch.Tensor]) -> Digest:
         top = self.fetch_digests(layers[-1], torch.zeros(1, dtype=torch.int64, device=layers[-1].device))
@@ -188,7 +192,10 @@ class MerkleTreeMmcs:
             rows = torch.from_numpy(idx >> (log_max - log2_strict(int(m.shape[0])))).to(dev)
             fetch.append(bb.to_u32(m[rows]))
             if data.salts is not None:
-                fetch.append(bb.to_u32(data.salts[k][rows]))
+                salt = data.salts[k]
+                if hasattr(salt, "materialize"):  # a lazy salt draw: regenerated once a call
+                    salt = salt.materialize()
+                fetch.append(bb.to_u32(salt[rows]))
         for l in range(log_max):
             fetch.append(self.fetch_digests(data.layers[l], torch.from_numpy((idx >> l) ^ 1).to(dev)))
         flat = bb.to_numpy(torch.cat([t.reshape(-1) for t in fetch]))

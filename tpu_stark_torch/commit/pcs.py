@@ -38,7 +38,7 @@ from ..fields import extension as ext4
 from ..fields import ref_field as rf
 from ..fri.config import FriParameters
 from ..fri.domains import ExtPoint, TwoAdicCoset
-from ..matrix import bit_reversal_perm, bit_reversal_perm_device, log2_strict, reverse_matrix_index_bits
+from ..matrix import bit_reversal_perm_device, log2_strict, reverse_matrix_index_bits
 from ..ntt.dft import Dft
 from .merkle import BatchOpening, Digest, MerkleTreeMmcs
 
@@ -158,10 +158,18 @@ def _plain_points_br(log_h: int, device) -> torch.Tensor:
     return bb.from_u32(pts[bit_reversal_perm_device(log_h, device)])
 
 
+def _bit_reverse(index: int, log_h: int) -> int:
+    """``index`` with its low ``log_h`` bits reversed."""
+    rev = 0
+    for _ in range(log_h):
+        rev = (rev << 1) | (index & 1)
+        index >>= 1
+    return rev
+
+
 def _plain_point_at(log_h: int, index: int) -> int:
-    g = bb.two_adic_generator(log_h)
-    rev = int(bit_reversal_perm(log_h)[index])
-    return pow(g, rev, bb.P)
+    """g_H^bitrev(index): one point of the bit-reversed plain frame."""
+    return pow(bb.two_adic_generator(log_h), _bit_reverse(index, log_h), bb.P)
 
 
 def _alpha_pows_np(alpha: ExtPoint, offset: int, w: int) -> np.ndarray:
@@ -366,8 +374,8 @@ class TwoAdicFriPcs:
             rd = []
             for m_idx, mat_points in enumerate(points):
                 rc = data.r_coeffs[m_idx]
-                if hasattr(rc, "eval_at_point"):  # a streamed wide matrix
-                    rd.append([rc.eval_at_point(rf.escale(z, gen_inv)) for z in mat_points])
+                if hasattr(rc, "eval_at_points"):  # a streamed wide matrix: one pass over its chunks
+                    rd.append(rc.eval_at_points([rf.escale(z, gen_inv) for z in mat_points]))
                     continue
                 rd.append([
                     _eval_at_point(rc, ext4.powers_device(rf.escale(z, gen_inv), int(rc.shape[0]), dev))

@@ -15,7 +15,10 @@ the JAX package's:
   ``(i >> 32, i & 0xFFFFFFFF)`` and returns the xor of the two output words.
 
 ``DeviceRng(seed, stream)`` folds in ``crc32(stream)`` (when ``stream`` is
-not empty) and then one call counter per sample, as JAX does.  A sample is
+not empty) and then one call counter per sample, as JAX does.
+``sample_lazy`` advances the counter but returns a ``LazyMatrix``, the
+sample's key and shape, which regenerates the same values on demand (a
+hiding commit keeps it instead of the salts).  A sample is
 the Monty value ``(hi * 2^32 + lo) mod p`` of two 32-bit draws.  Threefry
 is XLA, not Pallas, in the JAX package: here it is plain torch elementwise
 work on the sample's device.
@@ -70,20 +73,45 @@ def split(k: Key) -> Tuple[Key, Key]:
     return threefry2x32(k, 0, 0), threefry2x32(k, 0, 1)
 
 
-def random_bits(k: Key, rows: int, cols: int, device) -> torch.Tensor:
-    """``jax.random.bits(k, (rows, cols), uint32)`` as int64 u32 values."""
-    i = torch.arange(rows * cols, dtype=torch.int64, device=device)
+def _flat_index(rows: int, cols: int, sel, device) -> torch.Tensor:
+    """Row-major flat indices of the (rows, cols) matrix's columns ``sel``
+    (all of them when ``sel`` is None), as a (rows, len(sel)) int64 tensor."""
+    if sel is None:
+        return torch.arange(rows * cols, dtype=torch.int64, device=device).view(rows, cols)
+    sel = torch.as_tensor(sel, dtype=torch.int64, device=device)
+    return torch.arange(rows, dtype=torch.int64, device=device)[:, None] * cols + sel[None, :]
+
+
+def random_bits(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
+    """``jax.random.bits(k, (rows, cols), uint32)`` as int64 u32 values, or
+    only its columns ``sel``: each value hashes its own flat index, so a
+    column costs the same whether the others are drawn or not."""
+    i = _flat_index(rows, cols, sel, device)
     b0, b1 = threefry2x32(k, i >> 32, i & _M32)
-    return (b0 ^ b1).view(rows, cols)
+    return b0 ^ b1
 
 
-def _sample_monty(k: Key, rows: int, cols: int, device) -> torch.Tensor:
+def _sample_monty(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
     """(rows, cols) int32 Monty residues (hi * 2^32 + lo) mod p, from two
-    draws under the two halves of ``split(k)``."""
+    draws under the two halves of ``split(k)``; only the columns ``sel`` of
+    that matrix when given."""
     k_hi, k_lo = split(k)
-    hi = random_bits(k_hi, rows, cols, device)
-    lo = random_bits(k_lo, rows, cols, device)
+    hi = random_bits(k_hi, rows, cols, device, sel)
+    lo = random_bits(k_lo, rows, cols, device, sel)
     return ((hi * _TWO32_MOD_P + lo) % bb.P).to(torch.int32)
+
+
+class LazyMatrix:
+    """One sample call's key and shape: ``materialize()`` regenerates the
+    sample's values, bit for bit, wherever and whenever they are needed."""
+
+    def __init__(self, k: Key, rows: int, cols: int, device):
+        self._key = k
+        self.shape = (rows, cols)
+        self.device = torch.device(device)
+
+    def materialize(self) -> torch.Tensor:
+        return _sample_monty(self._key, *self.shape, self.device)
 
 
 class DeviceRng:
@@ -108,6 +136,10 @@ class DeviceRng:
         return rng
 
     def sample_babybear_matrix_monty(self, rows: int, cols: int) -> torch.Tensor:
+        return self.sample_lazy(rows, cols).materialize()
+
+    def sample_lazy(self, rows: int, cols: int) -> LazyMatrix:
+        """Advance the counter as a sample does, and defer the values."""
         k = fold_in(self._key, self._counter)
         self._counter += 1
-        return _sample_monty(k, rows, cols, self.device)
+        return LazyMatrix(k, rows, cols, self.device)

@@ -9,7 +9,7 @@ unless the caller passes ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -61,3 +61,24 @@ def prover_data_from_numpy(
         [TwoAdicCoset(int(log_n), int(shift)) for log_n, shift in domains],
         [int(w) for w in widths],
     )
+
+
+def keccak_stream_from_jax(
+    lanes: Sequence[Tuple[np.ndarray, np.ndarray]],  # 25 (lo, hi) uint32 arrays of shape (n,)
+    pend: Sequence[Tuple[np.ndarray, np.ndarray]],  # the pending u64 items as (lo, hi), fewer than 17
+    half: Optional[np.ndarray],  # (n, 1) uint32: the first word of a split pair, or None
+    device="cuda",
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A JAX ``KeccakRowStream``'s carried state (``_state``, ``_pend``,
+    ``_half``) as the port's: the lane-major (50, n) int32 state and the
+    pending (n, p) int32 words (items as lo, hi pairs, then the split half),
+    or None when nothing is pending."""
+    words = [w for lo_hi in lanes for w in lo_hi]
+    state = np.stack([np.asarray(w, dtype=np.uint32) for w in words]).view(np.int32)
+    cols = [np.asarray(w, dtype=np.uint32).reshape(-1) for item in pend for w in item]
+    if half is not None:
+        cols.append(np.asarray(half, dtype=np.uint32).reshape(-1))
+    pend_t = None
+    if cols:
+        pend_t = torch.from_numpy(np.ascontiguousarray(np.stack(cols, axis=1).view(np.int32))).to(device)
+    return torch.from_numpy(np.ascontiguousarray(state)).to(device), pend_t

@@ -31,7 +31,8 @@
 //   pairs from HBM, later levels from shared memory, and every level's
 //   digests go to their layer in HBM (openings read every layer).
 //
-// The grind kernel uses the same permutation.
+// The grind kernel and the carried-state absorb of the streamed commit
+// (keccak_absorb_kernel) use the same permutation.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -198,6 +199,85 @@ __global__ void __launch_bounds__(kRowThreads)
   store_digest(out + row * 8, lo, hi);
 }
 
+constexpr int kAbsorbThreads = 128;
+
+// The carried-state absorb of the streamed Keccak commit (no Pallas
+// counterpart: it replaces tpu_stark/hash/sponge.py::_absorb_full_blocks,
+// XLA there).  Row r's input is the p words of pend's row r (a block that
+// straddled the previous chunk, p < 34) then the k words of mat's row r,
+// each operand read through its row stride: no concatenated copy.  The
+// state is lane-major, word 2l + h of lane l (h = 0 lo, 1 hi) of row r at
+// state[(2l + h) n + r], so a warp's loads and stores of one word coalesce;
+// `first` starts from the zero state without reading it.  !FIN: absorb the
+// (p + k) / 34 whole rate blocks (p + k a multiple of 34) and store the
+// state.  FIN: absorb them and the last partial block too, permute, and
+// write the digest to out (n, 8); the state is not written.  Bound: the ALU
+// pipe, as keccak_rows_kernel (one permutation per 34 words against 400 B of
+// state and 136 B of input a block).
+template <bool FIN>
+__global__ void __launch_bounds__(kAbsorbThreads)
+    keccak_absorb_kernel(uint32_t* __restrict__ state, int64_t n, const uint32_t* __restrict__ pend, int64_t p,
+                         int64_t ps, const uint32_t* __restrict__ mat, int64_t k, int64_t ms, int first,
+                         uint32_t* __restrict__ out) {
+  const int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  uint32_t lo[25], hi[25];
+  if (first) {
+    zero_state(lo, hi);
+  } else {
+#pragma unroll
+    for (int l = 0; l < 25; ++l) {
+      lo[l] = state[(2 * l) * n + row];
+      hi[l] = state[(2 * l + 1) * n + row];
+    }
+  }
+  const uint32_t* rp = pend + row * ps;
+  const uint32_t* rm = mat + row * ms;
+  const int64_t total = p + k;
+  const int64_t blocks = total / 34;
+  int64_t b = 0;
+  if (p > 0 && blocks > 0) {  // the block that holds the pending words
+#pragma unroll
+    for (int i = 0; i < 34; ++i) {
+      const uint32_t v = i < p ? rp[i] : rm[i - p];
+      if (i % 2 == 0) lo[i / 2] = v;
+      else hi[i / 2] = v;
+    }
+    keccak_f(lo, hi);
+    b = 1;
+  }
+  for (; b < blocks; ++b) {  // whole blocks of mat alone
+    const uint32_t* r = rm + (34 * b - p);
+#pragma unroll
+    for (int i = 0; i < 17; ++i) {
+      lo[i] = r[2 * i];
+      hi[i] = r[2 * i + 1];
+    }
+    keccak_f(lo, hi);
+  }
+  if (FIN) {
+    const int64_t base = 34 * blocks;
+    const int64_t rest = total - base;  // words of the last partial block
+    if (rest > 0) {
+#pragma unroll
+      for (int i = 0; i < 17; ++i) {
+        const int64_t j = base + 2 * i;
+        if (j >= total) break;
+        lo[i] = j < p ? rp[j] : rm[j - p];
+        hi[i] = j + 1 >= total ? 0u : (j + 1 < p ? rp[j + 1] : rm[j + 1 - p]);
+      }
+      keccak_f(lo, hi);
+    }
+    store_digest(out + row * 8, lo, hi);
+  } else {
+#pragma unroll
+    for (int l = 0; l < 25; ++l) {
+      state[(2 * l) * n + row] = lo[l];
+      state[(2 * l + 1) * n + row] = hi[l];
+    }
+  }
+}
+
 constexpr int kTreeThreads = 128;
 
 // Levels 1..lv above the n_in digests (8 u32 each) at `in`.  Block b takes
@@ -350,5 +430,26 @@ extern "C" int ts_keccak_tree(const uint32_t* in, int64_t n_in, int sub_log, int
   const int threads = sub_log - 1 >= 7 ? kTreeThreads : 1 << (sub_log - 1);
   const size_t smem = lv > 1 ? (size_t)32 * ((size_t(1) << (sub_log - 1)) + (size_t(1) << (sub_log - 1) >> 1)) : 0;
   keccak_tree_kernel<<<(unsigned)blocks, threads, smem, stream>>>(in, n_in, sub_log, lv, out);
+  return (int)cudaGetLastError();
+}
+
+// The carried-state absorb over n rows of a lane-major (50, n) state: the
+// rows are pend's p words (row stride ps) then mat's k words (row stride ms).
+// Without out: absorb the whole rate blocks, p + k a multiple of 34, p < 34,
+// into state.  With out: absorb everything, the last partial block included,
+// and write the (n, 8) digests to out, leaving state as it is.  Returns the
+// CUDA error status of the launch.
+extern "C" int ts_keccak_absorb(uint32_t* state, int64_t n, const uint32_t* pend, int64_t p, int64_t ps,
+                                const uint32_t* mat, int64_t k, int64_t ms, int first, uint32_t* out,
+                                cudaStream_t stream) {
+  if (p < 0 || p >= 34 || k < 0 || (out == nullptr && (p + k) % 34 != 0)) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  const int64_t blocks = (n + kAbsorbThreads - 1) / kAbsorbThreads;
+  if (out == nullptr)
+    keccak_absorb_kernel<false><<<(unsigned)blocks, kAbsorbThreads, 0, stream>>>(state, n, pend, p, ps, mat, k, ms,
+                                                                                first, out);
+  else
+    keccak_absorb_kernel<true><<<(unsigned)blocks, kAbsorbThreads, 0, stream>>>(state, n, pend, p, ps, mat, k, ms,
+                                                                               first, out);
   return (int)cudaGetLastError();
 }

@@ -24,9 +24,23 @@ only the tests pass, are concatenated first).  ``compress_levels`` builds a tree
 launches of the tree kernel (``tree_plan``): a block compresses a subtree
 through shared memory and writes every level to its layer.
 
-``hash_rows_plain`` and ``compress_levels_plain`` are the plain torch
-versions: int64 lanes, vectorized over rows.  The wrappers run them only
-for CPU tensors; for a CUDA tensor they launch the kernels or raise.
+``absorb_rows(state, mat, first, pend)`` continues the sponge of each row
+over more of its words: the pending words ``pend`` (N, p), p < 34, then
+``mat`` (N, k), p + k a multiple of 34 (whole rate blocks), into a carried
+(50, N) int32 state, lane-major (word 2l + h of lane l at row 2l + h: lo,
+then hi), updated in place; ``first`` starts from the zero state.
+``finalize_rows(state, pend)`` absorbs the last partial block (p < 34
+words, an odd one with a zero high half), permutes when p > 0, and returns
+the (N, 4, 2) digests, the state untouched.  Together they give
+``hash_rows`` of the whole rows.  Kernel ``keccak_absorb_kernel`` (same
+file); it replaces the JAX package's XLA absorb
+``tpu_stark/hash/sponge.py::_absorb_full_blocks``, which has no Pallas
+kernel, so that the streamed commit hashes on the card.
+
+``hash_rows_plain``, ``compress_levels_plain``, ``absorb_rows_plain`` and
+``finalize_rows_plain`` are the plain torch versions: int64 lanes,
+vectorized over rows.  The wrappers run them only for CPU tensors; for a
+CUDA tensor they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -146,6 +160,113 @@ def hash_rows(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Tensor
         ),
         "keccak sponge",
     )
+    return out
+
+
+BLOCK_WORDS = 2 * RATE  # u32 words of a rate block
+
+
+def _state_lanes(state: torch.Tensor) -> torch.Tensor:
+    """(50, N) int32 lane-major state -> (N, 25) int64 lanes."""
+    s = state.to(torch.int64)
+    return ((s[1::2] << 32) | (s[0::2] & 0xFFFFFFFF)).t().contiguous()
+
+
+def absorb_rows_plain(state: torch.Tensor, mat: torch.Tensor, first: bool = False,
+                      pend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    rows = mat if pend is None else torch.cat([pend, mat], dim=1)
+    if rows.shape[1] % BLOCK_WORDS:
+        raise ValueError(f"keccak absorb: {rows.shape[1]} words are not whole rate blocks")
+    st = torch.zeros((rows.shape[0], WIDTH), dtype=torch.int64, device=rows.device) if first else _state_lanes(state)
+    items = _items(rows)
+    for off in range(0, items.shape[1], RATE):
+        st[:, :RATE] = items[:, off : off + RATE]
+        st = keccak_f_plain(st)
+    lo = ((st & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    state[0::2] = lo.t().to(torch.int32)
+    state[1::2] = (st >> 32).t().to(torch.int32)
+    return state
+
+
+def finalize_rows_plain(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False) -> torch.Tensor:
+    n = int(state.shape[1])
+    st = torch.zeros((n, WIDTH), dtype=torch.int64, device=state.device) if first else _state_lanes(state)
+    if pend is not None and pend.shape[1]:
+        items = _items(pend)
+        st[:, : items.shape[1]] = items
+        st = keccak_f_plain(st)
+    return _digest_words(st)
+
+
+def _absorb_operands(state, mat, pend):
+    """Check the absorb's operands on the card; returns (mat, pend) with
+    contiguous columns (rows may stride)."""
+    if state.device.type != "cuda":
+        raise ValueError(f"keccak absorb: unsupported device {state.device}")
+    if state.dtype != torch.int32 or not state.is_contiguous():
+        raise ValueError("keccak absorb: the state must be a contiguous int32 tensor (updated in place)")
+    n = int(state.shape[1])
+    out = []
+    for name, t in (("mat", mat), ("pend", pend)):
+        if t is not None:
+            if t.device != state.device or t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != n:
+                raise ValueError(f"keccak absorb: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                                 f"against a state of {n} rows")
+            if t.shape[1] > 1 and t.stride(1) != 1:
+                t = t.contiguous()
+        out.append(t)
+    return out
+
+
+def _absorb_launch(state, mat, pend, first, out) -> None:
+    p, k = (0 if t is None else int(t.shape[1]) for t in (pend, mat))
+    if int(state.shape[1]) == 0:
+        return
+    kernels.KECCAK_ABSORB.launches += 1
+    kernels.check(
+        kernels.lib().ts_keccak_absorb(
+            state.data_ptr(), int(state.shape[1]),
+            None if pend is None else pend.data_ptr(), p, 0 if pend is None else pend.stride(0),
+            None if mat is None else mat.data_ptr(), k, 0 if mat is None else mat.stride(0),
+            int(bool(first)), None if out is None else out.data_ptr(), kernels.stream_handle(state.device),
+        ),
+        "keccak absorb",
+    )
+
+
+def _check_state(state: torch.Tensor) -> None:
+    if state.dim() != 2 or state.shape[0] != 2 * WIDTH:
+        raise ValueError(f"keccak absorb: a state of shape {tuple(state.shape)}, not (50, N)")
+
+
+def absorb_rows(state: torch.Tensor, mat: torch.Tensor, first: bool = False,
+                pend: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Absorb pend's then mat's words (whole rate blocks) into the (50, N)
+    state, in place; returns ``state``."""
+    _check_state(state)
+    p = 0 if pend is None else int(pend.shape[1])
+    if p >= BLOCK_WORDS or (p + int(mat.shape[1])) % BLOCK_WORDS:
+        raise ValueError(f"keccak absorb: {p} pending and {int(mat.shape[1])} new words are not whole rate blocks")
+    if state.device.type == "cpu":
+        return absorb_rows_plain(state, mat, first, pend)
+    mat, pend = _absorb_operands(state, mat, pend)
+    _absorb_launch(state, mat, pend, first, None)
+    return state
+
+
+def finalize_rows(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False) -> torch.Tensor:
+    """(N, 4, 2) digests of the rows whose last p < 34 words are ``pend``."""
+    _check_state(state)
+    p = 0 if pend is None else int(pend.shape[1])
+    if p >= BLOCK_WORDS:
+        raise ValueError(f"keccak absorb: {p} pending words are more than a partial block")
+    if first and p == 0:
+        raise ValueError("empty sponge input")
+    if state.device.type == "cpu":
+        return finalize_rows_plain(state, pend, first)
+    _, pend = _absorb_operands(state, None, pend)
+    out = torch.empty((int(state.shape[1]), OUT, 2), dtype=torch.int32, device=state.device)
+    _absorb_launch(state, None, pend, first, out)
     return out
 
 

@@ -9,12 +9,14 @@
 * ``CompressionFunctionFromHasher<_, 2, 4>``: hash of left || right.
 
 Host functions (Python ints) serve the transcript and the verifier; the
-batched functions run the Merkle layers on kernel K1 (``keccak_kernel``).
+batched functions run the Merkle layers on kernel K1 (``keccak_kernel``),
+and ``KeccakRowStream`` hashes rows that arrive in column chunks (the
+streamed wide commit) on K1's carried-state absorb.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,3 +72,38 @@ def compress_digests_batched(left: torch.Tensor, right: torch.Tensor) -> torch.T
     """Compress (N, 4, 2) digest arrays pairwise -> (N, 4, 2)."""
     n = int(left.shape[0])
     return keccak_kernel.hash_rows(left.reshape(n, 8), right.reshape(n, 8))
+
+
+class KeccakRowStream:
+    """SerializingHasher(PaddingFreeSponge) over the rows of an (N, k)
+    canonical-u32 matrix that arrives in column chunks (counterpart of
+    ``tpu_stark/hash/sponge.py::KeccakRowStream``).  Whole 34-word rate
+    blocks go to ``keccak_kernel.absorb_rows`` as they complete, and fewer
+    than 34 trailing words (a block, or a u32 pair, that straddles a chunk
+    boundary) wait as pending columns, read beside the next chunk without a
+    concatenated copy of it; ``finalize`` absorbs the last partial block.
+    The digests equal ``hash_field_rows_batched`` of the whole rows."""
+
+    def __init__(self, n_rows: int, device):
+        # lane-major (50, N) int32 (keccak_kernel's state layout)
+        self._state = torch.zeros((2 * WIDTH, n_rows), dtype=torch.int32, device=device)
+        self._first = True
+        self._pend: Optional[torch.Tensor] = None  # (N, < 34) words
+
+    def absorb_cols(self, mat_u32: torch.Tensor) -> None:
+        p = 0 if self._pend is None else int(self._pend.shape[1])
+        k = int(mat_u32.shape[1])
+        blocks = (p + k) // keccak_kernel.BLOCK_WORDS
+        take = blocks * keccak_kernel.BLOCK_WORDS - p
+        if blocks == 0:  # no block completes: the words wait
+            self._pend = mat_u32 if self._pend is None else torch.cat([self._pend, mat_u32], dim=1)
+            return
+        keccak_kernel.absorb_rows(self._state, mat_u32[:, :take], first=self._first, pend=self._pend)
+        self._first = False
+        self._pend = mat_u32[:, take:].contiguous() if take < k else None
+
+    def finalize(self) -> torch.Tensor:
+        """(N, 4, 2) digests."""
+        out = keccak_kernel.finalize_rows(self._state, self._pend, first=self._first)
+        self._pend = None
+        return out

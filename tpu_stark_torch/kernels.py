@@ -52,6 +52,12 @@ KECCAK_TREE = KernelInfo(
     "keccak_tree", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/hash/pallas_keccak.py:56",
 )
+# the carried-state absorb of the streamed Keccak commit; its JAX
+# counterpart is XLA (no Pallas kernel)
+KECCAK_ABSORB = KernelInfo(
+    "keccak_absorb", "tpu_stark_torch/csrc/keccak_sponge.cu",
+    "tpu_stark/hash/sponge.py:99",
+)
 NTT_PASS0 = KernelInfo(
     "ntt_pass0", "tpu_stark_torch/csrc/ntt.cu",
     "tpu_stark/ntt/pallas_ntt.py:114",
@@ -77,7 +83,7 @@ KECCAK_GRIND = KernelInfo(
     "keccak_grind", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/challenger/grind.py:74",
 )
-ALL = (KECCAK_SPONGE, KECCAK_TREE, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
+ALL = (KECCAK_SPONGE, KECCAK_TREE, KECCAK_ABSORB, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
        KECCAK_GRIND)
 
 
@@ -168,6 +174,8 @@ def lib() -> ctypes.CDLL:
             so.ts_keccak_rows.restype = i32
             so.ts_keccak_tree.argtypes = [vp, i64, i32, i32, vp, vp]
             so.ts_keccak_tree.restype = i32
+            so.ts_keccak_absorb.argtypes = [vp, i64, vp, i64, i64, vp, i64, i64, i32, vp, vp]
+            so.ts_keccak_absorb.restype = i32
             so.ts_ntt_pass.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
             so.ts_ntt_pass.restype = i32
             so.ts_poseidon2_rows.argtypes = [vp, i64, i64, vp, i64, i64, i64, i32, vp, vp]

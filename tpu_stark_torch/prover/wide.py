@@ -1,31 +1,37 @@
 """Streamed prover for very wide traces (counterpart of
-``tpu_stark/prover/wide.py``; BASELINE config 4: keccak-air at 2^20 rows x
-3,608 bit columns on the Poseidon2 stack, zk off).
+``tpu_stark/prover/wide.py``): keccak-air at 2^20 rows x 3,608 bit columns,
+BASELINE config 4 (Poseidon2 stack, zk off) and the reference's own stack
+(Keccak trees, zk on, the device rng).
 
 The dense prover cannot hold this trace: its committed LDE alone is
-2^21 x 3608 x 4 B = 30.3 GB, and its int64 field products several times
-that.  Here:
+2^21 x 3608 x 4 B = 30.3 GB (twice that in zk), and its int64 field
+products several times that.  Here:
 
 * the trace stays on the device as its compact integer type (uint8 bits:
   3.78 GB at 2^20 x 3608);
 * the committed LDE is never materialized: column chunks go through
   iNTT -> plain-frame scale -> zero-pad -> NTT -> bit-reversal (kernel K2)
-  and into a carry-state sponge absorb (kernel K4) that holds one (lde_h, 16)
-  Poseidon2 state across chunks; the Merkle tree is then built on the leaf
-  digests (kernel K3), with the same root as the dense commit;
+  and into a carried-state sponge absorb that holds one state per LDE row
+  across chunks: Poseidon2 (kernel K4, ``P2RowStream``) or Keccak (K1's
+  absorb, ``hash.sponge.KeccakRowStream``); a hiding commit absorbs the
+  salts after the rows and keeps their lazy draw.  The Merkle tree is then
+  built on the leaf digests, with the same root as the dense commit;
+* zk: the committed polynomial is T'(x) = T(x) + Z_H(x) R(x) of degree
+  < 2n, its coefficients [q - r ; r] (the dense prover's), with R drawn per
+  column chunk from the device rng (``fold_in(key("trace"), chunk)``), so
+  every pass over any columns regenerates the same values and the (n, w)
+  randomizer is never held.  With one chunk it is the dense prover's draw;
 * the quotient runs one AIR partition at a time (``keccak_air.Partition``),
   over only that partition's columns, and one row block at a time: block k
   of quotient coset j holds the points shift_j * g^(k + r*t);
 * the open phase recomputes chunk LDEs when it needs them: the out-of-domain
   evaluations, the reduced openings and the query rows
-  (``commit/pcs.py`` dispatches on ``eval_at_point`` / ``reduced_contrib``).
+  (``commit/pcs.py`` dispatches on ``eval_at_points`` / ``reduced_contrib``).
 
-Proofs are byte-identical to the dense prover's and the JAX package's.
-Not ported: the zk wide prover (its per-chunk trace randomizer, ROADMAP
-queue item 9), the Keccak-stack streamed commit
-(``KeccakRowStream``), hiding streamed commits, the sharded mesh path, and
-the JAX package's per-partition-class program cache and 64-column panel
-padding, which exist only to bound XLA compiles.
+Proofs are byte-identical to the JAX package's, and to the dense prover's
+wherever both fit (zk: with one column chunk).  Not ported: the sharded
+mesh path, and the JAX package's per-partition-class program cache and
+64-column panel padding, which exist only to bound XLA compiles.
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ from ..commit.pcs import (
     PcsProverData, _block_plan, _combine_columns, _eval_at_point, _opened_sum, _over_y_minus_z,
 )
 from ..commit.poseidon2_mmcs import Poseidon2Mmcs
+from ..compat.device_rng import DeviceRng, _sample_monty, fold_in
 from ..fields import babybear as bb
 from ..fields import extension as ext4
 from ..fields import ref_field as rf
 from ..fri.domains import TwoAdicCoset
 from ..hash import poseidon2_kernel
 from ..hash.poseidon2_kernel import OUT, RATE, WIDTH
+from ..hash.sponge import KeccakRowStream
 from ..matrix import log2_strict, reverse_matrix_index_bits
 from .proof import Proof
 from .prove import constraint_inputs, get_log_quotient_degree, open_and_assemble, phase_timer
@@ -75,9 +83,15 @@ class WideMatrixSource:
 
     It stands in for a committed matrix in the PCS: ``shape`` is the LDE
     shape, ``src[rows]`` gathers full LDE rows (the query openings),
-    ``eval_at_point`` and ``reduced_contrib`` stream the open phase's
+    ``eval_at_points`` and ``reduced_contrib`` stream the open phase's
     column reductions.  ``col_chunk`` (a multiple of 8) does not change the
-    proof."""
+    proof, except in zk, where each chunk draws its own randomizer.
+
+    zk (``zk_seed`` given): the committed polynomial is the randomized
+    T' = T + Z_H R of ``n_committed`` = 2n coefficients, on the natural
+    domain of size 2n; chunk c's randomizer columns are
+    ``_sample_monty(fold_in(key, c), n, wc)`` under the folded key of
+    ``DeviceRng(zk_seed, "trace")``."""
 
     def __init__(
         self,
@@ -88,16 +102,14 @@ class WideMatrixSource:
         col_chunk: Optional[int] = None,
         zk_seed: Optional[int] = None,
     ):
-        if zk_seed is not None:
-            raise NotImplementedError(
-                "the zk wide source's per-chunk trace randomizer is not ported yet (ROADMAP queue item 9)"
-            )
         self.n, self.w = int(trace.shape[0]), int(trace.shape[1])
         if self.n != domain.size:
             raise ValueError(f"trace height {self.n} is not the domain size {domain.size}")
         self.log_n = domain.log_n
         self.log_blowup = log_blowup
-        self.lde_h = self.n << log_blowup
+        self.zk = zk_seed is not None
+        self.n_committed = 2 * self.n if self.zk else self.n
+        self.lde_h = self.n_committed << log_blowup
         self.dft = dft
         self.device = dft.device
         self.domain = domain
@@ -105,9 +117,13 @@ class WideMatrixSource:
         if self.col_chunk % RATE:
             raise ValueError(f"col_chunk {self.col_chunk} is not a multiple of {RATE}")
         self.trace = trace.to(self.device)
+        if self.zk:
+            if domain.shift != 1:
+                raise ValueError("the zk wide source commits on the natural domain (shift 1)")
+            self._zk_key = DeviceRng(zk_seed, "trace", self.device)._key
         # relabeling scale onto the plain frame (as pcs.commit): canonical powers
         sigma = (bb.GENERATOR * rf.finv(domain.shift)) % bb.P
-        self._sigma_pows = bb.powers(sigma, self.n, self.device)
+        self._sigma_pows = bb.powers(sigma, self.n_committed, self.device)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -122,28 +138,56 @@ class WideMatrixSource:
         """(n, k) Monty values of the given global columns."""
         return bb.from_u32(self.trace[:, torch.as_tensor(np.asarray(cols), device=self.device)])
 
+    def _rand_chunk(self, chunk_idx: int, wc: int, sel=None) -> torch.Tensor:
+        """(n, wc) Monty randomizer columns of chunk ``chunk_idx`` (only its
+        local columns ``sel`` when given: the same values)."""
+        return _sample_monty(fold_in(self._zk_key, chunk_idx), self.n, wc, self.device, sel)
+
+    def _rand_cols(self, cols) -> torch.Tensor:
+        """(n, k) randomizer values of arbitrary global columns, repeats
+        allowed: each distinct column drawn once, from its chunk's stream."""
+        uniq, inverse = np.unique(np.asarray(cols, dtype=np.int64), return_inverse=True)
+        out = torch.empty((self.n, len(uniq)), dtype=bb.I32, device=self.device)
+        chunk_of = uniq // self.col_chunk
+        for c in np.unique(chunk_of):
+            pos = np.nonzero(chunk_of == c)[0]
+            off = int(c) * self.col_chunk
+            out[:, torch.as_tensor(pos, device=self.device)] = self._rand_chunk(
+                int(c), min(self.col_chunk, self.w - off), uniq[pos] - off)
+        return out[:, torch.as_tensor(inverse.reshape(-1), device=self.device)]
+
+    def _randomize(self, q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """[q - r ; r]: the 2n coefficients of T' = T + Z_H R."""
+        return torch.cat([bb.sub(q, r), r], dim=0)
+
     def tf_coeffs_chunk(self, off: int, wc: int) -> torch.Tensor:
-        """(n, wc) trace-frame coefficients of the columns [off, off + wc)."""
-        return self.dft.idft_batch(bb.from_u32(self.trace[:, off : off + wc]))
+        """(n_committed, wc) trace-frame committed coefficients of the
+        columns [off, off + wc), ``off`` a chunk boundary."""
+        q = self.dft.idft_batch(bb.from_u32(self.trace[:, off : off + wc]))
+        if not self.zk:
+            return q
+        return self._randomize(q, self._rand_chunk(off // self.col_chunk, wc))
 
     def quotient_coeffs_cols(self, cols) -> torch.Tensor:
-        """(n, k) trace-frame coefficients of arbitrary columns (the streamed
-        quotient evaluates them on the quotient cosets), in chunks."""
+        """(n_committed, k) trace-frame committed coefficients of arbitrary
+        columns (the streamed quotient evaluates them on the quotient
+        cosets), in chunks."""
         cols = np.asarray(cols)
-        out = torch.empty((self.n, len(cols)), dtype=bb.I32, device=self.device)
+        out = torch.empty((self.n_committed, len(cols)), dtype=bb.I32, device=self.device)
         for c0 in range(0, len(cols), self.col_chunk):
             part = cols[c0 : c0 + self.col_chunk]
-            out[:, c0 : c0 + len(part)] = self.dft.idft_batch(self.monty_cols(part))
+            q = self.dft.idft_batch(self.monty_cols(part))
+            out[:, c0 : c0 + len(part)] = self._randomize(q, self._rand_cols(part)) if self.zk else q
         return out
 
     def coeff_chunk(self, off: int, wc: int) -> torch.Tensor:
-        """(n, wc) plain-frame coefficients (the dense commit's r_small)."""
+        """(n_committed, wc) plain-frame coefficients (the dense commit's r_small)."""
         return bb.mul_canonical(self.tf_coeffs_chunk(off, wc), self._sigma_pows[:, None])
 
     def lde_br_chunk(self, off: int, wc: int) -> torch.Tensor:
         """(lde_h, wc) bit-reversed committed codeword columns."""
         r_pad = torch.zeros((self.lde_h, wc), dtype=bb.I32, device=self.device)
-        r_pad[: self.n] = self.coeff_chunk(off, wc)
+        r_pad[: self.n_committed] = self.coeff_chunk(off, wc)
         return reverse_matrix_index_bits(self.dft.dft_batch(r_pad))
 
     # -- PCS hooks -------------------------------------------------------------
@@ -152,13 +196,17 @@ class WideMatrixSource:
         rows = torch.as_tensor(rows, device=self.device)
         return torch.cat([self.lde_br_chunk(off, wc)[rows] for off, wc in self.chunks()], dim=1)
 
-    def eval_at_point(self, z_y) -> torch.Tensor:
-        """(w, 4) Monty: every column's polynomial at the plain-frame point
-        ``z_y`` (the dense open's ``_eval_at_point``, chunk by chunk)."""
-        zpow = ext4.powers_device(z_y, self.n, self.device)
-        return torch.cat(
-            [_eval_at_point(self.coeff_chunk(off, wc), zpow) for off, wc in self.chunks()], dim=0
-        )
+    def eval_at_points(self, points) -> List[torch.Tensor]:
+        """A (w, 4) Monty tensor per plain-frame point: every column's
+        polynomial there (the dense open's ``_eval_at_point``), in one pass
+        over the chunks, each chunk's coefficients computed once."""
+        zpows = [ext4.powers_device(z_y, self.n_committed, self.device) for z_y in points]
+        parts: List[List[torch.Tensor]] = [[] for _ in zpows]
+        for off, wc in self.chunks():
+            coeffs = self.coeff_chunk(off, wc)
+            for part, zpow in zip(parts, zpows):
+                part.append(_eval_at_point(coeffs, zpow))
+        return [torch.cat(part, dim=0) for part in parts]
 
     def reduced_contrib(self, apows, p_z, z_dev, y_br) -> torch.Tensor:
         """sum_col alpha^k (y_col(x) - y_col(z)) / (x - z): the column
@@ -177,7 +225,7 @@ class WideMatrixSource:
 
 
 # ---------------------------------------------------------------------------
-# Streamed commit (Poseidon2 MMCS)
+# Streamed commit
 # ---------------------------------------------------------------------------
 class P2RowStream:
     """Carry-state Poseidon2 sponge over column chunks of (N, k) Monty rows:
@@ -215,23 +263,42 @@ class P2RowStream:
         return self._state[:, :OUT].contiguous()
 
 
+def _wide_salts(mmcs, lde_h: int, device):
+    """A hiding MMCS's salts for the streamed commit, drawn from its rng as
+    the dense commit draws them: (the salt matrix, what the prover data
+    keeps).  A counter-based rng keeps only the draw (``LazyMatrix``)."""
+    if not mmcs.hiding:
+        return None, None
+    rng = mmcs._rng
+    if hasattr(rng, "sample_lazy"):
+        handle = rng.sample_lazy(lde_h, mmcs.SALT_ELEMS)
+        return handle.materialize(), handle
+    salts = bb.to_tensor(rng.sample_babybear_matrix_monty(lde_h, mmcs.SALT_ELEMS), device)
+    return salts, salts
+
+
 def commit_wide(pcs, domain: TwoAdicCoset, source: WideMatrixSource) -> Tuple[tuple, PcsProverData]:
     """Streamed ``pcs.commit([(domain, evals)])`` for one wide matrix: the
-    same Merkle root, no materialized LDE.  Chunks run one after another
-    (a device sync each), so one chunk's LDE is alive at a time."""
+    same Merkle root, no materialized LDE, on either stack, hiding included
+    (the salts absorbed after the row values, as the dense leaves hash
+    them).  Chunks run one after another (a device sync each), so one
+    chunk's LDE is alive at a time."""
     mmcs = pcs.val_mmcs
-    if not isinstance(mmcs, Poseidon2Mmcs):
-        raise NotImplementedError(
-            "the streamed commit on the Keccak MMCS (KeccakRowStream) is not ported yet; "
-            "use hash='poseidon2'"
-        )
-    if mmcs.hiding:
-        raise NotImplementedError("a hiding streamed commit (salts after the rows) is not ported yet")
-    stream = P2RowStream(source.lde_h, source.device)
+    if mmcs.hiding and pcs.zk_layout != "tpu":
+        raise ValueError("a hiding streamed commit needs zk_layout='tpu' (the p3 layout appends dense "
+                         "random columns: use the dense prover)")
+    salt_mat, salt_store = _wide_salts(mmcs, source.lde_h, source.device)
+    if isinstance(mmcs, Poseidon2Mmcs):  # rows hash as their Monty values
+        stream, feed = P2RowStream(source.lde_h, source.device), (lambda m: m)
+    else:  # Keccak: rows hash in canonical u32 form
+        stream, feed = KeccakRowStream(source.lde_h, source.device), bb.to_u32
     for off, wc in source.chunks():
-        stream.absorb_cols(source.lde_br_chunk(off, wc))
+        stream.absorb_cols(feed(source.lde_br_chunk(off, wc)))
         _sync(source.device)
-    root, data = mmcs.commit_digests(source, stream.finalize())
+    if salt_mat is not None:
+        stream.absorb_cols(feed(salt_mat))
+    del salt_mat
+    root, data = mmcs.commit_digests(source, stream.finalize(), salt_store)
     return root, PcsProverData(data, [source], [domain], [source.w])
 
 
@@ -401,17 +468,20 @@ def prove_wide(
     timings: Optional[Dict[str, float]] = None,
 ) -> Proof:
     """Prove ``air`` over a trace too wide for the dense prover, on
-    ``config.device``, with the transcript of ``prove.prove``: the proof is
-    byte-identical to the dense prover's and verifies with ``verify``.
-    Needs ``air.partitions()``, the Poseidon2 stack and zk off.  If
-    ``timings`` is a dict, the device is synchronized at each phase boundary
-    and the phase wall times (s) are stored in it: trace_lde (the trace
-    upload), trace_commit, quotient, quotient_commit, open."""
+    ``config.device``, with the transcript of ``prove.prove``, on either
+    stack, zk or not: the proof equals the JAX package's, and the dense
+    prover's where both fit, and verifies with ``verify``.  Needs
+    ``air.partitions()``, and in zk the device rng (the randomizer is
+    regenerated per column chunk).  If ``timings`` is a dict, the device is
+    synchronized at each phase boundary and the phase wall times (s) are
+    stored in it: trace_lde (the trace upload), trace_commit, quotient,
+    quotient_commit, open."""
     if air.partitions() is None:
         raise ValueError("the wide prover needs air.partitions() (see air.keccak_air.Partition)")
-    if config.zk:
-        raise NotImplementedError(
-            "the zk wide prover (its streamed trace randomizer) is not ported yet (ROADMAP queue item 9)"
+    if config.zk and config.zk_rng != "device":
+        raise ValueError(
+            f"the zk wide prover draws its trace randomizer per column chunk from the device rng; "
+            f"zk_rng={config.zk_rng!r} would materialize the (n, w) randomizer"
         )
     pcs = config.pcs
     dev = config.device
@@ -425,9 +495,11 @@ def prove_wide(
     log_qd = get_log_quotient_degree(air, len(public_values), config.zk)
 
     trace_domain = pcs.natural_domain_for_degree(n)
-    source = WideMatrixSource(trace, pcs.dft, pcs.fri.log_blowup, trace_domain, col_chunk=col_chunk)
+    source = WideMatrixSource(trace, pcs.dft, pcs.fri.log_blowup, trace_domain, col_chunk=col_chunk,
+                              zk_seed=config.rng_seed if config.zk else None)
     mark("trace_lde")
-    trace_commit, trace_data = commit_wide(pcs, trace_domain, source)
+    committed_domain = pcs.natural_domain_for_degree(source.n_committed)
+    trace_commit, trace_data = commit_wide(pcs, committed_domain, source)
     mark("trace_commit")
 
     challenger.observe_u32(log_n)
