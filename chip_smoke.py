@@ -106,9 +106,28 @@ line each, any failure an uncaught exception and a nonzero exit:
     keccak-air 20 bench 1 keccak zk``), phase times, peak device memory and
     the port's verifier; no JAX log of this configuration exists, so the
     proof's length is the port's own;
+21. BASELINE config 2 in low-memory mode (lazy salts drawn row by row, 3
+    dropped leaf layers rebuilt per query block, codewords released and
+    recomputed): at n = 2^24, on one generated trace, one prove with
+    ``lowmem_log=0`` and one with ``lowmem_log=24`` (the JAX package's
+    threshold; launch counts reset just before it, read just after; the
+    codewords' recomputes counted), each with its wall clock, phases and
+    peak device memory (reset before, read after); equal SHA-256, the JAX
+    package's length (JAX_PROOF_BYTES), verified; then n = 2^25 (a
+    2^27-row LDE, BabyBear's two-adic limit) at ``create_config()``'s
+    default, the card's threshold (2^27 on an 80 GB card), which must
+    release codewords there, verified, its length the port's own; 1024
+    rows of a 2^26 x 4 lazy salt draw drawn alone against the whole draw's
+    gather, timed and equal; and the phase's own wall clock; the warm
+    numbers come from the twins (``python -m tpu_stark_torch.bench.prove
+    fib 24 keccak zk 1 bench --lowmem-log 0|24``);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
-    phase 17's runs and phase 20's prove called its wrapper with: K2's
+    phase 17's runs, phase 20's prove and phase 21's 2^24 prove with the levers
+    (the query blocks' leaf and compress layers, the recomputed
+    transforms) called its wrapper with (the plain versions on slices of
+    at most 2^22 rows or 2^26 elements), printing the shapes only phase 21
+    gave: K2's
     transforms by height, width and direction
     (the wide prover's (2^21, 128) chunk LDEs, (2^20, 128) iNTTs and
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
@@ -122,8 +141,8 @@ line each, any failure an uncaught exception and a nonzero exit:
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the main paths: the five warm proves, phase 17's five runs and phase 20's prove; time, plain time
-and the bound of each kernel at the shape it was timed; the largest error of phases 2-20), and
+summed over the main paths: the five warm proves, phase 17's five runs, phase 20's prove and phase 21's
+2^24 prove with the levers; time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -185,14 +204,15 @@ GOLDEN = os.path.join(ROOT, "tests", "golden")
 # trace of ``generate_trace(2^18, range(16))``), keccak-air at 2^20 x 3608
 # (``bench_keccak_air.py 20 bench``: benchmark FRI parameters, zk off,
 # Poseidon2, ``generate_trace(2^20 // 24, seed=1)[:2^20]``) and config 2 at
-# 2^20 (``bench_prove.py 20 keccak zk 2 bench``: benchmark FRI parameters,
-# zk, Keccak, the defaults rng_seed 1, zk_rng "device", zk_layout "tpu",
-# fib(0, 1)).  A serialized proof's length depends on its structure only
+# 2^20 and 2^24 (``bench_prove.py 20 keccak zk 2 bench``, ``... 24 ...``:
+# benchmark FRI parameters, zk, Keccak, the defaults rng_seed 1, zk_rng
+# "device", zk_layout "tpu", fib(0, 1)).  A serialized proof's length depends on its structure only
 # (fixed-width words), so equal lengths check the structure, not the bytes.
 JAX_PROOF_BYTES = {
     "chain 2^18": (54292, "_r4_logs/p2chain_2p18.log:108"),
     "keccak-air 2^20": (3381676, "_r5_logs/keccak_air_2p20_r5b.log:143"),
     "config 2 2^20": (1188316, "_r5_logs/prove_2p20_r5.log:178"),
+    "config 2 2^24": (1589260, "_r5_logs/prove_2p24_r5.log:157"),
 }
 
 
@@ -352,6 +372,7 @@ def import_port():
     from tpu_stark_torch.compat.device_rng import DeviceRng
     from tpu_stark_torch.air.air import get_symbolic_info
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
+    from tpu_stark_torch.commit import lowmem, pcs
     from tpu_stark_torch.compat import native
     from tpu_stark_torch.fields import babybear as bb
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
@@ -463,12 +484,31 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         flat = rand((n * max(k, stride) + mis,))
         return flat[mis:].as_strided((n, k), (max(k, stride), 1))
 
+    def rowwise(fn, *ops):
+        """A row-wise plain version over slices of PLAIN_ROWS rows, joined
+        (the plain Keccak's int64 lanes of 2^26 rows would not fit)."""
+        n = int(ops[0].shape[0])
+        return torch.cat([fn(*(None if o is None else o[r : r + PLAIN_ROWS] for o in ops))
+                          for r in range(0, n, PLAIN_ROWS)])
+
+    def dft_plain(x, inverse):  # column slices of at most PLAIN_ELEMS elements
+        step = max(1, PLAIN_ELEMS // int(x.shape[0]))
+        return torch.cat([nk.dft_plain(x[:, c : c + step].contiguous(), inverse)
+                          for c in range(0, int(x.shape[1]), step)], dim=1)
+
+    def compress_levels_plain(d, levels):  # compress_levels_plain, a level at a time by row slices
+        out = []
+        for _ in range(levels):
+            d = rowwise(kk.hash_rows_plain, d.reshape(-1, 16))
+            out.append(d)
+        return out
+
     done = {}
     for key in sorted(seen, key=repr):
         kind, n = key[0], key[1]
         if kind == "dft":
             x = rand_monty((n, key[2]))
-            got, want = nk.dft(x, key[3]), nk.dft_plain(x, key[3])
+            got, want = nk.dft(x, key[3]), dft_plain(x, key[3])
         elif kind == "mod_matmul_axis":
             x = rand_monty((n, key[2]))
             both = [mx.limbs_on(n, inverse, x.device) for inverse in (False, True)]
@@ -484,7 +524,7 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             want = port.grind.verdicts_plain(0, n, pre, tail, key[3], key[4])
         elif kind == "keccak_compress_levels":
             d = rand_u32((n * 8 + key[3],))[key[3]:].view(n, 4, 2)
-            got, want = torch.cat(kk.compress_levels(d, key[2])), torch.cat(kk.compress_levels_plain(d, key[2]))
+            got, want = torch.cat(kk.compress_levels(d, key[2])), torch.cat(compress_levels_plain(d, key[2]))
         elif kind in ("keccak_absorb", "keccak_finalize"):
             flat = rand_u32((50 * n + key[-1],))
             state = flat[key[-1]:].view(50, n)
@@ -510,7 +550,7 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             if kind == "poseidon2_compress":
                 got, want = mod.compress(a, b), mod.compress_plain(a, b)
             else:
-                got, want = mod.hash_rows(a, b), mod.hash_rows_plain(a, b)
+                got, want = mod.hash_rows(a, b), rowwise(mod.hash_rows_plain, a, b)
         torch.cuda.synchronize()
         err = _max_abs_err(torch, got, want)
         if err != 0 or not torch.equal(got, want):
@@ -519,6 +559,12 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         entry[0] += 1
         entry[1] = max(entry[1], err)
     return done
+
+
+# phase 13's plain versions run on slices of at most this many rows (row-wise
+# ones) or elements (the plain NTT, by column slices)
+PLAIN_ROWS = 1 << 22
+PLAIN_ELEMS = 1 << 26
 
 
 # K2's timed shapes: config 4's chunk LDE, its iNTT and a quotient panel, and
@@ -1053,6 +1099,100 @@ def _phase20_zk_wide(torch, port, dev, seen, smi: str, log_k: int = 20):
     return line, launches
 
 
+def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: int = 25):
+    """BASELINE config 2 in low-memory mode: at 2^log_n, on one trace, one
+    prove with the levers off (``lowmem_log=0``) and one with them from the
+    JAX package's 2^24 committed rows (the main path: launch counts reset
+    just before it, read just after, its operand shapes noted), each with
+    its own peak; equal SHA-256 at the JAX package's length, verified; then
+    one prove at 2^log_top at the card's default threshold, which must
+    engage the levers there, verified.  Returns (line, launches)."""
+    import gc
+
+    t_phase = time.perf_counter()
+    kernels, pcs, lowmem = port.kernels, port.pcs, port.lowmem
+    air = port.FibonacciAir()
+    card_log = lowmem.default_log(dev)
+
+    def cfg(lowmem_log):
+        return port.create_config(port.create_benchmark_fri_params(1), zk=True, device=dev, lowmem_log=lowmem_log)
+
+    recomputes = []  # (rows, columns) of every released codeword's recompute
+    real_codeword = pcs._LazyLde.codeword
+
+    def codeword(mats):
+        recomputes.append((mats[0].shape[0], sum(m.shape[1] for m in mats)))
+        return real_codeword(mats)
+
+    def trace_of(log):
+        t0 = time.perf_counter()
+        trace = port.generate_trace_rows(0, 1, 1 << log)
+        return trace, time.perf_counter() - t0
+
+    def one(log, trace, lowmem_log):
+        pis = [0, 1, port.fibonacci_value(0, 1, 1 << log)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timings = {}
+        t0 = time.perf_counter()
+        proof = port.prove(cfg(lowmem_log), air, trace, pis, timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        blob = port.serialize_proof(proof)
+        t0 = time.perf_counter()
+        ok = port.verify(cfg(lowmem_log), air, port.deserialize_proof(blob), pis)
+        verify_s = time.perf_counter() - t0
+        if not ok:
+            raise AssertionError(f"config 2 n=2^{log} lowmem_log={lowmem_log}: the proof does not verify")
+        if proof.degree_bits != log or len(proof.opening_proof.query_proofs) != 100:
+            raise AssertionError(f"config 2 n=2^{log} lowmem_log={lowmem_log}: not a 100-query proof of 2^{log} rows")
+        phases = ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+        return blob, f"prove {wall:.3f}s ({phases}), peak {peak:.3f} GiB, verify {verify_s:.3f}s ok"
+
+    trace, trace_s = trace_of(log_n)
+    off_blob, off_note = one(log_n, trace, 0)
+    pcs._LazyLde.codeword = staticmethod(codeword)
+    try:
+        with _record_shapes(port, seen, "config2-lowmem"):
+            (on_blob, on_note), launches = _drive(kernels, lambda: one(log_n, trace, lowmem.LOWMEM_LOG), (
+                kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
+                kernels.KECCAK_GRIND))
+        n_on = len(recomputes)
+        del trace
+        if not n_on:
+            raise AssertionError(f"config 2 n=2^{log_n} lowmem_log={lowmem.LOWMEM_LOG}: no codeword released")
+        if on_blob != off_blob:
+            raise AssertionError(f"config 2 n=2^{log_n}: the proofs with the levers on and off differ")
+        length = _check_jax_length(f"config 2 2^{log_n}", on_blob)
+        trace, top_trace_s = trace_of(log_top)
+        top_blob, top_note = one(log_top, trace, None)
+        del trace
+        if len(recomputes) == n_on:
+            raise AssertionError(f"config 2 n=2^{log_top} at the card's threshold 2^{card_log}: no codeword released")
+    finally:
+        pcs._LazyLde.codeword = staticmethod(real_codeword)
+    # what a lazy salt's opening costs: the whole draw (JAX's materialize()[rows]) or the rows alone
+    draw = port.DeviceRng(1, "salts", dev).sample_lazy(1 << (log_n + 2), 4)
+    rows = torch.randint(0, 1 << (log_n + 2), (1024,), device=dev)
+    whole_ms = _cuda_ms(torch, lambda: draw.materialize()[rows], 2)
+    rows_ms = _cuda_ms(torch, lambda: draw.rows(rows), 5)
+    if not torch.equal(draw.rows(rows), draw.materialize()[rows]):
+        raise AssertionError("LazyMatrix.rows differs from materialize()[rows]")
+    used = {k: v for k, v in launches.items() if v}
+    line = (f"[21] config 2 low-memory mode (fib zk, device rng, benchmark FRI) on {smi}: n=2^{log_n} "
+            f"(trace generation {trace_s:.3f}s, one trace for both) levers off (lowmem_log=0): {off_note}; "
+            f"levers on (lowmem_log={lowmem.LOWMEM_LOG}, the JAX package's): {on_note}; the same SHA-256 "
+            f"{hashlib.sha256(on_blob).hexdigest()[:16]}..., {length}; {n_on} codeword recomputes "
+            f"(rows, columns) {recomputes[:n_on]}; launches {used}; 1024 rows of a (2^{log_n + 2}, 4) salt draw: "
+            f"{rows_ms:.3f} ms drawn alone vs {whole_ms:.3f} ms through the whole draw (CUDA events, equal); "
+            f"n=2^{log_top} at the card's default threshold 2^{card_log} (levers on; trace generation "
+            f"{top_trace_s:.3f}s): {top_note}, {len(recomputes) - n_on} codeword recomputes, proof {len(top_blob)} B "
+            f"(the port's own: no JAX log); phase 21 took {time.perf_counter() - t_phase:.3f}s")
+    return line, launches
+
+
 def main() -> int:
     import torch
 
@@ -1483,9 +1623,13 @@ def main() -> int:
     line, zk_launches = _phase20_zk_wide(torch, port, dev, seen, smi)
     print(line, flush=True)
 
+    # -- 21. config 2 in low-memory mode at 2^24 (levers off and on) and 2^25 ----------
+    line, lm_launches = _phase21_lowmem(torch, port, dev, seen, smi)
+    print(line, flush=True)
+
     # -- 13. every kernel vs plain at every shape of the main paths -------------
     path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
-                     **app_launches, "keccak-air-zk": zk_launches}
+                     **app_launches, "keccak-air-zk": zk_launches, "config2-lowmem": lm_launches}
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
         missing = [name for name, n in launches.items() if n > 0 and name not in noted]
@@ -1513,6 +1657,9 @@ def main() -> int:
         f"{' + ' + str(k[2]) if k[0] == 'keccak_absorb' else ''})"
         for k in sorted(seen) if k[0] in ("keccak_absorb", "keccak_finalize") and "keccak-air-zk" in seen[k])
     print(f"[13] K1's absorb at the zk wide prove's operands (pending + new words): {absorb_shapes}", flush=True)
+    lowmem_shapes = ", ".join(
+        f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] == {"config2-lowmem"} and k[0] != "grind_verdicts")
+    print(f"[13] operand shapes that only phase 21's prove gave: {lowmem_shapes}", flush=True)
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the main paths and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "

@@ -2,6 +2,7 @@
 """Timing tools for the PyTorch + CUDA port (``tpu_stark_torch``) on one GPU.
 
     python3 port_timing.py profile [--workload keccak|keccak-zk|chain|fib|config2] [--log-n N] [--tree DIR] [--reps 4]
+                                   [--lowmem-log N]
     python3 port_timing.py warm [--tree DIR | --pcs-from DIR] [--reps 4]
     python3 port_timing.py verify [--log-n 20] [--pcs-from DIR]
     python3 port_timing.py k2 [--tree DIR]
@@ -42,7 +43,14 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   prove's stream, and prints its calls, its stream time and its share of
   the profiled prove's device time and wall clock.  The
   profiler's own host cost lengthens the profiled wall clock, so the idle
-  share is an upper bound.  ``--tree DIR`` profiles DIR's
+  share is an upper bound.  Every prove's phases carry the peak device
+  memory allocated within each (``max_memory_allocated``, reset at each
+  phase boundary), so the phase that sets a prove's peak shows; the cold
+  prove runs under ``torch.cuda.memory``'s history, whose allocations
+  replayed give the tensors alive at its peak, largest first, with the
+  port's lines that allocated them.  ``--lowmem-log N`` passes
+  ``create_config(lowmem_log=N)`` to ``fib`` and ``config2`` (0: the
+  low-memory levers off).  ``--tree DIR`` profiles DIR's
   ``tpu_stark_torch`` (as for ``warm``).
 * ``warm``: one cold and ``reps`` warm proves each of fib_air zk at 2^20
   (Keccak stack) and the Poseidon2 chain at 2^18 x 493 (BASELINE config 3),
@@ -169,7 +177,33 @@ def _smi_line() -> str:
 
 
 def _phases(timings) -> str:
-    return ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
+    peak = getattr(timings, "peak", {})
+    return ", ".join(f"{k} {v:.3f}s" + (f" {peak[k]:.3f} GiB" if k in peak else "") for k, v in timings.items())
+
+
+class _PhasePeaks(dict):
+    """A prove's ``timings`` whose every entry also notes the peak device
+    memory allocated since the previous one (from an emptied cache and a
+    reset peak)."""
+
+    def __init__(self, torch, dev):
+        import gc
+
+        super().__init__()
+        self._torch, self._dev, self.peak = torch, dev, {}
+        torch.zeros(1, device=dev)  # the allocator's statistics exist once CUDA is initialized
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def __setitem__(self, phase, seconds):
+        super().__setitem__(phase, seconds)
+        self.peak[phase] = self._torch.cuda.max_memory_allocated(self._dev) / 2**30
+        self._torch.cuda.reset_peak_memory_stats(self._dev)
+
+    def top(self) -> str:
+        phase = max(self.peak, key=self.peak.get)
+        return f"peak {self.peak[phase]:.3f} GiB in {phase}"
 
 
 def _timed(torch, fn):
@@ -430,16 +464,17 @@ def profile(torch, dev, args) -> None:
         log_n = args.log_n or 20
         air, n = FibonacciAir(), 1 << log_n
         trace, pis = generate_trace_rows(0, 1, n), [0, 1, fibonacci_value(0, 1, n)]
+        levers = {} if args.lowmem_log is None else {"lowmem_log": args.lowmem_log}
         if args.workload == "fib":
-            label = f"fib 2^{log_n} zk (Keccak, smallrng) prove"
+            label = f"fib 2^{log_n} zk (Keccak, smallrng) {levers} prove"
 
             def config():
-                return create_config(zk=True, zk_rng="smallrng", zk_layout="tpu", device=dev)
+                return create_config(zk=True, zk_rng="smallrng", zk_layout="tpu", device=dev, **levers)
         else:
-            label = f"config 2 2^{log_n} (narrow_ntt='mxu') prove"
+            label = f"config 2 2^{log_n} (narrow_ntt='mxu') {levers} prove"
 
             def config():
-                return create_config(create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt="mxu")
+                return create_config(create_benchmark_fri_params(1), zk=True, device=dev, narrow_ntt="mxu", **levers)
 
         def run(timings):
             return prove(config(), air, trace, pis, timings=timings)
@@ -460,13 +495,21 @@ def profile(torch, dev, args) -> None:
             return prove_wide(config(), air, trace, [], timings=timings)
     walls = []
     for i in range(1 + args.reps):
-        timings = {}
+        timings = _PhasePeaks(torch, dev)
+        if i == 0:
+            torch.cuda.memory._record_memory_history(max_entries=1 << 21)
         _, s = _timed(torch, lambda: run(timings))
-        print(f"{label}: {'cold' if i == 0 else 'warm'} {s:.3f}s ({_phases(timings)})", flush=True)
+        print(f"{label}: {'cold (under the memory history)' if i == 0 else 'warm'} {s:.3f}s, {timings.top()} "
+              f"({_phases(timings)})", flush=True)
+        if i == 0:
+            snapshot = torch.cuda.memory._snapshot()
+            torch.cuda.memory._record_memory_history(enabled=None)
+            _print_peak_live_set(snapshot)
+            del snapshot
         walls.append(s)
     if args.reps:
         print(f"{label}: warm median {sorted(walls[1:])[args.reps // 2]:.3f}s of {args.reps}", flush=True)
-    profiled = {}
+    profiled = _PhasePeaks(torch, dev)
     with _Bounds() as bounds, _K1Launches(torch) as k1, _RngTime(torch) as rng, \
             torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, lambda: run(profiled))
@@ -554,6 +597,34 @@ def warm(torch, dev, args) -> None:
     for narrow, ws in walls.items():
         print(f"config 2 2^20 narrow_ntt={narrow!r}: warm median {sorted(ws)[len(ws) // 2]:.3f}s "
               f"of {len(ws)}", flush=True)
+
+
+def _print_peak_live_set(snapshot, top: int = 14) -> None:
+    """Replay a memory-history snapshot's allocations and frees; print the
+    tensors alive when the most bytes were, largest first, each with the
+    innermost frames of the port (this tree's or ``--tree``'s) that
+    allocated it."""
+    events = snapshot["device_traces"][0]
+
+    def replay(upto):
+        live, total, peak, peak_at = {}, 0, 0, 0
+        for i, ev in enumerate(events[:upto]):
+            if ev["action"] == "alloc":
+                live[ev["addr"]] = ev
+                total += ev["size"]
+                if total > peak:
+                    peak, peak_at = total, i + 1
+            elif ev["action"] in ("free_requested", "free_completed") and ev["addr"] in live:
+                total -= live.pop(ev["addr"])["size"]
+        return live, peak, peak_at
+
+    _, peak, peak_at = replay(len(events))
+    at_peak, _, _ = replay(peak_at)
+    print(f"history: {peak / 2**30:.3f} GiB allocated at the peak in {len(at_peak)} blocks; the largest:", flush=True)
+    for ev in sorted(at_peak.values(), key=lambda e: -e["size"])[:top]:
+        frames = [f"{f['filename'][f['filename'].rindex('tpu_stark_torch'):]}:{f['line']} {f['name']}"
+                  for f in ev.get("frames", []) if "tpu_stark_torch" in f["filename"]][:3]
+        print(f"  {ev['size'] / 2**30:.3f} GiB  {' < '.join(frames)}", flush=True)
 
 
 def verify_timing(torch, dev, args) -> None:
@@ -1580,6 +1651,8 @@ def main() -> int:
     parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, k5, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
+    parser.add_argument("--lowmem-log", type=int,
+                        help="profile (fib, config2): create_config(lowmem_log=N); 0 switches the levers off")
     parser.add_argument("--pcs-from", help="take TwoAdicFriPcs.open (warm) or also time .verify (verify) "
                         "from this directory's tree")
     args = parser.parse_args()

@@ -175,8 +175,9 @@ def test_create_config_defaults_equal_jax():
 
 def test_create_config_binds_arguments_as_jax_does():
     """The parameters the port shares with JAX's ``create_config`` have the
-    same names and defaults; JAX's ``backend`` and the port's ``device`` and
-    ``narrow_ntt`` are the only ones either lacks.  Only ``fri_params`` and
+    same names and defaults; JAX's ``backend`` and the port's ``device``,
+    ``narrow_ntt`` and ``lowmem_log`` (JAX's environment knob) are the only
+    ones either lacks.  Only ``fri_params`` and
     ``zk``, JAX's first two, bind by position, so a positional call written
     for JAX (third is ``backend``, fourth ``rng_seed``) raises."""
     import inspect
@@ -186,7 +187,7 @@ def test_create_config_binds_arguments_as_jax_does():
     mine = inspect.signature(create_config).parameters
     theirs = inspect.signature(j_create_config).parameters
     assert set(theirs) - set(mine) == {"backend"}
-    assert set(mine) - set(theirs) == {"device", "narrow_ntt"}
+    assert set(mine) - set(theirs) == {"device", "narrow_ntt", "lowmem_log"}
     for name in set(mine) & set(theirs):
         assert mine[name].default == theirs[name].default, name
     positional = [n for n, p in mine.items() if p.kind is p.POSITIONAL_OR_KEYWORD]

@@ -6,8 +6,11 @@
     python -m tpu_stark_torch.bench.prove chain [log_n]
     python -m tpu_stark_torch.bench.prove keccak-air [log_n] [test|bench] [reps] [poseidon2|keccak] [plain|zk]
 
-and two options: ``--narrow none|mxu`` (the NTT route of
-``create_config(narrow_ntt=...)``) and ``--device`` (default ``cuda``).
+and the options ``--narrow none|mxu`` (the NTT route of
+``create_config(narrow_ntt=...)``), ``--lowmem-log N``
+(``create_config(lowmem_log=N)``: the low-memory levers from 2^N committed
+rows; 0 switches them off; by default the card's own threshold,
+``commit/lowmem.py::default_log``) and ``--device`` (default ``cuda``).
 ``test`` = 2 queries, 1 PoW bit, blowup 4; ``bench`` = 100 queries, 16 PoW
 bits, blowup 2.  ``keccak-air``'s stack and mode default to
 ``bench_keccak_air.py``'s (Poseidon2, zk off); ``keccak zk`` is the
@@ -19,7 +22,8 @@ JSON object with the JAX scripts' field names and ``metric`` strings
 (``value`` is the fastest warm sample in seconds; ``reps`` 0 reports the
 cold run), with ``trace_cols``, ``peak_hbm_gb`` (the allocator's peak over
 the warm proves, or the cold one at ``reps`` 0), ``device`` (the card's
-name and power limit from ``nvidia-smi``) and ``narrow``.  Every sample
+name and power limit from ``nvidia-smi``), ``narrow`` and ``lowmem_log``
+(the threshold the run used).  Every sample
 ends in ``torch.cuda.synchronize()``; the proof must verify.
 """
 
@@ -37,6 +41,7 @@ import torch
 from ..air import keccak_air, poseidon2_air
 from ..air.fibonacci import FibonacciAir, generate_trace_rows
 from ..backend.policy import card_label
+from ..commit import lowmem
 from ..fri.config import create_benchmark_fri_params, create_test_fri_params
 from ..prover.config import create_config
 from ..prover.proof import serialize_proof
@@ -108,7 +113,7 @@ def _fib(a, dev, narrow) -> Dict:
     fri = _fri(a.params)
 
     def config():
-        return create_config(fri, zk=zk, hash=a.hash, device=dev, narrow_ntt=narrow)
+        return create_config(fri, zk=zk, hash=a.hash, device=dev, narrow_ntt=narrow, lowmem_log=a.lowmem_log)
 
     t0 = time.perf_counter()
     trace = generate_trace_rows(0, 1, 1 << a.log_n)
@@ -123,7 +128,7 @@ def _fib(a, dev, narrow) -> Dict:
 
 def _chain(a, dev, narrow) -> Dict:
     def config():
-        return create_config(zk=False, hash="poseidon2", device=dev, narrow_ntt=narrow)
+        return create_config(zk=False, hash="poseidon2", device=dev, narrow_ntt=narrow, lowmem_log=a.lowmem_log)
 
     t0 = time.perf_counter()
     trace, pis = poseidon2_air.generate_trace(1 << a.log_n, list(range(16)), device=dev)
@@ -140,7 +145,7 @@ def _keccak_air(a, dev, narrow) -> Dict:
     zk = a.mode == "zk"
 
     def config():
-        return create_config(fri, zk=zk, hash=a.hash, device=dev, narrow_ntt=narrow)
+        return create_config(fri, zk=zk, hash=a.hash, device=dev, narrow_ntt=narrow, lowmem_log=a.lowmem_log)
 
     n = 1 << a.log_n
     t0 = time.perf_counter()
@@ -159,6 +164,9 @@ def parser() -> argparse.ArgumentParser:
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--narrow", choices=sorted(NARROW), default="none",
                         help="NTT route for tall narrow matrices (create_config(narrow_ntt=...))")
+    common.add_argument("--lowmem-log", type=int,
+                        help="log2 of the committed height from which the low-memory levers engage; 0: off "
+                        "(default: the card's, create_config's)")
     common.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     p = argparse.ArgumentParser(prog="python -m tpu_stark_torch.bench.prove")
     sub = p.add_subparsers(dest="workload", required=True)
@@ -183,13 +191,15 @@ def main(argv: Optional[list] = None) -> Dict:
     """Run one twin and print its lines; returns the JSON object."""
     a = parser().parse_args(argv)
     dev = torch.device(a.device)
+    if a.lowmem_log is None:
+        a.lowmem_log = lowmem.default_log(dev)
     narrow = NARROW[a.narrow]
     run = {"fib": _fib, "chain": _chain, "keccak-air": _keccak_air}[a.workload]
     out = run(a, dev, narrow)
     keys = ("metric", "value", "unit", "samples", "tracegen_s", "first_run_s", "verify_s",
             "proof_bytes", "trace_cols", "peak_hbm_gb")
     result = {k: out[k] for k in keys}
-    result.update(device=card_label(dev), narrow=a.narrow)
+    result.update(device=card_label(dev), narrow=a.narrow, lowmem_log=a.lowmem_log)
     print(json.dumps(result), flush=True)
     return result
 

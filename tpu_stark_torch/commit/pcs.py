@@ -14,6 +14,10 @@ hiding (counterpart of ``tpu_stark/commit/pcs.py``).
   commit per level, grind, and answer the queries with Merkle openings.
 * hiding (``num_random_codewords > 0``): a commitment of random codewords is
   mixed into the batch.
+* low-memory mode (``commit/lowmem.py``): a codeword whose LDE height is at
+  or above ``lowmem_log`` is released once its tree is built; every later
+  reader recomputes it from the stored coefficients (``_LazyLde``), once a
+  reader.
 
 Frame convention: every committed codeword is relabeled onto the plain
 subgroup (rows of height H live at y = g_H^bitrev(i)); out-of-domain points
@@ -38,8 +42,9 @@ from ..fields import extension as ext4
 from ..fields import ref_field as rf
 from ..fri.config import FriParameters
 from ..fri.domains import ExtPoint, TwoAdicCoset
-from ..matrix import bit_reversal_perm_device, log2_strict, reverse_matrix_index_bits
+from ..matrix import bit_reversal_perm_device, log2_strict, reverse_bits_device, reverse_matrix_index_bits
 from ..ntt.dft import Dft
+from . import lowmem
 from .merkle import BatchOpening, Digest, MerkleTreeMmcs
 
 
@@ -227,6 +232,44 @@ def _fold_codeword(cw: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torc
     return ext4.add(half_sum, ext4.mul(beta_dev[None, :], half_diff))
 
 
+class _LazyLde:
+    """Stand-in for a released committed codeword: its h-row plain-frame
+    coefficients, from which each reader recomputes the (lde_h, w) LDE
+    with one transform (K2, or K5 on the narrow route) of the zero-padded
+    coefficients.  A kernel failure propagates."""
+
+    def __init__(self, r_small: torch.Tensor, lde_h: int, dft: Dft):
+        self._rc = r_small
+        self._dft = dft
+        self.shape = (lde_h, int(r_small.shape[1]))
+
+    @staticmethod
+    def codeword(mats: Sequence["_LazyLde"]) -> torch.Tensor:
+        """The natural-order codewords of released matrices of one LDE
+        height, side by side, recomputed in one transform."""
+        rc = mats[0]._rc if len(mats) == 1 else torch.cat([m._rc for m in mats], dim=1)
+        r_pad = torch.zeros((mats[0].shape[0], int(rc.shape[1])), dtype=bb.I32, device=rc.device)
+        r_pad[: rc.shape[0]] = rc
+        del rc
+        return mats[0]._dft.dft_batch(r_pad)
+
+    def rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` of the bit-reversed codeword."""
+        return self.codeword([self])[reverse_bits_device(idx, log2_strict(self.shape[0]))]
+
+    def evals_strided(self, stride: int) -> torch.Tensor:
+        """Every ``stride``-th row of the natural-order codeword."""
+        return self.codeword([self])[::stride].contiguous()
+
+
+def _codeword_br(mats: Sequence) -> torch.Tensor:
+    """The bit-reversed codewords of one height's matrices side by side: the
+    committed ones as they are, released ones recomputed together."""
+    if isinstance(mats[0], _LazyLde):
+        return reverse_matrix_index_bits(_LazyLde.codeword(mats))
+    return mats[0] if len(mats) == 1 else torch.cat(list(mats), dim=1)
+
+
 # ---------------------------------------------------------------------------
 # The PCS
 # ---------------------------------------------------------------------------
@@ -240,6 +283,8 @@ class TwoAdicFriPcs:
         num_random_codewords: int = 0,
         rng: Optional[SmallRng] = None,
         zk_layout: str = "tpu",
+        *,
+        lowmem_log: int = lowmem.LOWMEM_LOG,
     ):
         self.dft = dft
         self.device = dft.device
@@ -254,6 +299,8 @@ class TwoAdicFriPcs:
         if zk_layout not in ("tpu", "p3"):
             raise ValueError(f"unknown zk_layout {zk_layout!r}")
         self.zk_layout = zk_layout
+        # codewords at least this tall are released after their commit (0: never)
+        self.lowmem_rows = lowmem.lowmem_rows(lowmem_log)
 
     def natural_domain_for_degree(self, degree: int) -> TwoAdicCoset:
         return TwoAdicCoset(log2_strict(degree), 1)
@@ -266,8 +313,10 @@ class TwoAdicFriPcs:
     ) -> Tuple[Digest, PcsProverData]:
         """Commit bit-reversed coset LDEs of the given evaluation matrices
         (Monty, natural row order on their domain).  Matrices on the same
-        domain size share one (h, sum of widths) transform."""
-        items = list(domains_and_evals)
+        domain size share one (h, sum of widths) transform.  A list
+        argument is taken over: each group's evals leave it before the
+        group's transforms, so that the caller's list does not keep them."""
+        items = domains_and_evals if isinstance(domains_and_evals, list) else list(domains_and_evals)
         if _randomize and self.num_random_codewords > 0 and self.zk_layout == "p3":
             items = [
                 (
@@ -298,13 +347,16 @@ class TwoAdicFriPcs:
         for log_n, ks in groups.items():
             h = 1 << log_n
             lde_h = h << self.fri.log_blowup
-            wide = torch.cat([items[k][1] for k in ks], dim=1)
+            wide = items[ks[0]][1] if len(ks) == 1 else torch.cat([items[k][1] for k in ks], dim=1)
+            for k in ks:
+                items[k] = (domains[k], None)
             q_coeffs = self.dft.idft_batch(wide)
+            del wide
             # committed codeword = q on (GEN/shift)*K relabeled to the plain
             # frame: r(y) = q(sigma * y), a per-column coefficient scale
             sig = torch.cat(
                 [
-                    bb.powers(bb.GENERATOR * rf.finv(items[k][0].shift) % bb.P, h, wide.device)[
+                    bb.powers(bb.GENERATOR * rf.finv(domains[k].shift) % bb.P, h, q_coeffs.device)[
                         :, None
                     ].expand(h, widths[k])
                     for k in ks
@@ -312,7 +364,7 @@ class TwoAdicFriPcs:
                 dim=1,
             )
             r_small = bb.mul_canonical(q_coeffs, sig)
-            del q_coeffs, sig, wide
+            del q_coeffs, sig
             r_pad = torch.zeros((lde_h, r_small.shape[1]), dtype=bb.I32, device=r_small.device)
             r_pad[:h] = r_small
             codeword_br = reverse_matrix_index_bits(self.dft.dft_batch(r_pad))
@@ -323,7 +375,14 @@ class TwoAdicFriPcs:
                 ldes_br[k] = codeword_br[:, off : off + w].contiguous()
                 r_coeffs[k] = r_small[:, off : off + w].contiguous()
                 off += w
+            # the split columns of a group of several matrices are copies
+            del codeword_br, r_small
         root, merkle_data = self.val_mmcs.commit(ldes_br)
+        del ldes_br
+        for k, domain in enumerate(domains):
+            lde_h = domain.size << self.fri.log_blowup
+            if lowmem.engaged(self.lowmem_rows, lde_h):
+                merkle_data.matrices[k] = _LazyLde(r_coeffs[k], lde_h, self.dft)
         return root, PcsProverData(merkle_data, r_coeffs, domains, widths)
 
     def get_evaluations_on_domain(
@@ -339,6 +398,8 @@ class TwoAdicFriPcs:
             raise ValueError(f"domain shift {domain.shift} not the LDE coset {expected_shift}")
         stride = lde_h // domain.size
         mat = data.merkle.matrices[idx]
+        if isinstance(mat, _LazyLde):
+            return mat.evals_strided(stride)
         rows = bit_reversal_perm_device(log2_strict(lde_h), mat.device)[::stride]
         return mat[rows]
 
@@ -417,7 +478,8 @@ class TwoAdicFriPcs:
                 streamed = hasattr(job[1], "reduced_contrib") or (
                     groups and hasattr(groups[-1][-1][1], "reduced_contrib")
                 )
-                if groups and job[0] is not None and groups[-1][-1][0] == job[0] and not streamed:
+                if (groups and job[0] is not None and groups[-1][-1][0] == job[0] and not streamed
+                        and isinstance(job[1], _LazyLde) == isinstance(groups[-1][-1][1], _LazyLde)):
                     groups[-1].append(job)
                 else:
                     groups.append([job])
@@ -426,7 +488,8 @@ class TwoAdicFriPcs:
                 z_y = grp[0][0]
                 w_total = sum(g[3] for g in grp)
                 apows = _alpha_pows_dev(alpha, off, w_total, dev)
-                mat = grp[0][1] if len(grp) == 1 else torch.cat([g[1] for g in grp], dim=1)
+                # a group's released codewords are recomputed once, together
+                mat = grp[0][1] if hasattr(grp[0][1], "reduced_contrib") else _codeword_br([g[1] for g in grp])
                 if z_y is None:
                     contrib = _combine_columns(mat, apows)
                 elif hasattr(mat, "reduced_contrib"):
@@ -434,6 +497,7 @@ class TwoAdicFriPcs:
                 else:
                     p_z = torch.cat([g[2] for g in grp], dim=0)
                     contrib = _reduced_quotient(mat, apows, p_z, ext4.scalar(z_y, dev), y_br)
+                del mat
                 ro[log_h] = ext4.add(ro[log_h], contrib)
                 off += w_total
 

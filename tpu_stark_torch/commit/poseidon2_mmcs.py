@@ -62,7 +62,11 @@ def compress_host(left: Sequence[int], right: Sequence[int]) -> FieldDigest:
 class Poseidon2Mmcs(MerkleTreeMmcs):
     """Field-native Merkle MMCS (p3 MerkleTreeMmcs over Poseidon2); the
     hiding variant salts rows from a persistent SmallRng like the Keccak
-    MMCS."""
+    MMCS.  Its dense commit keeps every salt and layer at any height, as the
+    JAX package's does; a released codeword (``pcs._LazyLde``) opens
+    through the shared ``open_batch_many``."""
+
+    DENSE_LOWMEM = False
 
     @staticmethod
     def leaf_layer(mats: Sequence[torch.Tensor]) -> torch.Tensor:

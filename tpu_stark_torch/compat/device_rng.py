@@ -17,8 +17,9 @@ the JAX package's:
 ``DeviceRng(seed, stream)`` folds in ``crc32(stream)`` (when ``stream`` is
 not empty) and then one call counter per sample, as JAX does.
 ``sample_lazy`` advances the counter but returns a ``LazyMatrix``, the
-sample's key and shape, which regenerates the same values on demand (a
-hiding commit keeps it instead of the salts).  A sample is
+sample's key and shape, which regenerates the same values on demand, the
+whole matrix or only some of its rows (a hiding commit keeps it instead of
+the salts, and its openings draw the opened rows alone).  A sample is
 the Monty value ``(hi * 2^32 + lo) mod p`` of two 32-bit draws.  Threefry
 is XLA, not Pallas, in the JAX package: here it is plain torch elementwise
 work on the sample's device.
@@ -82,23 +83,42 @@ def _flat_index(rows: int, cols: int, sel, device) -> torch.Tensor:
     return torch.arange(rows, dtype=torch.int64, device=device)[:, None] * cols + sel[None, :]
 
 
-def random_bits(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
-    """``jax.random.bits(k, (rows, cols), uint32)`` as int64 u32 values, or
-    only its columns ``sel``: each value hashes its own flat index, so a
-    column costs the same whether the others are drawn or not."""
-    i = _flat_index(rows, cols, sel, device)
+def _bits_at(k: Key, i: torch.Tensor) -> torch.Tensor:
+    """The u32 values (int64) that ``jax.random.bits`` draws under ``k`` at
+    the flat indices ``i``: each value hashes its own index."""
     b0, b1 = threefry2x32(k, i >> 32, i & _M32)
     return b0 ^ b1
 
 
-def _sample_monty(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
-    """(rows, cols) int32 Monty residues (hi * 2^32 + lo) mod p, from two
-    draws under the two halves of ``split(k)``; only the columns ``sel`` of
-    that matrix when given."""
+def random_bits(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
+    """``jax.random.bits(k, (rows, cols), uint32)`` as int64 u32 values, or
+    only its columns ``sel``: each value hashes its own flat index, so a
+    column costs the same whether the others are drawn or not."""
+    return _bits_at(k, _flat_index(rows, cols, sel, device))
+
+
+def _monty_at(k: Key, i: torch.Tensor) -> torch.Tensor:
+    """int32 Monty residues (hi * 2^32 + lo) mod p at the flat indices
+    ``i``, from two draws under the two halves of ``split(k)``."""
     k_hi, k_lo = split(k)
-    hi = random_bits(k_hi, rows, cols, device, sel)
-    lo = random_bits(k_lo, rows, cols, device, sel)
-    return ((hi * _TWO32_MOD_P + lo) % bb.P).to(torch.int32)
+    return ((_bits_at(k_hi, i) * _TWO32_MOD_P + _bits_at(k_lo, i)) % bb.P).to(torch.int32)
+
+
+# a draw runs in row blocks of at most this many elements: the plain
+# Threefry holds about eight int64 temporaries of a block's size at once
+_DRAW_ELEMS = 1 << 24
+
+
+def _sample_monty(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
+    """(rows, cols) int32 Monty residues of the sample under ``k``; only the
+    columns ``sel`` of that matrix when given."""
+    idx = _flat_index(1, cols, sel, device)  # the first row's flat indices
+    out = torch.empty((rows, int(idx.shape[1])), dtype=torch.int32, device=device)
+    step = max(1, _DRAW_ELEMS // max(1, int(idx.shape[1])))
+    for r0 in range(0, rows, step):
+        r = torch.arange(r0, min(rows, r0 + step), dtype=torch.int64, device=device)
+        out[r0 : r0 + step] = _monty_at(k, r[:, None] * cols + idx)
+    return out
 
 
 class LazyMatrix:
@@ -112,6 +132,13 @@ class LazyMatrix:
 
     def materialize(self) -> torch.Tensor:
         return _sample_monty(self._key, *self.shape, self.device)
+
+    def rows(self, idx) -> torch.Tensor:
+        """``materialize()[idx]``, bit for bit, drawing only those rows:
+        (len(idx), cols) for any int64 row indices, repeats included."""
+        cols = self.shape[1]
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        return _monty_at(self._key, idx[:, None] * cols + torch.arange(cols, dtype=torch.int64, device=self.device))
 
 
 class DeviceRng:

@@ -27,13 +27,17 @@ def bit_reversal_perm(log_n: int) -> np.ndarray:
     return rev
 
 
-def bit_reversal_perm_device(log_n: int, device) -> torch.Tensor:
-    """``bit_reversal_perm`` as an int64 tensor built on ``device``."""
-    idx = torch.arange(1 << log_n, dtype=torch.int64, device=device)
+def reverse_bits_device(idx: torch.Tensor, log_n: int) -> torch.Tensor:
+    """The low ``log_n`` bits of each int64 index reversed."""
     rev = torch.zeros_like(idx)
     for b in range(log_n):
         rev |= ((idx >> b) & 1) << (log_n - 1 - b)
     return rev
+
+
+def bit_reversal_perm_device(log_n: int, device) -> torch.Tensor:
+    """``bit_reversal_perm`` as an int64 tensor built on ``device``."""
+    return reverse_bits_device(torch.arange(1 << log_n, dtype=torch.int64, device=device), log_n)
 
 
 def reverse_matrix_index_bits(mat: torch.Tensor) -> torch.Tensor:

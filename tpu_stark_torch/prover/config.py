@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from ..challenger.challenger import Challenger
+from ..commit import lowmem
 from ..commit.merkle import MerkleTreeMmcs
 from ..commit.poseidon2_mmcs import DuplexChallenger, Poseidon2Mmcs
 from ..commit.pcs import TwoAdicFriPcs
@@ -61,6 +62,7 @@ def create_config(
     zk_layout: str = "tpu",
     device="cuda",
     narrow_ntt=None,
+    lowmem_log: Optional[int] = None,
 ) -> StarkConfig:
     """Assemble a full config on ``device`` (the card unless the caller
     passes another device, as the CPU tests do).
@@ -73,6 +75,11 @@ def create_config(
     the device, as in the JAX package) or ``"smallrng"`` (the reference's
     host stream).  ``narrow_ntt``: ``None`` (every NTT on K2) or ``"mxu"``
     (tall narrow NTTs on the limb-matmul route, K5; the same proof bytes).
+    ``lowmem_log``: the low-memory levers (``commit/lowmem.py``) engage at
+    committed heights of 2^lowmem_log rows and above; ``0`` switches them
+    off; ``None`` takes ``lowmem.default_log(device)``, the JAX package's
+    2^24 scaled by the card's memory (2^24 on the CPU).  The bytes are the
+    same either way.
     The sharded ``mesh`` path is not ported yet and raises.
 
     Every parameter after ``zk`` is keyword-only: the JAX package's third
@@ -90,6 +97,8 @@ def create_config(
     device = torch.device(device)
     fri = fri_params if fri_params is not None else create_test_fri_params(2)
     dft = Dft(device, narrow=narrow_ntt)
+    if lowmem_log is None:
+        lowmem_log = lowmem.default_log(device)
     if zk:
         # the salt stream and the codeword stream are independently seeded
         # rngs, as in the reference; the device stream also separates them
@@ -97,14 +106,16 @@ def create_config(
         pcs = TwoAdicFriPcs(
             dft,
             fri,
-            val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed, "salts", device)),
-            challenge_mmcs=mmcs_cls(),
+            val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed, "salts", device), lowmem_log=lowmem_log),
+            challenge_mmcs=mmcs_cls(lowmem_log=lowmem_log),
             num_random_codewords=4,
             rng=make_zk_rng(zk_rng, rng_seed, "codewords", device),
             zk_layout=zk_layout,
+            lowmem_log=lowmem_log,
         )
     else:
-        pcs = TwoAdicFriPcs(dft, fri, val_mmcs=mmcs_cls(), challenge_mmcs=mmcs_cls())
+        pcs = TwoAdicFriPcs(dft, fri, val_mmcs=mmcs_cls(lowmem_log=lowmem_log),
+                            challenge_mmcs=mmcs_cls(lowmem_log=lowmem_log), lowmem_log=lowmem_log)
     return StarkConfig(
         pcs=pcs, zk=zk, rng_seed=rng_seed, challenger_factory=challenger_factory,
         zk_rng=zk_rng, device=device,

@@ -171,8 +171,10 @@ def prove(
         committed_domain = trace_domain
         committed_evals = trace_dev
     mark("trace_lde")
-    trace_commit, trace_data = pcs.commit([(committed_domain, committed_evals)])
+    # commit takes the list over: the evals go before their transforms
+    trace_items = [(committed_domain, committed_evals)]
     del committed_evals
+    trace_commit, trace_data = pcs.commit(trace_items)
     mark("trace_commit")
 
     challenger.observe_u32(log_n)
@@ -194,10 +196,9 @@ def prove(
     mark("quotient")
 
     chunk_domains = quotient_domain.split_domains(qd)
-    chunks = [quotient_vals[i::qd] for i in range(qd)]  # (n, 4) base mats
+    chunk_items = [(d, quotient_vals[i::qd]) for i, d in enumerate(chunk_domains)]  # (n, 4) base mats
     del quotient_vals
-    quotient_commit, quotient_data = pcs.commit(list(zip(chunk_domains, chunks)))
-    del chunks
+    quotient_commit, quotient_data = pcs.commit(chunk_items)
     mark("quotient_commit")
 
     # -- 3. open at zeta ---------------------------------------------------
