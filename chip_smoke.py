@@ -121,9 +121,22 @@ line each, any failure an uncaught exception and a nonzero exit:
     gather, timed and equal; and the phase's own wall clock; the warm
     numbers come from the twins (``python -m tpu_stark_torch.bench.prove
     fib 24 keccak zk 1 bench --lowmem-log 0|24``);
+22. the sharded prover (``tpu_stark_torch/dist``) through
+    ``dist/dryrun.py``'s runner, one process a rank: (a) config 2 at 2^20
+    over an NCCL group of min(cards, 4) ranks, (b) BASELINE config 5, fib
+    zk at 2^24 with config 2's benchmark FRI, over four gloo ranks on
+    cuda:0 (host-staged), each equal on every rank to phase 16's and phase
+    21's single-device SHA-256 and verified, with every rank's wall clock,
+    peak device memory, bytes sent and seconds spent by collective, staged
+    bytes, K1/K2 launches and transport; (c) the dry run
+    (``dryrun_multichip(4, device="cuda", backend="gloo")``'s checks, each
+    rank through a worker that counts its launches, K3 included); the
+    ranks load the library phase 1 built and return their kernels' operand
+    shapes for phase 13;
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
-    phase 17's runs, phase 20's prove and phase 21's 2^24 prove with the levers
+    phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
+    the ranks of phase 22 (a), (b) and (c)
     (the query blocks' leaf and compress layers, the recomputed
     transforms) called its wrapper with (the plain versions on slices of
     at most 2^22 rows or 2^26 elements), printing the shapes only phase 21
@@ -141,8 +154,8 @@ line each, any failure an uncaught exception and a nonzero exit:
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the main paths: the five warm proves, phase 17's five runs, phase 20's prove and phase 21's
-2^24 prove with the levers; time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
+summed over the main paths: the five warm proves, phase 17's five runs, phase 20's prove, phase 21's
+2^24 prove with the levers and every rank of phase 22 (a) and (b); time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -214,6 +227,11 @@ JAX_PROOF_BYTES = {
     "config 2 2^20": (1188316, "_r5_logs/prove_2p20_r5.log:178"),
     "config 2 2^24": (1589260, "_r5_logs/prove_2p24_r5.log:157"),
 }
+
+
+# SHA-256 of the single-device proofs that phase 22's sharded proofs must
+# equal: config 2 at 2^20 (phase 16) and at 2^24 (phase 21)
+SINGLE_DEVICE_SHA256 = {}
 
 
 def _check_jax_length(label: str, blob: bytes) -> str:
@@ -374,6 +392,7 @@ def import_port():
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
     from tpu_stark_torch.commit import lowmem, pcs
     from tpu_stark_torch.compat import native
+    from tpu_stark_torch.dist import dryrun
     from tpu_stark_torch.fields import babybear as bb
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
     from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel, sponge
@@ -860,6 +879,7 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
     if blobs["config2-mxu"] != blobs["config2-k2"]:
         raise AssertionError(f"config 2 n=2^{log_n}: the mxu and K2 routes' proofs differ")
     c2_len = _check_jax_length(f"config 2 2^{log_n}", blobs["config2-mxu"])
+    SINGLE_DEVICE_SHA256[f"config 2 2^{log_n}"] = hashlib.sha256(blobs["config2-mxu"]).hexdigest()
     proof = port.deserialize_proof(blobs["config2-mxu"])
     t0 = time.perf_counter()
     ok = port.verify(c, air, proof, pis)
@@ -1166,6 +1186,7 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
         if on_blob != off_blob:
             raise AssertionError(f"config 2 n=2^{log_n}: the proofs with the levers on and off differ")
         length = _check_jax_length(f"config 2 2^{log_n}", on_blob)
+        SINGLE_DEVICE_SHA256[f"config 2 2^{log_n}"] = hashlib.sha256(on_blob).hexdigest()
         trace, top_trace_s = trace_of(log_top)
         top_blob, top_note = one(log_top, trace, None)
         del trace
@@ -1191,6 +1212,144 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
             f"{top_trace_s:.3f}s): {top_note}, {len(recomputes) - n_on} codeword recomputes, proof {len(top_blob)} B "
             f"(the port's own: no JAX log); phase 21 took {time.perf_counter() - t_phase:.3f}s")
     return line, launches
+
+
+SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind")
+# the dry run's proves use the test FRI, whose 1-bit grind is host work
+DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge")
+
+
+def _phase22_rank(mesh, path: str, log_n: int, trace_path):
+    """One rank of phase 22: config 2 (benchmark FRI) at 2^log_n on the
+    mesh through ``dist.dryrun.prove_fib``, the operand shapes of its
+    kernel wrappers noted under ``path``.  The rank loads the library the
+    parent built: a missing or stale one fails it before any build."""
+    port = _rank_port()
+    seen = {}
+    port.kernels.reset_launch_counts()
+    with _record_shapes(port, seen, path):
+        out = port.dryrun.prove_fib(mesh, log_n, trace_path=trace_path, benchmark_fri=True)
+    out["launches"] = {k.name: k.launches for k in port.kernels.ALL if k.launches}
+    out["shapes"] = [(key, sorted(paths)) for key, paths in seen.items()]
+    return out
+
+
+def _phase22_dryrun_rank(mesh, log_n: int):
+    """One rank of phase 22's dry run (``dist.dryrun.dryrun_rank``): its
+    check lines, its kernel launches (counts reset just before, read just
+    after) and its kernels' operand shapes under the path "dryrun"."""
+    port = _rank_port()
+    seen = {}
+    port.kernels.reset_launch_counts()
+    with _record_shapes(port, seen, "dryrun"):
+        lines = port.dryrun.dryrun_rank(mesh, log_n)
+    return {"rank": mesh.rank, "lines": lines,
+            "launches": {k.name: k.launches for k in port.kernels.ALL if k.launches},
+            "shapes": [(key, sorted(paths)) for key, paths in seen.items()]}
+
+
+def _rank_port():
+    """The port in a rank of phase 22, which loads the library the parent
+    built: a missing or stale one fails the rank before any build."""
+    port = import_port()
+    if not port.kernels.up_to_date():
+        raise RuntimeError("the kernel library is missing or stale: a rank would start an nvcc build")
+    return port
+
+
+def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: int = 24):
+    """The sharded prover through ``dist/dryrun.py``'s runner: (a) config 2
+    at 2^log_a over an NCCL group of min(cards, 4) ranks, (b) BASELINE
+    config 5 (fib_air zk at 2^log_b, config 2's benchmark FRI) over four
+    gloo ranks on this card, host-staged, (c) the dry run over four gloo
+    ranks at its default depth.  (a) and (b) must give phase 16's and phase
+    21's single-device SHA-256 on every rank and verify; every rank of
+    (a) and (b) must launch K1, K2 and the grind, and of (c) K1, K2 and K3 (counts
+    reset just before the part's work, read just after), and returns its
+    kernels' operand shapes for phase 13.
+    Returns (line, {path: launches summed over the ranks})."""
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    dryrun = port.dryrun
+    air = port.FibonacciAir()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def check(label, per_rank, log_n):
+        want = SINGLE_DEVICE_SHA256[f"config 2 2^{log_n}"]
+        for r in per_rank:
+            if r["sha256"] != want:
+                raise AssertionError(f"{label}: rank {r['rank']}'s proof is not the single-device proof")
+            missing = [k for k in SHARDED_KERNELS if r["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"{label}: rank {r['rank']} did not launch {missing}")
+            for key, paths in r["shapes"]:
+                seen.setdefault(key, set()).update(paths)
+        blob = per_rank[0]["blob"]
+        length = _check_jax_length(f"config 2 2^{log_n}", blob)
+        pis = [0, 1, port.fibonacci_value(0, 1, 1 << log_n)]
+        cfg = port.create_config(port.create_benchmark_fri_params(1), zk=True, device=dev)
+        t0 = time.perf_counter()
+        if not port.verify(cfg, air, port.deserialize_proof(blob), pis):
+            raise AssertionError(f"{label}: the sharded proof does not verify")
+        verify_s = time.perf_counter() - t0
+        launches = {k.name: 0 for k in port.kernels.ALL}
+        for r in per_rank:
+            for k, v in r["launches"].items():
+                launches[k] += v
+        notes = []
+        for r in per_rank:
+            sent = ", ".join(f"{k} {v}" for k, v in sorted(r["sent"].items()) if v)
+            notes.append(
+                f"rank {r['rank']} ({r['device']}, {r['transport']}): wall {r['wall_s']:.3f}s "
+                f"({', '.join(f'{k} {v:.3f}s' for k, v in r['phases'].items())}), peak {r['peak_gib']:.3f} GiB, "
+                f"sent B by collective {{{sent}}}, staged {r['staged']} B, {sum(r['comm_s'].values()):.3f}s in "
+                f"collectives ({', '.join(f'{k} {v:.3f}' for k, v in sorted(r['comm_s'].items()))}), "
+                f"K1 {r['launches'].get('keccak_sponge', 0)}"
+                f" + {r['launches'].get('keccak_tree', 0)}, K2 {r['launches'].get('ntt_pass0', 0)}"
+                f" + {r['launches'].get('ntt_pass', 0)} launches")
+        return (f"{label}: every rank's SHA-256 {want[:16]}... = the single-device proof's, {length}; verify "
+                f"{verify_s:.3f}s ok; " + "; ".join(notes)), launches
+
+    n_a = min(torch.cuda.device_count(), 4)
+    t0 = time.perf_counter()
+    res_a = dryrun.run_ranks(n_a, _phase22_rank, "config2-nccl", log_a, None, backend="nccl", device="cuda",
+                             timeout=300)
+    line_a, launches_a = check(f"(a) config 2 2^{log_a} over {n_a} NCCL rank(s)", res_a, log_a)
+    line_a += f"; (a) took {time.perf_counter() - t0:.3f}s"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ts_phase22_") as tmp:
+        trace_path = os.path.join(tmp, "trace.npy")
+        np.save(trace_path, port.generate_trace_rows(0, 1, 1 << log_b))
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_b = dryrun.run_ranks(4, _phase22_rank, "config5-sharded", log_b, trace_path, backend="gloo",
+                                 device="cuda:0", timeout=600)
+    line_b, launches_b = check(f"(b) BASELINE config 5 (fib zk 2^{log_b}, benchmark FRI) over 4 gloo ranks on "
+                               f"cuda:0", res_b, log_b)
+    line_b += f"; (b) took {time.perf_counter() - t0:.3f}s after {trace_s:.3f}s of trace generation"
+    t0 = time.perf_counter()
+    res_c = dryrun.run_ranks(4, _phase22_dryrun_rank, 10, backend="gloo", device="cuda", timeout=300)
+    lines_c = dryrun.same_checks([r["lines"] for r in res_c])
+    launches_c = {k.name: 0 for k in port.kernels.ALL}
+    for r in res_c:
+        missing = [k for k in DRYRUN_KERNELS if r["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"(c) dry run: rank {r['rank']} did not launch {missing}")
+        for k, v in r["launches"].items():
+            launches_c[k] += v
+        for key, paths in r["shapes"]:
+            seen.setdefault(key, set()).update(paths)
+    used_c = {k: v for k, v in launches_c.items() if v}
+    line_c = (f"(c) dry run over 4 gloo ranks on the card: {'; '.join(lines_c)}; launches over the ranks {used_c}; "
+              f"(c) took {time.perf_counter() - t0:.3f}s")
+    line = (f"[22] the sharded prover on {smi}: {line_a}; {line_b}; {line_c}; phase 22 took "
+            f"{time.perf_counter() - t_phase:.3f}s")
+    return line, {"config2-nccl": launches_a, "config5-sharded": launches_b, "dryrun": launches_c}
 
 
 def main() -> int:
@@ -1627,9 +1786,14 @@ def main() -> int:
     line, lm_launches = _phase21_lowmem(torch, port, dev, seen, smi)
     print(line, flush=True)
 
+    # -- 22. the sharded prover: config 2 over NCCL, BASELINE config 5 over four ranks, the dry run ------
+    line, sharded_launches = _phase22_sharded(torch, port, dev, seen, smi)
+    print(line, flush=True)
+
     # -- 13. every kernel vs plain at every shape of the main paths -------------
     path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
-                     **app_launches, "keccak-air-zk": zk_launches, "config2-lowmem": lm_launches}
+                     **app_launches, "keccak-air-zk": zk_launches, "config2-lowmem": lm_launches,
+                     **sharded_launches}
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
         missing = [name for name, n in launches.items() if n > 0 and name not in noted]
@@ -1660,6 +1824,10 @@ def main() -> int:
     lowmem_shapes = ", ".join(
         f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] == {"config2-lowmem"} and k[0] != "grind_verdicts")
     print(f"[13] operand shapes that only phase 21's prove gave: {lowmem_shapes}", flush=True)
+    sharded_shapes = ", ".join(
+        f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] <= {"config2-nccl", "config5-sharded", "dryrun"}
+        and k[0] != "grind_verdicts")
+    print(f"[13] operand shapes that only phase 22's ranks gave: {sharded_shapes}", flush=True)
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the main paths and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "

@@ -41,6 +41,17 @@ from tpu_stark_torch.backend.policy import card_label
 from tpu_stark_torch.bench import prove as bench_prove
 from tpu_stark_torch.ntt import ntt_kernel, radix2
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 JAX_P2_PROOFS = pathlib.Path(__file__).parent / "golden" / "torch_poseidon2_jax_proofs.json"
 
 

@@ -19,6 +19,17 @@ from tpu_stark_torch.challenger import grind
 from tpu_stark_torch.challenger.challenger import GRIND_DEVICE_MIN_BITS, Challenger, HashChallenger
 from tpu_stark_torch.fields import babybear as bb
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 GEOMETRIES = [32, 132, 134, 200, 268]
 FIXTURE = pathlib.Path(__file__).parent / "golden" / "torch_device_rng_jax.json"
 

@@ -15,6 +15,16 @@ from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.hash import keccak, keccak_kernel, sponge
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _u32(seed, shape):
     return np.random.default_rng(seed).integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
 

@@ -30,6 +30,17 @@ from tpu_stark_torch.prover.prove import prove
 from tpu_stark_torch.prover.verify import verify
 from tpu_stark_torch.prover.wide import default_col_chunk, prove_wide
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 JAX_PROOFS = pathlib.Path(__file__).parent / "golden" / "torch_keccak_air_jax_proofs.json"
 FIXTURE_PERMS = (2, 5)  # 64 and 128 trace rows
 SEED = 1

@@ -20,6 +20,17 @@ from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.ntt import mxu_ntt, radix2
 from tpu_stark_torch.ntt.dft import Dft
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 RNG = np.random.default_rng(5)
 
 

@@ -11,6 +11,7 @@ rows."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from tpu_stark.challenger.challenger import Challenger as JChallenger
 from tpu_stark.fri.domains import TwoAdicCoset as JCoset
@@ -23,6 +24,17 @@ from tpu_stark_torch.fields import ref_field as rf
 from tpu_stark_torch.fri.config import create_benchmark_fri_params
 from tpu_stark_torch.fri.domains import TwoAdicCoset
 from tpu_stark_torch.prover.config import create_config
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 ZETA = (123456, 789, 1011, 1213)
 

@@ -28,6 +28,17 @@ from tpu_stark_torch.fields import extension as ext4
 from tpu_stark_torch.hash import poseidon2 as tp2
 from tpu_stark_torch.hash import poseidon2_kernel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "tpu_stark_torch" / "csrc" / "poseidon2_sponge.cu"
 
 

@@ -25,6 +25,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
 from tpu_stark_torch.challenger.challenger import Challenger
@@ -35,6 +36,17 @@ from tpu_stark_torch.prover.config import create_config
 from tpu_stark_torch.prover.proof import deserialize_proof, serialize_proof
 from tpu_stark_torch.prover.prove import prove
 from tpu_stark_torch.prover.verify import verify
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The tests here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 _DIR = pathlib.Path(__file__).parent / "golden"
 GOLDEN = {
@@ -253,6 +265,9 @@ def test_entry_points_default_to_the_card():
     import inspect
 
     from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.dist import dryrun
+    from tpu_stark_torch.dist.comm import make_row_mesh
+    from tpu_stark_torch.dist.multihost import make_pod_mesh, simulate_pod_mesh
     from tpu_stark_torch.ntt.dft import Dft
     from tpu_stark_torch.prover.config import StarkConfig
 
@@ -261,17 +276,24 @@ def test_entry_points_default_to_the_card():
     assert create_config(hash="poseidon2", zk=False).device.type == "cuda"
     assert Dft().device.type == "cuda"
     assert StarkConfig(pcs=cfg.pcs).device.type == "cuda"
-    for fn in (poseidon2_air.generate_trace, keccak_air.generate_trace):
+    for fn in (poseidon2_air.generate_trace, keccak_air.generate_trace, make_row_mesh, make_pod_mesh,
+               simulate_pod_mesh, dryrun.run_ranks, dryrun.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    assert dryrun.parser().parse_args(["--ranks", "4"]).device == "cuda"  # python -m tpu_stark_torch.dist.dryrun
 
 
 def test_unported_options_raise():
-    """The mesh is not ported and raises; the device rng and the 16-bit
-    grind work (on the CPU, through their plain versions)."""
-    with pytest.raises(NotImplementedError):
-        create_config(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        create_config(hash="poseidon2", mesh=object(), device="cpu")
+    """The streamed wide prove on a mesh is not ported (ROADMAP A4b) and
+    raises on either stack; the device rng and the 16-bit grind work (on
+    the CPU, through their plain versions)."""
+    from tpu_stark_torch.air.keccak_air import KeccakAir
+    from tpu_stark_torch.dist.comm import RowMesh
+    from tpu_stark_torch.prover.wide import prove_wide
+
+    for h in ("keccak", "poseidon2"):
+        cfg = create_config(hash=h, mesh=RowMesh(None, 0, 1, torch.device("cpu"), "gloo"), device="cpu")
+        with pytest.raises(NotImplementedError):
+            prove_wide(cfg, KeccakAir(), torch.zeros((8, 1), dtype=torch.int32), [])
     for h in ("keccak", "poseidon2"):
         cfg = create_config(hash=h, zk_rng="device", device="cpu")
         salts = cfg.pcs.val_mmcs._rng.sample_babybear_matrix_monty(8, 4)
@@ -284,8 +306,9 @@ def test_unported_options_raise():
 
 
 def test_port_never_imports_jax():
-    """Importing every port module, then chip_smoke.py's import block, loads
-    neither jax nor any module of the JAX package."""
+    """Importing every port module (the sharded prover's ``dist/`` and its
+    dry run included), then chip_smoke.py's import block, loads neither jax
+    nor any module of the JAX package."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import tpu_stark_torch\n"
@@ -303,7 +326,8 @@ def test_port_never_imports_jax():
     )
     foreign, mine = out.stdout.strip().splitlines()
     assert foreign == "[]"
-    for m in ("compat.device_rng", "challenger.grind", "ntt.mxu_ntt"):
+    for m in ("compat.device_rng", "challenger.grind", "ntt.mxu_ntt", "dist.comm", "dist.ntt", "dist.merkle",
+              "dist.sharded", "dist.pcs", "dist.multihost", "dist.dryrun"):
         assert f"'tpu_stark_torch.{m}'" in mine
 
 

@@ -157,10 +157,24 @@ def _reduced_quotient(mat_br, apows, p_z, z_dev, y_br) -> torch.Tensor:
     return out
 
 
-def _plain_points_br(log_h: int, device) -> torch.Tensor:
-    """Monty g_H^bitrev(i) for i < 2^log_h."""
-    pts = bb.powers(bb.two_adic_generator(log_h), 1 << log_h, device)
-    return bb.from_u32(pts[bit_reversal_perm_device(log_h, device)])
+def _br_powers(base: int, log_n: int, start: int, count: int, device) -> torch.Tensor:
+    """Canonical base^bitrev_n(j) for j in [start, start + count), int64:
+    count a power of two dividing start.  With j = d * count + t,
+    bitrev_n(j) = bitrev(t) * 2^k + bitrev_k(d), k = log_n - log2(count),
+    so a block is a scalar times the powers of base^(2^k) in bit-reversed
+    order."""
+    log_c = log2_strict(count)
+    k = log_n - log_c
+    scal = pow(base, _bit_reverse(start >> log_c, k), bb.P)
+    pows = bb.powers(pow(base, 1 << k, bb.P), count, device)[bit_reversal_perm_device(log_c, device)]
+    return pows * scal % bb.P
+
+
+def _plain_points_br(log_h: int, device, start: int = 0, count: Optional[int] = None) -> torch.Tensor:
+    """Monty g_H^bitrev(i) for i in [start, start + count) (all i < 2^log_h
+    by default)."""
+    count = 1 << log_h if count is None else count
+    return bb.from_u32(_br_powers(bb.two_adic_generator(log_h), log_h, start, count, device))
 
 
 def _bit_reverse(index: int, log_h: int) -> int:
@@ -214,21 +228,24 @@ def _dot_ext(apows: np.ndarray, vals: np.ndarray) -> ExtPoint:
     return tuple(int(c) for c in terms.sum(axis=0) % p)
 
 
-def _fold_inv2y(log_h: int, device) -> torch.Tensor:
-    """Canonical 1/(2*y_j), y_j = g_lh^bitrev_{lh-1}(j), for j < 2^(lh-1):
-    1/y = (g^-1)^e, so the table is a gathered power table."""
+def _fold_inv2y(log_h: int, device, start: int = 0, count: Optional[int] = None) -> torch.Tensor:
+    """Canonical 1/(2*y_j), y_j = g_lh^bitrev_{lh-1}(j), for j in [start,
+    start + count) (all j < 2^(lh-1) by default): 1/y = (g^-1)^e, so the
+    table is a gathered power table."""
     g_inv = pow(bb.two_adic_generator(log_h), bb.P - 2, bb.P)
-    h2 = 1 << (log_h - 1)
-    pows = bb.powers(g_inv, h2, device)[bit_reversal_perm_device(log_h - 1, device)]
-    return pows * ((bb.P + 1) // 2) % bb.P
+    count = 1 << (log_h - 1) if count is None else count
+    return _br_powers(g_inv, log_h - 1, start, count, device) * ((bb.P + 1) // 2) % bb.P
 
 
-def _fold_codeword(cw: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torch.Tensor:
+def _fold_codeword(cw: torch.Tensor, beta_dev: torch.Tensor, log_h: int, row0: int = 0) -> torch.Tensor:
     """One arity-2 FRI fold in the bit-reversed plain frame:
-    (e + o)/2 + beta * (e - o)/(2y); (H, 4) -> (H/2, 4)."""
+    (e + o)/2 + beta * (e - o)/(2y); (H, 4) -> (H/2, 4).  ``cw`` may be the
+    rows [row0, row0 + len) of the height-2^log_h codeword (fold pairs are
+    adjacent rows)."""
     e, o = cw[0::2], cw[1::2]
     half_sum = bb.mul_canonical(ext4.add(e, o), (bb.P + 1) // 2)
-    half_diff = bb.mul_canonical(ext4.sub(e, o), _fold_inv2y(log_h, cw.device)[:, None])
+    inv2y = _fold_inv2y(log_h, cw.device, row0 >> 1, int(cw.shape[0]) >> 1)
+    half_diff = bb.mul_canonical(ext4.sub(e, o), inv2y[:, None])
     return ext4.add(half_sum, ext4.mul(beta_dev[None, :], half_diff))
 
 
@@ -403,6 +420,41 @@ class TwoAdicFriPcs:
         rows = bit_reversal_perm_device(log2_strict(lde_h), mat.device)[::stride]
         return mat[rows]
 
+    # -- the row-dependent steps of ``open`` (a sharded PCS overrides them) --
+    def _lde_heights(self, data: PcsProverData) -> List[int]:
+        """The committed (LDE) height of each matrix of a commit."""
+        return [d.size << self.fri.log_blowup for d in data.domains]
+
+    def _eval_points(self, data: PcsProverData, m_idx: int, zs: Sequence[ExtPoint]) -> List[torch.Tensor]:
+        """The committed polynomial m_idx at each point (plain frame): (w, 4)
+        Monty each."""
+        rc = data.r_coeffs[m_idx]
+        if hasattr(rc, "eval_at_points"):  # a streamed wide matrix: one pass over its chunks
+            return rc.eval_at_points(list(zs))
+        return [_eval_at_point(rc, ext4.powers_device(z, int(rc.shape[0]), self.device)) for z in zs]
+
+    def _row_range(self, log_h: int) -> Tuple[int, int]:
+        """(first row, rows) of the height-2^log_h reduced openings and FRI
+        levels that this process holds."""
+        return 0, 1 << log_h
+
+    def _own_rows(self, mat, log_h: int):
+        """The rows of a committed matrix of height 2^log_h that enter this
+        process's reduced openings."""
+        return mat
+
+    def _commit_level(self, current: torch.Tensor, log_h: int):
+        """Commit one FRI level: its leaf rows are the (H/2, 8) pairs
+        (cw[2i], cw[2i+1]) that a fold joins."""
+        return self.challenge_mmcs.commit([current.reshape(-1, 8)])
+
+    def _fold(self, current: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torch.Tensor:
+        return _fold_codeword(current, beta_dev, log_h)
+
+    def _whole(self, current: torch.Tensor, log_h: int) -> torch.Tensor:
+        """The whole height-2^log_h FRI level."""
+        return current
+
     # -- open --------------------------------------------------------------
     def open(
         self,
@@ -416,7 +468,7 @@ class TwoAdicFriPcs:
         # Hiding: a round of random codewords (no opening points).
         random_commit = None
         if self.num_random_codewords > 0:
-            max_h = max(int(m.shape[0]) for data, _ in rounds for m in data.merkle.matrices)
+            max_h = max(h for data, _ in rounds for h in self._lde_heights(data))
             n_max = max_h >> fri.log_blowup
             rand_coeffs = bb.to_tensor(
                 self.rng.sample_babybear_matrix_monty(n_max, self.num_random_codewords), dev
@@ -432,17 +484,10 @@ class TwoAdicFriPcs:
         gen_inv = rf.finv(bb.GENERATOR)
         opened_dev: List[List[List[torch.Tensor]]] = []
         for data, points in rounds:
-            rd = []
-            for m_idx, mat_points in enumerate(points):
-                rc = data.r_coeffs[m_idx]
-                if hasattr(rc, "eval_at_points"):  # a streamed wide matrix: one pass over its chunks
-                    rd.append(rc.eval_at_points([rf.escale(z, gen_inv) for z in mat_points]))
-                    continue
-                rd.append([
-                    _eval_at_point(rc, ext4.powers_device(rf.escale(z, gen_inv), int(rc.shape[0]), dev))
-                    for z in mat_points
-                ])
-            opened_dev.append(rd)
+            opened_dev.append([
+                self._eval_points(data, m_idx, [rf.escale(z, gen_inv) for z in mat_points])
+                for m_idx, mat_points in enumerate(points)
+            ])
         opened_values: OpenedValues = [
             [[[tuple(int(c) for c in row) for row in bb.to_numpy(bb.to_u32(v))] for v in md] for md in rd]
             for rd in opened_dev
@@ -461,9 +506,10 @@ class TwoAdicFriPcs:
         jobs_by_height: Dict[int, list] = {}
         for (data, points), r_opened in zip(rounds, opened_dev):
             for m_idx, mat_points in enumerate(points):
-                mat_br = data.merkle.matrices[m_idx]
+                log_h = log2_strict(self._lde_heights(data)[m_idx])
+                mat_br = self._own_rows(data.merkle.matrices[m_idx], log_h)
                 w = int(mat_br.shape[1])
-                hjobs = jobs_by_height.setdefault(log2_strict(int(mat_br.shape[0])), [])
+                hjobs = jobs_by_height.setdefault(log_h, [])
                 if not mat_points:  # random codewords: mixed in directly
                     hjobs.append((None, mat_br, None, w))
                 for p_idx, zeta in enumerate(mat_points):
@@ -471,8 +517,9 @@ class TwoAdicFriPcs:
 
         ro: Dict[int, torch.Tensor] = {}
         for log_h, hjobs in jobs_by_height.items():
-            y_br = _plain_points_br(log_h, dev)
-            ro[log_h] = ext4.zero((1 << log_h,), dev)
+            row0, rows = self._row_range(log_h)
+            y_br = _plain_points_br(log_h, dev, row0, rows)
+            ro[log_h] = ext4.zero((rows,), dev)
             groups: List[list] = []
             for job in hjobs:
                 streamed = hasattr(job[1], "reduced_contrib") or (
@@ -509,18 +556,18 @@ class TwoAdicFriPcs:
         current = ro[log_max]
         log_h = log_max
         while log_h > log_min:
-            # leaf rows are the (H/2, 8) pairs (cw[2i], cw[2i+1]) that a fold joins
-            c_root, c_data = self.challenge_mmcs.commit([current.reshape(-1, 8)])
+            c_root, c_data = self._commit_level(current, log_h)
             commit_phase_commits.append(c_root)
             commit_phase_data.append(c_data)
             challenger.observe_commitment(c_root)
             beta = challenger.sample_ext()
-            current = _fold_codeword(current, ext4.scalar(beta, dev), log_h)
+            current = self._fold(current, ext4.scalar(beta, dev), log_h)
             log_h -= 1
             if log_h in ro:
                 current = ext4.add(current, ro[log_h])
 
         # final polynomial: un-bit-reverse, idft, keep final_poly_len coeffs
+        current = self._whole(current, log_h)
         final_np = bb.to_numpy(bb.to_u32(self.dft.idft_batch(reverse_matrix_index_bits(current))))
         n_final = 1 << fri.log_final_poly_len
         final_poly = [tuple(int(c) for c in final_np[i]) for i in range(n_final)]
@@ -536,7 +583,7 @@ class TwoAdicFriPcs:
         indices = [challenger.sample_bits(log_max) for _ in range(fri.num_queries)]
         round_openings = []
         for data, _pts in rounds:
-            r_max = max(int(m.shape[0]) for m in data.merkle.matrices)
+            r_max = max(self._lde_heights(data))
             shift_bits = log_max - log2_strict(r_max)
             round_openings.append(
                 self.val_mmcs.open_batch_many([i >> shift_bits for i in indices], data.merkle)

@@ -138,7 +138,12 @@ class LazyMatrix:
         (len(idx), cols) for any int64 row indices, repeats included."""
         cols = self.shape[1]
         idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
-        return _monty_at(self._key, idx[:, None] * cols + torch.arange(cols, dtype=torch.int64, device=self.device))
+        col_idx = torch.arange(cols, dtype=torch.int64, device=self.device)
+        out = torch.empty((int(idx.shape[0]), cols), dtype=torch.int32, device=self.device)
+        step = max(1, _DRAW_ELEMS // max(1, cols))  # row blocks, as in a whole draw
+        for r0 in range(0, int(idx.shape[0]), step):
+            out[r0 : r0 + step] = _monty_at(self._key, idx[r0 : r0 + step, None] * cols + col_idx)
+        return out
 
 
 class DeviceRng:

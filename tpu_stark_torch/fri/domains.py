@@ -7,7 +7,7 @@ pass; host methods evaluate at an extension point for the verifier."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -73,15 +73,19 @@ class TwoAdicCoset:
         }
 
     # -- device (prover) ---------------------------------------------------
-    def points_device(self, device) -> torch.Tensor:
-        """Natural-order points shift*g^i, Monty int32 on ``device``."""
-        return bb.mul_canonical(bb.powers_monty(self.gen, self.size, device), self.shift)
+    def points_device(self, device, start: int = 0, count: Optional[int] = None) -> torch.Tensor:
+        """Natural-order points shift*g^i for i in [start, start + count)
+        (every point by default), Monty int32 on ``device``."""
+        count = self.size if count is None else count
+        first = self.shift * pow(self.gen, start, bb.P) % bb.P
+        return bb.mul_canonical(bb.powers_monty(self.gen, count, device), first)
 
-    def selectors_on_coset_device(self, coset: "TwoAdicCoset", device):
-        """Selectors of this domain over every point of ``coset`` (the
-        quotient evaluation domain), as base Monty vectors."""
+    def selectors_on_coset_device(self, coset: "TwoAdicCoset", device, start: int = 0, count: Optional[int] = None):
+        """Selectors of this domain over the points [start, start + count)
+        of ``coset`` (the quotient evaluation domain; every point by
+        default), as base Monty vectors."""
         assert coset.log_n >= self.log_n and coset.shift != self.shift
-        xs = coset.points_device(device)
+        xs = coset.points_device(device, start, count)
         xs_over_shift = bb.mul_canonical(xs, rf.finv(self.shift))
         zh = bb.sub(bb.pow_const(xs_over_shift, self.size), bb.MONTY_R)
         last_pt = (self.shift * rf.finv(self.gen)) % bb.P

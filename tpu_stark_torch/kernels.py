@@ -114,13 +114,17 @@ def _nvcc() -> str:
     return found
 
 
+def up_to_date() -> bool:
+    """Whether LIB_PATH exists and is newer than every source."""
+    newest = max(os.path.getmtime(os.path.join(SRC_DIR, f)) for f in SOURCES + HEADERS)
+    return os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest
+
+
 def build(force: bool = False) -> BuildResult:
     """Compile csrc/*.cu into LIB_PATH unless an up-to-date library exists:
     every source to an object in parallel, then one shared-library link."""
     srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
-    newest = max(os.path.getmtime(os.path.join(SRC_DIR, f)) for f in SOURCES + HEADERS)
-    if (not force and os.path.exists(LIB_PATH)
-            and os.path.getmtime(LIB_PATH) >= newest):
+    if not force and up_to_date():
         return BuildResult(LIB_PATH, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()

@@ -9,6 +9,7 @@ package's ``create_config()``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -20,6 +21,7 @@ from ..commit.poseidon2_mmcs import DuplexChallenger, Poseidon2Mmcs
 from ..commit.pcs import TwoAdicFriPcs
 from ..compat.device_rng import DeviceRng
 from ..compat.smallrng import SmallRng
+from ..dist.pcs import ShardedPcs
 from ..fri.config import FriParameters, create_test_fri_params
 from ..ntt.dft import Dft
 
@@ -80,7 +82,12 @@ def create_config(
     off; ``None`` takes ``lowmem.default_log(device)``, the JAX package's
     2^24 scaled by the card's memory (2^24 on the CPU).  The bytes are the
     same either way.
-    The sharded ``mesh`` path is not ported yet and raises.
+    ``mesh``: a ``dist.comm.RowMesh`` (``make_row_mesh()``): the sharded
+    prover (``dist/pcs.py``), whose proofs are the single-device bytes; the
+    config runs on the mesh's device (another ``device`` raises), the
+    low-memory levers stay off (an explicit ``lowmem_log`` other than 0
+    raises), and ``narrow_ntt`` applies to the transforms that every rank
+    runs whole (the trace, its randomizer, the final polynomial).
 
     Every parameter after ``zk`` is keyword-only: the JAX package's third
     positional parameter is ``backend``, which the port does not have, so a
@@ -92,10 +99,17 @@ def create_config(
         mmcs_cls, challenger_factory = Poseidon2Mmcs, DuplexChallenger
     else:
         raise ValueError(f"unknown hash stack {hash!r}")
-    if mesh is not None:
-        raise NotImplementedError("the sharded mesh prover (ROADMAP A11) is not ported yet")
     device = torch.device(device)
     fri = fri_params if fri_params is not None else create_test_fri_params(2)
+    if mesh is not None:
+        if device.type != mesh.device.type or (device.index is not None and device != mesh.device):
+            raise ValueError(f"a config on {device} cannot run on a mesh on {mesh.device}")
+        if lowmem_log:
+            raise ValueError("the low-memory levers do not engage on a mesh (lowmem_log must be None or 0)")
+        device, lowmem_log = mesh.device, 0
+        pcs_cls = functools.partial(ShardedPcs, mesh)
+    else:
+        pcs_cls = TwoAdicFriPcs
     dft = Dft(device, narrow=narrow_ntt)
     if lowmem_log is None:
         lowmem_log = lowmem.default_log(device)
@@ -103,7 +117,7 @@ def create_config(
         # the salt stream and the codeword stream are independently seeded
         # rngs, as in the reference; the device stream also separates them
         # by tag
-        pcs = TwoAdicFriPcs(
+        pcs = pcs_cls(
             dft,
             fri,
             val_mmcs=mmcs_cls(hiding=True, rng=make_zk_rng(zk_rng, rng_seed, "salts", device), lowmem_log=lowmem_log),
@@ -114,8 +128,8 @@ def create_config(
             lowmem_log=lowmem_log,
         )
     else:
-        pcs = TwoAdicFriPcs(dft, fri, val_mmcs=mmcs_cls(lowmem_log=lowmem_log),
-                            challenge_mmcs=mmcs_cls(lowmem_log=lowmem_log), lowmem_log=lowmem_log)
+        pcs = pcs_cls(dft, fri, val_mmcs=mmcs_cls(lowmem_log=lowmem_log),
+                      challenge_mmcs=mmcs_cls(lowmem_log=lowmem_log), lowmem_log=lowmem_log)
     return StarkConfig(
         pcs=pcs, zk=zk, rng_seed=rng_seed, challenger_factory=challenger_factory,
         zk_rng=zk_rng, device=device,

@@ -43,16 +43,23 @@ def _quotient_values(
     alpha_pows: torch.Tensor,
     log_n: int,
     log_m: int,
+    main_next: Optional[torch.Tensor] = None,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """The whole quotient pass over the quotient domain (plain torch):
-    selectors, constraint eval, alpha folding, zeroifier division."""
+    """The quotient pass over the quotient domain (plain torch): selectors,
+    constraint eval, alpha folding, zeroifier division.  ``trace_on_q`` is
+    every row of the domain, or the rows [row0, row0 + len) with their
+    next rows ``main_next`` (a mesh rank's block, ``dist/sharded.py``)."""
     trace_domain = TwoAdicCoset(log_n, 1)
     quotient_domain = trace_domain.create_disjoint_domain(1 << log_m)
     step = (1 << log_m) >> log_n
-    selectors = trace_domain.selectors_on_coset_device(quotient_domain, trace_on_q.device)
+    if main_next is None:
+        main_next = torch.roll(trace_on_q, -step, dims=0)
+    selectors = trace_domain.selectors_on_coset_device(
+        quotient_domain, trace_on_q.device, row0, int(trace_on_q.shape[0]))
     builder = QuotientBuilder(
         main_local=trace_on_q,
-        main_next=torch.roll(trace_on_q, -step, dims=0),
+        main_next=main_next,
         selectors=selectors,
         public_values=[DevVal(pis[i]) for i in range(int(pis.shape[0]))],
     )
@@ -189,9 +196,15 @@ def prove(
     # constraints read only the AIR columns
     trace_on_q = trace_on_q[:, :width]
     alpha_pows_dev, pis_dev = constraint_inputs(air, public_values, alpha, dev)
-    quotient_vals = _quotient_values(
-        air, trace_on_q, pis_dev, alpha_pows_dev, log_n, log_n + log_qd
-    )
+    mesh = getattr(pcs, "mesh", None)
+    if mesh is None:
+        quotient_vals = _quotient_values(air, trace_on_q, pis_dev, alpha_pows_dev, log_n, log_n + log_qd)
+    else:
+        # the rank's block of the quotient domain; its block of chunk i is
+        # quotient_vals[i::qd] (the block height is a multiple of qd)
+        from ..dist.sharded import sharded_quotient
+
+        quotient_vals = sharded_quotient(mesh, air, trace_on_q, pis_dev, alpha_pows_dev, log_n, log_n + log_qd)
     del trace_on_q
     mark("quotient")
 

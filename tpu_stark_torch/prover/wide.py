@@ -30,8 +30,9 @@ products several times that.  Here:
 
 Proofs are byte-identical to the JAX package's, and to the dense prover's
 wherever both fit (zk: with one column chunk).  Not ported: the sharded
-mesh path, and the JAX package's per-partition-class program cache and
-64-column panel padding, which exist only to bound XLA compiles.
+mesh path (ROADMAP A4b: a sharded config raises), and the JAX package's
+per-partition-class program cache and 64-column panel padding, which exist
+only to bound XLA compiles.
 """
 
 from __future__ import annotations
@@ -476,6 +477,8 @@ def prove_wide(
     synchronized at each phase boundary and the phase wall times (s) are
     stored in it: trace_lde (the trace upload), trace_commit, quotient,
     quotient_commit, open."""
+    if getattr(config.pcs, "mesh", None) is not None:
+        raise NotImplementedError("the streamed wide prove on a mesh (ROADMAP A4b) is not ported yet")
     if air.partitions() is None:
         raise ValueError("the wide prover needs air.partitions() (see air.keccak_air.Partition)")
     if config.zk and config.zk_rng != "device":
