@@ -53,7 +53,8 @@ line each, any failure an uncaught exception and a nonzero exit:
     generation timed on its own, a cold and a warm prove (launch counts
     reset just before the warm one, read just after), phase times, peak
     device memory, and the port's verifier, timed; the proof's length must
-    equal the JAX package's (JAX_PROOF_BYTES);
+    equal the JAX package's (JAX_PROOF_BYTES); its SHA-256 is kept for
+    phase 22 (d);
 14. K5 (the limb-matmul DFT on the integer tensor cores) against its plain
     version, exact, at (256, 65536), (128, 131072) and ragged widths for
     n = 64, 32, 16, each timed; then every level (B, A, R) of config 2's
@@ -129,14 +130,23 @@ line each, any failure an uncaught exception and a nonzero exit:
     21's single-device SHA-256 and verified, with every rank's wall clock,
     peak device memory, bytes sent and seconds spent by collective, staged
     bytes, K1/K2 launches and transport; (c) the dry run
-    (``dryrun_multichip(4, device="cuda", backend="gloo")``'s checks, each
-    rank through a worker that counts its launches, K3 included); the
-    ranks load the library phase 1 built and return their kernels' operand
-    shapes for phase 13;
+    (``dryrun_multichip(4, device="cuda", backend="gloo")``'s checks, the
+    wide prove of keccak-air cut to four partitions included, each rank
+    through a worker that counts its launches, K3 and K4 included); (d)
+    BASELINE config 4 (keccak-air 2^20 x 3608 through ``prove_wide``,
+    Poseidon2, zk off, benchmark FRI) over the NCCL group of (a), equal to
+    phase 12's SHA-256 and the JAX package's length, verified, K2, K3 and
+    K4 launched; (e) keccak-air at 2^16 x 3608 on the reference's stack
+    (Keccak trees, zk, the device rng, benchmark FRI) over four gloo ranks
+    on cuda:0, every rank's bytes equal to rank 0's single-device proof,
+    verified, K1's absorb and K2 launched (``dist.dryrun.
+    prove_keccak_air``; every rank's wall clock, peak, bytes sent and
+    staged, and launches printed); the ranks load the library phase 1
+    built and return their kernels' operand shapes for phase 13;
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
     phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
-    the ranks of phase 22 (a), (b) and (c)
+    the ranks of phase 22 (a) to (e)
     (the query blocks' leaf and compress layers, the recomputed
     transforms) called its wrapper with (the plain versions on slices of
     at most 2^22 rows or 2^26 elements), printing the shapes only phase 21
@@ -154,8 +164,11 @@ line each, any failure an uncaught exception and a nonzero exit:
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
-summed over the main paths: the five warm proves, phase 17's five runs, phase 20's prove, phase 21's
-2^24 prove with the levers and every rank of phase 22 (a) and (b); time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
+summed over the main paths, and by path in ``launches_by_path``: the five
+warm proves, phase 17's five runs, phase 20's prove, phase 21's 2^24 prove
+with the levers and every rank of phase 22 (a) to (e), each under its path
+name: config2-nccl, config5-sharded, dryrun, config4-nccl and
+keccak-air-zk-sharded; time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -230,7 +243,8 @@ JAX_PROOF_BYTES = {
 
 
 # SHA-256 of the single-device proofs that phase 22's sharded proofs must
-# equal: config 2 at 2^20 (phase 16) and at 2^24 (phase 21)
+# equal: config 2 at 2^20 (phase 16) and at 2^24 (phase 21), keccak-air at
+# 2^20 (phase 12)
 SINGLE_DEVICE_SHA256 = {}
 
 
@@ -1216,7 +1230,11 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
 
 SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind")
 # the dry run's proves use the test FRI, whose 1-bit grind is host work
-DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge")
+DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge", "poseidon2_absorb")
+# the streamed wide prove on a mesh: (d) BASELINE config 4 on the Poseidon2
+# stack, (e) the reference's stack (Keccak trees, zk)
+WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb"),
+                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb")}
 
 
 def _phase22_rank(mesh, path: str, log_n: int, trace_path):
@@ -1230,6 +1248,22 @@ def _phase22_rank(mesh, path: str, log_n: int, trace_path):
     with _record_shapes(port, seen, path):
         out = port.dryrun.prove_fib(mesh, log_n, trace_path=trace_path, benchmark_fri=True)
     out["launches"] = {k.name: k.launches for k in port.kernels.ALL if k.launches}
+    out["shapes"] = [(key, sorted(paths)) for key, paths in seen.items()]
+    return out
+
+
+def _phase22_wide_rank(mesh, path: str, kwargs: dict):
+    """One rank of phase 22 (d) or (e): keccak-air through ``prove_wide`` on
+    the mesh (``dist.dryrun.prove_keccak_air(mesh, **kwargs)``), the
+    operand shapes of its kernel wrappers noted under ``path``.  Every
+    launch count is set to 0 just before, and the result's launches are
+    the counts read just after the sharded prove (before rank 0's
+    single-device prove that ``single`` asks for)."""
+    port = _rank_port()
+    seen = {}
+    port.kernels.reset_launch_counts()
+    with _record_shapes(port, seen, path):
+        out = port.dryrun.prove_keccak_air(mesh, **kwargs)
     out["shapes"] = [(key, sorted(paths)) for key, paths in seen.items()]
     return out
 
@@ -1257,16 +1291,23 @@ def _rank_port():
     return port
 
 
-def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: int = 24):
+def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: int = 24, log_d: int = 20,
+                     log_e: int = 16):
     """The sharded prover through ``dist/dryrun.py``'s runner: (a) config 2
     at 2^log_a over an NCCL group of min(cards, 4) ranks, (b) BASELINE
     config 5 (fib_air zk at 2^log_b, config 2's benchmark FRI) over four
     gloo ranks on this card, host-staged, (c) the dry run over four gloo
-    ranks at its default depth.  (a) and (b) must give phase 16's and phase
-    21's single-device SHA-256 on every rank and verify; every rank of
-    (a) and (b) must launch K1, K2 and the grind, and of (c) K1, K2 and K3 (counts
-    reset just before the part's work, read just after), and returns its
-    kernels' operand shapes for phase 13.
+    ranks at its default depth, (d) BASELINE config 4 (keccak-air at
+    2^log_d x 3608 through ``prove_wide``: Poseidon2, zk off, benchmark
+    FRI) over the NCCL group of (a), (e) keccak-air at 2^log_e x 3608 on
+    the reference's stack (Keccak trees, zk, the device rng, benchmark FRI)
+    over four gloo ranks on this card, rank 0 also proving on one device.
+    (a), (b) and (d) must give phase 16's, phase 21's and phase 12's
+    single-device SHA-256 on every rank, (e) rank 0's single-device bytes
+    on every rank; each verifies.  Every rank of (a) and (b) must launch
+    K1, K2 and the grind, of (c) K1, K2, K3 and K4, of (d) K2, K3 and K4,
+    of (e) K1's absorb and K2 (counts reset just before the part's work,
+    read just after), and returns its kernels' operand shapes for phase 13.
     Returns (line, {path: launches summed over the ranks})."""
     import gc
     import tempfile
@@ -1276,25 +1317,27 @@ def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: i
     t_phase = time.perf_counter()
     dryrun = port.dryrun
     air = port.FibonacciAir()
+    k_air = port.keccak_air.KeccakAir()
     gc.collect()
     torch.cuda.empty_cache()
 
-    def check(label, per_rank, log_n):
-        want = SINGLE_DEVICE_SHA256[f"config 2 2^{log_n}"]
+    def check(label, per_rank, want, need, verify_blob, length_key=None):
+        """Every rank's SHA-256 ``want`` (rank 0's when None), ``need``'s
+        kernels launched on every rank, the length, the verifier; the
+        line and the launches summed over the ranks."""
+        want = want or per_rank[0]["sha256"]
         for r in per_rank:
             if r["sha256"] != want:
                 raise AssertionError(f"{label}: rank {r['rank']}'s proof is not the single-device proof")
-            missing = [k for k in SHARDED_KERNELS if r["launches"].get(k, 0) <= 0]
+            missing = [k for k in need if r["launches"].get(k, 0) <= 0]
             if missing:
                 raise AssertionError(f"{label}: rank {r['rank']} did not launch {missing}")
             for key, paths in r["shapes"]:
                 seen.setdefault(key, set()).update(paths)
         blob = per_rank[0]["blob"]
-        length = _check_jax_length(f"config 2 2^{log_n}", blob)
-        pis = [0, 1, port.fibonacci_value(0, 1, 1 << log_n)]
-        cfg = port.create_config(port.create_benchmark_fri_params(1), zk=True, device=dev)
+        length = _check_jax_length(length_key, blob) if length_key else f"{len(blob)} B"
         t0 = time.perf_counter()
-        if not port.verify(cfg, air, port.deserialize_proof(blob), pis):
+        if not verify_blob(blob):
             raise AssertionError(f"{label}: the sharded proof does not verify")
         verify_s = time.perf_counter() - t0
         launches = {k.name: 0 for k in port.kernels.ALL}
@@ -1309,17 +1352,26 @@ def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: i
                 f"({', '.join(f'{k} {v:.3f}s' for k, v in r['phases'].items())}), peak {r['peak_gib']:.3f} GiB, "
                 f"sent B by collective {{{sent}}}, staged {r['staged']} B, {sum(r['comm_s'].values()):.3f}s in "
                 f"collectives ({', '.join(f'{k} {v:.3f}' for k, v in sorted(r['comm_s'].items()))}), "
-                f"K1 {r['launches'].get('keccak_sponge', 0)}"
-                f" + {r['launches'].get('keccak_tree', 0)}, K2 {r['launches'].get('ntt_pass0', 0)}"
-                f" + {r['launches'].get('ntt_pass', 0)} launches")
+                f"launches {r['launches']}")
         return (f"{label}: every rank's SHA-256 {want[:16]}... = the single-device proof's, {length}; verify "
                 f"{verify_s:.3f}s ok; " + "; ".join(notes)), launches
+
+    def verify_fib(log_n):
+        pis = [0, 1, port.fibonacci_value(0, 1, 1 << log_n)]
+        cfg = port.create_config(port.create_benchmark_fri_params(1), zk=True, device=dev)
+        return lambda blob: port.verify(cfg, air, port.deserialize_proof(blob), pis)
+
+    def verify_keccak(zk, hash):
+        cfg = port.create_config(port.create_benchmark_fri_params(1), zk=zk, hash=hash, device=dev)
+        return lambda blob: port.verify(cfg, k_air, port.deserialize_proof(blob), [])
 
     n_a = min(torch.cuda.device_count(), 4)
     t0 = time.perf_counter()
     res_a = dryrun.run_ranks(n_a, _phase22_rank, "config2-nccl", log_a, None, backend="nccl", device="cuda",
                              timeout=300)
-    line_a, launches_a = check(f"(a) config 2 2^{log_a} over {n_a} NCCL rank(s)", res_a, log_a)
+    line_a, launches_a = check(f"(a) config 2 2^{log_a} over {n_a} NCCL rank(s)", res_a,
+                               SINGLE_DEVICE_SHA256[f"config 2 2^{log_a}"], SHARDED_KERNELS, verify_fib(log_a),
+                               f"config 2 2^{log_a}")
     line_a += f"; (a) took {time.perf_counter() - t0:.3f}s"
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="ts_phase22_") as tmp:
@@ -1330,7 +1382,8 @@ def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: i
         res_b = dryrun.run_ranks(4, _phase22_rank, "config5-sharded", log_b, trace_path, backend="gloo",
                                  device="cuda:0", timeout=600)
     line_b, launches_b = check(f"(b) BASELINE config 5 (fib zk 2^{log_b}, benchmark FRI) over 4 gloo ranks on "
-                               f"cuda:0", res_b, log_b)
+                               f"cuda:0", res_b, SINGLE_DEVICE_SHA256[f"config 2 2^{log_b}"], SHARDED_KERNELS,
+                               verify_fib(log_b), f"config 2 2^{log_b}")
     line_b += f"; (b) took {time.perf_counter() - t0:.3f}s after {trace_s:.3f}s of trace generation"
     t0 = time.perf_counter()
     res_c = dryrun.run_ranks(4, _phase22_dryrun_rank, 10, backend="gloo", device="cuda", timeout=300)
@@ -1347,9 +1400,29 @@ def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: i
     used_c = {k: v for k, v in launches_c.items() if v}
     line_c = (f"(c) dry run over 4 gloo ranks on the card: {'; '.join(lines_c)}; launches over the ranks {used_c}; "
               f"(c) took {time.perf_counter() - t0:.3f}s")
-    line = (f"[22] the sharded prover on {smi}: {line_a}; {line_b}; {line_c}; phase 22 took "
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res_d = dryrun.run_ranks(n_a, _phase22_wide_rank, "config4-nccl", {"log_n": log_d}, backend="nccl",
+                             device="cuda", timeout=300)
+    line_d, launches_d = check(
+        f"(d) BASELINE config 4 (keccak-air 2^{log_d} x {port.keccak_air.COLS}, prove_wide, Poseidon2, zk off, "
+        f"benchmark FRI) over {n_a} NCCL rank(s)", res_d, SINGLE_DEVICE_SHA256[f"keccak-air 2^{log_d}"],
+        WIDE_KERNELS["d"], verify_keccak(False, "poseidon2"), f"keccak-air 2^{log_d}")
+    line_d += f"; (d) took {time.perf_counter() - t0:.3f}s"
+    t0 = time.perf_counter()
+    res_e = dryrun.run_ranks(4, _phase22_wide_rank, "keccak-air-zk-sharded",
+                             {"log_n": log_e, "hash": "keccak", "zk": True, "single": True}, backend="gloo",
+                             device="cuda:0", timeout=600)
+    line_e, launches_e = check(
+        f"(e) keccak-air 2^{log_e} x {port.keccak_air.COLS} on the reference's stack (Keccak, zk, device rng, "
+        f"benchmark FRI) over 4 gloo ranks on cuda:0, rank 0's single-device prove equal", res_e, None,
+        WIDE_KERNELS["e"], verify_keccak(True, "keccak"))
+    line_e += f"; (e) took {time.perf_counter() - t0:.3f}s"
+    line = (f"[22] the sharded prover on {smi}: {line_a}; {line_b}; {line_c}; {line_d}; {line_e}; phase 22 took "
             f"{time.perf_counter() - t_phase:.3f}s")
-    return line, {"config2-nccl": launches_a, "config5-sharded": launches_b, "dryrun": launches_c}
+    return line, {"config2-nccl": launches_a, "config5-sharded": launches_b, "dryrun": launches_c,
+                  "config4-nccl": launches_d, "keccak-air-zk-sharded": launches_e}
 
 
 def main() -> int:
@@ -1740,6 +1813,7 @@ def main() -> int:
     k_peak = torch.cuda.max_memory_allocated(dev)
     blob = serialize_proof(proof)
     k_len = _check_jax_length("keccak-air 2^20", blob)
+    SINGLE_DEVICE_SHA256["keccak-air 2^20"] = hashlib.sha256(blob).hexdigest()
     t0 = time.perf_counter()
     ok = verify(k_cfg(), k_air, deserialize_proof(blob), [])
     k_verify_s = time.perf_counter() - t0
@@ -1825,8 +1899,7 @@ def main() -> int:
         f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] == {"config2-lowmem"} and k[0] != "grind_verdicts")
     print(f"[13] operand shapes that only phase 21's prove gave: {lowmem_shapes}", flush=True)
     sharded_shapes = ", ".join(
-        f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] <= {"config2-nccl", "config5-sharded", "dryrun"}
-        and k[0] != "grind_verdicts")
+        f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] <= set(sharded_launches) and k[0] != "grind_verdicts")
     print(f"[13] operand shapes that only phase 22's ranks gave: {sharded_shapes}", flush=True)
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the main paths and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
@@ -1840,6 +1913,8 @@ def main() -> int:
         kernel_rows.append({
             "name": info.name, "route": "cuda", "source": info.source, "replaces": info.replaces,
             "launches": sum(launches[info.name] for launches in path_launches.values()),
+            "launches_by_path": {path: launches[info.name] for path, launches in path_launches.items()
+                                 if launches[info.name]},
             "max_abs_err": err, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
             "bound_ms": round(bound_ms, 6), "bound_by": bound_by, "library_ms": None,
             **(more[0] if more else {}),

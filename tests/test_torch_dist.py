@@ -110,9 +110,11 @@ def test_multi_height_commit_on_a_mesh_raises():
 
 
 def test_prove_wide_on_a_mesh_raises():
-    cfg = create_config(zk=False, mesh=_mesh(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A4b"):
-        prove_wide(cfg, KeccakAir(), torch.zeros((8, 1), dtype=torch.int32), [])
+    """The one restriction of the streamed wide prove on a mesh is the
+    single-device one: a hiding streamed commit needs zk_layout='tpu'."""
+    cfg = create_config(zk=True, zk_layout="p3", mesh=_mesh(), device="cpu")
+    with pytest.raises(ValueError, match="zk_layout='tpu'"):
+        prove_wide(cfg, KeccakAir(), torch.zeros((64, KeccakAir.width), dtype=torch.uint8), [])
 
 
 @pytest.mark.parametrize("hash", ["keccak", "poseidon2"])

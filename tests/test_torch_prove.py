@@ -283,17 +283,19 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_options_raise():
-    """The streamed wide prove on a mesh is not ported (ROADMAP A4b) and
-    raises on either stack; the device rng and the 16-bit grind work (on
-    the CPU, through their plain versions)."""
+    """The streamed wide prove on a mesh raises, on either stack, only
+    where it raises on one device: a hiding streamed commit under
+    ``zk_layout="p3"``; the device rng and the 16-bit grind work (on the
+    CPU, through their plain versions)."""
     from tpu_stark_torch.air.keccak_air import KeccakAir
     from tpu_stark_torch.dist.comm import RowMesh
     from tpu_stark_torch.prover.wide import prove_wide
 
     for h in ("keccak", "poseidon2"):
-        cfg = create_config(hash=h, mesh=RowMesh(None, 0, 1, torch.device("cpu"), "gloo"), device="cpu")
-        with pytest.raises(NotImplementedError):
-            prove_wide(cfg, KeccakAir(), torch.zeros((8, 1), dtype=torch.int32), [])
+        cfg = create_config(hash=h, zk_layout="p3", mesh=RowMesh(None, 0, 1, torch.device("cpu"), "gloo"),
+                            device="cpu")
+        with pytest.raises(ValueError, match="zk_layout='tpu'"):
+            prove_wide(cfg, KeccakAir(), torch.zeros((64, KeccakAir.width), dtype=torch.uint8), [])
     for h in ("keccak", "poseidon2"):
         cfg = create_config(hash=h, zk_rng="device", device="cpu")
         salts = cfg.pcs.val_mmcs._rng.sample_babybear_matrix_monty(8, 4)

@@ -109,35 +109,43 @@ def _monty_at(k: Key, i: torch.Tensor) -> torch.Tensor:
 _DRAW_ELEMS = 1 << 24
 
 
-def _sample_monty(k: Key, rows: int, cols: int, device, sel=None) -> torch.Tensor:
+def _sample_monty(k: Key, rows: int, cols: int, device, sel=None, row0: int = 0) -> torch.Tensor:
     """(rows, cols) int32 Monty residues of the sample under ``k``; only the
-    columns ``sel`` of that matrix when given."""
+    columns ``sel`` of that matrix when given; the rows [row0, row0 + rows)
+    of a taller sample of ``cols`` columns when ``row0`` is given."""
     idx = _flat_index(1, cols, sel, device)  # the first row's flat indices
     out = torch.empty((rows, int(idx.shape[1])), dtype=torch.int32, device=device)
     step = max(1, _DRAW_ELEMS // max(1, int(idx.shape[1])))
     for r0 in range(0, rows, step):
-        r = torch.arange(r0, min(rows, r0 + step), dtype=torch.int64, device=device)
+        r = torch.arange(row0 + r0, row0 + min(rows, r0 + step), dtype=torch.int64, device=device)
         out[r0 : r0 + step] = _monty_at(k, r[:, None] * cols + idx)
     return out
 
 
 class LazyMatrix:
     """One sample call's key and shape: ``materialize()`` regenerates the
-    sample's values, bit for bit, wherever and whenever they are needed."""
+    sample's values, bit for bit, wherever and whenever they are needed.
+    ``row0``: the matrix is the rows [row0, row0 + rows) of the sample (a
+    mesh rank's block, ``block``)."""
 
-    def __init__(self, k: Key, rows: int, cols: int, device):
+    def __init__(self, k: Key, rows: int, cols: int, device, row0: int = 0):
         self._key = k
         self.shape = (rows, cols)
         self.device = torch.device(device)
+        self.row0 = row0
 
     def materialize(self) -> torch.Tensor:
-        return _sample_monty(self._key, *self.shape, self.device)
+        return _sample_monty(self._key, *self.shape, self.device, row0=self.row0)
+
+    def block(self, r0: int, rows: int) -> "LazyMatrix":
+        """Rows [r0, r0 + rows) of this matrix, still deferred."""
+        return LazyMatrix(self._key, rows, self.shape[1], self.device, self.row0 + r0)
 
     def rows(self, idx) -> torch.Tensor:
         """``materialize()[idx]``, bit for bit, drawing only those rows:
         (len(idx), cols) for any int64 row indices, repeats included."""
         cols = self.shape[1]
-        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device) + self.row0
         col_idx = torch.arange(cols, dtype=torch.int64, device=self.device)
         out = torch.empty((int(idx.shape[0]), cols), dtype=torch.int32, device=self.device)
         step = max(1, _DRAW_ELEMS // max(1, cols))  # row blocks, as in a whole draw

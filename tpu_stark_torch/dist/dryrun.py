@@ -17,10 +17,13 @@ single-device bytes or root:
 * the sharded zk prove on the Keccak stack and on the Poseidon2 stack;
 * for an even world of at least 4, a simulated 2-host pod;
 * the column-sharded LDE commit and the row-sharded quotient;
+* the streamed wide prove of keccak-air cut to four partitions
+  (``prove_keccak_air``: 3 permutations, 2048-column chunks, Poseidon2, zk
+  off), against the single-device proof;
 * the sharded zk prove at 2^log_n rows (JAX's ``TPU_STARK_DRYRUN_LOG``).
 
-The streamed wide prove on a mesh is not ported (ROADMAP A4b): the dry run
-says so and does not run it.
+``prove_fib`` and ``prove_keccak_air`` (the streamed wide prove, BASELINE
+config 4 by default) are the rank workers that prove and measure.
 
 CLI: ``python -m tpu_stark_torch.dist.dryrun --ranks N [--device cpu|cuda]
 [--backend gloo|nccl] [--log-n K]``.  Like the port's other entry points,
@@ -135,44 +138,21 @@ def _fib(n: int):
     return FibonacciAir(), generate_trace_rows(0, 1, n), [0, 1, fibonacci_value(0, 1, n)]
 
 
-def prove_fib(mesh, log_n: int, trace_path: Optional[str] = None, benchmark_fri: bool = False,
-              hash: str = "keccak", zk: bool = True, zk_rng: str = "device", zk_layout: str = "tpu",
-              single: bool = False, verify_it: bool = False) -> dict:
-    """Prove fib_air at 2^log_n rows on the mesh (the trace loaded from
-    ``trace_path``, an ``.npy`` file, or generated); return the proof
-    (bytes on rank 0), its SHA-256 and length, this rank's wall clock,
-    phase times, peak device memory (cuda), bytes sent and seconds spent
-    by collective, staged bytes, the prove's kernel launches (the counts
-    are not reset), transport, and the
-    largest all-gather and whole commit.  ``single``: rank 0 also
-    proves on one device and checks the bytes; ``verify_it``: rank 0
-    verifies the proof."""
+def _measured_prove(mesh, cfg, prove_once, verify_once, label: str, single: bool, verify_it: bool) -> dict:
+    """Run ``prove_once(config) -> (proof, timings)`` on the mesh and
+    measure it (see ``prove_fib``); rank 0 also proves on one device and
+    compares the bytes (``single``) and verifies (``verify_it``)."""
     from .. import kernels
-    from ..air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
-    from ..fri.config import create_benchmark_fri_params
-    from ..prover.config import create_config
     from ..prover.proof import serialize_proof
-    from ..prover.prove import prove
-    from ..prover.verify import verify
-
-    n = 1 << log_n
-    air = FibonacciAir()
-    trace = generate_trace_rows(0, 1, n) if trace_path is None else np.load(trace_path)
-    pis = [0, 1, fibonacci_value(0, 1, n)]
-    fri = create_benchmark_fri_params(1) if benchmark_fri else None
-
-    def cfg(m):
-        return create_config(fri, zk=zk, hash=hash, mesh=m, zk_rng=zk_rng, zk_layout=zk_layout, device=mesh.device)
 
     cuda = mesh.device.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(mesh.device)
     mesh.reset_counts()
     before = {k.name: k.launches for k in kernels.ALL}
-    timings = {}
     t0 = time.perf_counter()
     config = cfg(mesh)
-    proof = prove(config, air, trace, pis, timings=timings)
+    proof, timings = prove_once(config)
     if cuda:
         torch.cuda.synchronize(mesh.device)
     wall = time.perf_counter() - t0
@@ -189,13 +169,133 @@ def prove_fib(mesh, log_n: int, trace_path: Optional[str] = None, benchmark_fri:
     }
     if mesh.rank == 0:
         out["blob"] = blob
-        if single:
-            want = serialize_proof(prove(cfg(None), air, trace, pis))
-            if want != blob:
-                raise AssertionError(f"the sharded proof of 2^{log_n} rows differs from the single-device proof")
-        if verify_it and not verify(cfg(None), air, proof, pis):
-            raise AssertionError(f"the sharded proof of 2^{log_n} rows does not verify")
+        if single and serialize_proof(prove_once(cfg(None))[0]) != blob:
+            raise AssertionError(f"the sharded proof of {label} differs from the single-device proof")
+        if verify_it and not verify_once(cfg(None), proof):
+            raise AssertionError(f"the sharded proof of {label} does not verify")
     return out
+
+
+def prove_fib(mesh, log_n: int, trace_path: Optional[str] = None, benchmark_fri: bool = False,
+              hash: str = "keccak", zk: bool = True, zk_rng: str = "device", zk_layout: str = "tpu",
+              single: bool = False, verify_it: bool = False) -> dict:
+    """Prove fib_air at 2^log_n rows on the mesh (the trace loaded from
+    ``trace_path``, an ``.npy`` file, or generated); return the proof
+    (bytes on rank 0), its SHA-256 and length, this rank's wall clock,
+    phase times, peak device memory (cuda), bytes sent and seconds spent
+    by collective, staged bytes, the prove's kernel launches (the counts
+    are not reset), transport, and the
+    largest all-gather and whole commit.  ``single``: rank 0 also
+    proves on one device and checks the bytes; ``verify_it``: rank 0
+    verifies the proof."""
+    from ..air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
+    from ..fri.config import create_benchmark_fri_params
+    from ..prover.config import create_config
+    from ..prover.prove import prove
+    from ..prover.verify import verify
+
+    n = 1 << log_n
+    air = FibonacciAir()
+    trace = generate_trace_rows(0, 1, n) if trace_path is None else np.load(trace_path)
+    pis = [0, 1, fibonacci_value(0, 1, n)]
+    fri = create_benchmark_fri_params(1) if benchmark_fri else None
+
+    def cfg(m):
+        return create_config(fri, zk=zk, hash=hash, mesh=m, zk_rng=zk_rng, zk_layout=zk_layout, device=mesh.device)
+
+    def prove_once(config):
+        timings = {}
+        return prove(config, air, trace, pis, timings=timings), timings
+
+    return _measured_prove(mesh, cfg, prove_once, lambda config, proof: verify(config, air, proof, pis),
+                           f"2^{log_n} rows", single, verify_it)
+
+
+def keccak_subset_air(names):
+    """keccak-air cut to the partitions ``names`` (the JAX package's
+    ``SubsetAir`` of its sharded wide test and dry run): the full width,
+    those partitions' constraints only."""
+    from ..air.air import BaseAir
+    from ..air.keccak_air import COLS, KeccakAir
+
+    keep = [p for p in KeccakAir().partitions() if p.name in set(names)]
+
+    class SubsetAir(BaseAir):
+        width = COLS
+
+        def partitions(self):
+            return keep
+
+        def eval(self, b):
+            for p in keep:
+                p.eval(b)
+
+    return SubsetAir()
+
+
+# the JAX package's dry-run subset (``_dryrun_wide_sharded_prove``)
+DRYRUN_PARTITIONS = ("flags", "theta0", "apdef0", "trans1")
+
+
+def prove_keccak_air(mesh, log_n: Optional[int] = None, perms: Optional[int] = None, hash: str = "poseidon2",
+                     zk: bool = False, benchmark_fri: bool = True, col_chunk: Optional[int] = None,
+                     trace_path: Optional[str] = None, single: bool = False, verify_it: bool = False,
+                     seed: int = 1, partitions=None) -> dict:
+    """Prove keccak-air through ``prove_wide`` on the mesh: BASELINE config
+    4 by default (Poseidon2, zk off, benchmark FRI).  The trace: loaded
+    from ``trace_path`` (an ``.npy`` of 0/1 bits), or ``perms`` random
+    permutations, or 2^log_n rows of them (``generate_trace(2^log_n //
+    24, seed)``, cut to 2^log_n rows, as the JAX package's benchmark
+    makes it).  ``partitions``: prove the ``keccak_subset_air`` of those
+    partitions.  Returns what ``prove_fib`` returns."""
+    from ..air.keccak_air import NUM_ROUNDS, KeccakAir, generate_trace
+    from ..fri.config import create_benchmark_fri_params
+    from ..prover import wide
+    from ..prover.config import create_config
+    from ..prover.verify import verify
+
+    dev = mesh.device
+    if trace_path is not None:
+        trace = torch.from_numpy(np.load(trace_path)).to(dev)
+        label = f"keccak-air {tuple(trace.shape)}"
+    elif log_n is not None:
+        trace = generate_trace((1 << log_n) // NUM_ROUNDS, seed=seed, device=dev)[: 1 << log_n]
+        label = f"keccak-air 2^{log_n}"
+    else:
+        trace = generate_trace(perms, seed=seed, device=dev)
+        label = f"keccak-air of {perms} permutations"
+    air = KeccakAir() if partitions is None else keccak_subset_air(partitions)
+    fri = create_benchmark_fri_params(1) if benchmark_fri else None
+
+    def cfg(m):
+        return create_config(fri, zk=zk, hash=hash, mesh=m, device=dev)
+
+    def prove_once(config):
+        timings = {}
+        return wide.prove_wide(config, air, trace, [], col_chunk=col_chunk, timings=timings), timings
+
+    return _measured_prove(mesh, cfg, prove_once, lambda config, proof: verify(config, air, proof, []),
+                           label, single, verify_it)
+
+
+def wide_source_blocks(mesh, trace: np.ndarray, log_blowup: int, col_chunk: int, zk_seed: Optional[int],
+                       points) -> dict:
+    """A ``ShardedWideSource`` of ``trace`` (uint8 bits) on the mesh: this
+    rank's block of every chunk's bit-reversed LDE, its rows 1 and 0 read
+    by block-local index, the columns' values at ``points`` (plain-frame
+    ext points), and the most rows of a chunk's randomizer that one of its
+    draws took."""
+    from ..fields import babybear as bb
+    from ..fri.domains import TwoAdicCoset
+    from ..ntt.dft import Dft
+    from ..prover.wide import ShardedWideSource
+
+    t = torch.from_numpy(trace).to(mesh.device)
+    src = ShardedWideSource(t, Dft(mesh.device), log_blowup, TwoAdicCoset(int(trace.shape[0]).bit_length() - 1, 1),
+                            mesh, col_chunk=col_chunk, zk_seed=zk_seed)
+    blocks = [bb.to_numpy(src.lde_br_chunk(off, wc)) for off, wc in src.chunks()]
+    return {"row0": src.row0, "blocks": blocks, "rows_1_0": bb.to_numpy(src[[1, 0]]),
+            "evals": [bb.to_numpy(v) for v in src.eval_at_points(points)], "rand_rows": src.rand_rows}
 
 
 def ntt_rank(mesh, cases) -> List[np.ndarray]:
@@ -324,7 +424,9 @@ def dryrun_rank(mesh, log_n: int) -> List[str]:
         timed(f"2-host pod ({mesh.size // 2} ranks a host) zk prove 2^{log_small}",
               lambda: pod_prove(mesh, log_small, single=True))
     timed("column-sharded kernels", lambda: _column_checks(mesh))
-    lines.append("the streamed wide prove on a mesh is ROADMAP A4b: not ported, not run")
+    timed(f"keccak-air {{{', '.join(DRYRUN_PARTITIONS)}}} wide prove, 3 permutations, 2048-column chunks",
+          lambda: prove_keccak_air(mesh, perms=3, seed=12, benchmark_fri=False, col_chunk=2048,
+                                   partitions=DRYRUN_PARTITIONS, single=True, verify_it=True))
     if log_n:
         timed(f"deep keccak zk prove 2^{log_n}", lambda: prove_fib(mesh, log_n, single=True, verify_it=True))
     return lines

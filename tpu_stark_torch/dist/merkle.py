@@ -11,13 +11,16 @@ subtree:
   subtree roots are all-gathered, and every rank builds the top log2(n)
   levels.  A hiding commit draws each matrix's salts for the rank's global
   rows: a counter-based rng (``DeviceRng``) draws only those rows
-  (``sample_lazy(h, 4).rows``, bit-exact), the host ``SmallRng`` draws the
+  (``sample_lazy(h, 4).block``, bit-exact), the host ``SmallRng`` draws the
   whole stream on every rank and slices it, so that every rank's rng state
   stays equal.  Only single-height commits are sharded (every commit of
-  ``prove()`` is); a multi-height one raises.
+  ``prove()`` is); a multi-height one raises.  ``commit_digest_blocks``
+  takes the rank's leaf digests ready-made (the streamed wide commit).
 * **openings**: the owner rank of a query opens its rows, salts and local
   path through the inner MMCS; the top path comes from the replicated top
-  levels; one all-reduce hands every opening to every rank.
+  levels; one all-reduce hands every opening to every rank.  A streamed
+  row block recomputes its rows with collectives, so every rank reads the
+  rows it owns first, none included.
 
 A replicated matrix (``commit``) takes the inner MMCS's own path.
 """
@@ -30,17 +33,49 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..commit.merkle import BatchOpening, Digest, MerkleTreeMmcs, ProverData, build_layers
+from ..commit.merkle import BatchOpening, Digest, MerkleTreeMmcs, ProverData, build_layers, build_layers_from_digests
 from ..fields import babybear as bb
 from .comm import RowMesh, block
 
 
-def draw_rows(rng, h: int, cols: int, r0: int, rows: int, device) -> torch.Tensor:
+def draw_rows(rng, h: int, cols: int, r0: int, rows: int, device):
     """Rows [r0, r0 + rows) of the rng's next (h, cols) Monty sample, with
-    the rng advanced as by the whole sample."""
+    the rng advanced as by the whole sample: (the rows, what a commit keeps
+    of them for its openings).  A counter-based rng draws only those rows
+    and keeps their ``LazyMatrix``; the host rng draws the whole sample and
+    keeps the rows."""
     if hasattr(rng, "sample_lazy"):
-        return rng.sample_lazy(h, cols).rows(torch.arange(r0, r0 + rows, dtype=torch.int64, device=device))
-    return bb.to_tensor(rng.sample_babybear_matrix_monty(h, cols)[r0 : r0 + rows], device)
+        lazy = rng.sample_lazy(h, cols).block(r0, rows)
+        return lazy.materialize(), lazy
+    vals = bb.to_tensor(rng.sample_babybear_matrix_monty(h, cols)[r0 : r0 + rows], device)
+    return vals, vals
+
+
+class _ReadRows:
+    """Rows of a committed row block read ahead of its openings, standing in
+    for it in the inner MMCS (which gathers them through ``rows``)."""
+
+    def __init__(self, idx: torch.Tensor, vals: torch.Tensor, shape):
+        order = torch.argsort(idx)
+        self._idx, self._vals = idx[order], vals[order]
+        self.shape = shape
+
+    def rows(self, idx) -> torch.Tensor:
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self._idx.device)
+        return self._vals[torch.searchsorted(self._idx, idx)]
+
+
+def _read_ahead(local: ProverData, rows_idx: List[int], rows: int) -> ProverData:
+    """``local`` with each streamed row block (a matrix with a ``mesh``,
+    ``prover.wide.ShardedWideSource``) replaced by its rows ``rows_idx``
+    read now: such a read recomputes the block with collectives, so every
+    rank makes it, the ranks that own no query too (with no rows)."""
+    if not any(getattr(m, "mesh", None) is not None for m in local.matrices):
+        return local
+    idx = torch.as_tensor(rows_idx, dtype=torch.int64, device=local.layers[0].device)
+    mats = [_ReadRows(idx, m[idx], (rows, int(m.shape[1]))) if getattr(m, "mesh", None) is not None else m
+            for m in local.matrices]
+    return dataclasses.replace(local, matrices=mats)
 
 
 @dataclasses.dataclass
@@ -80,6 +115,12 @@ class ShardedMmcs:
         self.largest_whole = max([self.largest_whole] + [int(m.shape[0]) for m in matrices])
         return self.inner.commit(matrices)
 
+    def commit_digests(self, matrix, digests: torch.Tensor, salts=None) -> Tuple[Digest, ProverData]:
+        """A replicated streamed commit (``MerkleTreeMmcs.commit_digests``):
+        every rank builds the whole tree."""
+        self.largest_whole = max(self.largest_whole, int(digests.shape[0]))
+        return self.inner.commit_digests(matrix, digests, salts)
+
     def commit_blocks(self, blocks: Sequence[torch.Tensor], height: int) -> Tuple[Digest, ShardedProverData]:
         """Commit matrices of global height ``height`` of which this rank
         holds the row blocks ``blocks``."""
@@ -90,14 +131,33 @@ class ShardedMmcs:
             raise ValueError("a multi-height commit cannot be sharded (every block must hold height / n rows)")
         salts = None
         if inner.hiding:
-            salts = [draw_rows(inner._rng, height, inner.SALT_ELEMS, r0, rows, b.device) for b in blocks]
-        layers = build_layers(inner, blocks, salts)
+            salts = [draw_rows(inner._rng, height, inner.SALT_ELEMS, r0, rows, b.device)[0] for b in blocks]
+        return self._commit_layers(build_layers(inner, blocks, salts), blocks, salts, height)
+
+    def commit_digest_blocks(self, matrix, digests: torch.Tensor, height: int,
+                             salts=None) -> Tuple[Digest, ShardedProverData]:
+        """Commit one matrix of global height ``height`` whose leaf digests
+        of this rank's rows are already computed (the streamed wide commit
+        on a mesh): the rank's subtree, the gathered subroots and the top.
+        ``matrix`` reads the rank's rows by block-local index; a hiding MMCS
+        takes the salts of those rows that the leaves absorbed."""
+        if self.inner.hiding != (salts is not None):
+            raise ValueError("a hiding commit needs the salts its leaves absorbed, and only a hiding one")
+        if int(digests.shape[0]) != block(self.mesh, height)[1]:
+            raise ValueError(f"{digests.shape[0]} leaf digests are not a rank's block of {height} rows")
+        layers = build_layers_from_digests(self.inner, digests, int(digests.shape[0]))
+        return self._commit_layers(layers, [matrix], None if salts is None else [salts], height)
+
+    def _commit_layers(self, layers, matrices, salts, height: int) -> Tuple[Digest, ShardedProverData]:
+        """The rank's subtree ``layers`` under the gathered subroots and the
+        replicated top levels."""
+        inner, mesh = self.inner, self.mesh
         top = [mesh.all_gather(layers[-1], "subroots")]
         if mesh.size > 1:
             top += inner.compress_layers(top[0], mesh.log_size)
         root = inner._root(top)
-        local = ProverData(blocks, salts, layers, inner._root(layers))
-        return root, ShardedProverData(local, top, root, height, r0)
+        local = ProverData(matrices, salts, layers, inner._root(layers))
+        return root, ShardedProverData(local, top, root, height, block(mesh, height)[0])
 
     def open_batch(self, index: int, data) -> BatchOpening:
         return self.open_batch_many([index], data)[0]
@@ -118,8 +178,9 @@ class ShardedMmcs:
         width = sum(widths) + n_salt * len(widths) + sub_log * words
         buf = np.zeros((len(idx), width), dtype=np.int64)
         owned = [q for q, i in enumerate(idx) if data.row0 <= i < data.row0 + rows]
+        local = _read_ahead(data.local, [idx[q] - data.row0 for q in owned], rows)
         if owned:
-            local = inner.open_batch_many([idx[q] - data.row0 for q in owned], data.local)
+            local = inner.open_batch_many([idx[q] - data.row0 for q in owned], local)
             for q, op in zip(owned, local):
                 vals = list(op.opened_values) + (list(op.opened_salts) if op.opened_salts is not None else [])
                 digests = np.array([w for dg in op.proof for w in dg], dtype=np.uint64)

@@ -137,6 +137,46 @@ def scale_rows_by_powers(mesh: RowMesh, x: torch.Tensor, log_h: int, base: int) 
     return bb.mul_canonical(x, row_powers(mesh, log_h, base % bb.P, x.device)[:, None])
 
 
+def move_rows(mesh: RowMesh, held, pieces, wanted, name: str = "move_rows"):
+    """Rows of a global matrix moved to the ranks that want them, in one
+    all-to-all.  ``held(j)``: the (first row, rows) intervals that rank j
+    holds, disjoint over the ranks, and ``pieces`` this rank's tensors of
+    its intervals; ``wanted(j)``: the intervals rank j needs.  Returns a
+    tensor per wanted interval of this rank; a row that no rank holds is
+    zero.  Every rank knows every rank's intervals, so the counts need no
+    collective of their own."""
+    n, d = mesh.size, mesh.rank
+    mine = list(held(d))
+    like = pieces[0]
+
+    def segments(want, have):
+        """(wanted interval, held interval, first row, rows) of each
+        overlap, in the order the rows travel."""
+        out = []
+        for wi, (w0, wc) in enumerate(want):
+            for hi, (h0, hc) in enumerate(have):
+                a, b = max(w0, h0), min(w0 + wc, h0 + hc)
+                if a < b:
+                    out.append((wi, hi, a, b - a))
+        return out
+
+    parts = []
+    for j in range(n):
+        segs = segments(list(wanted(j)), mine)
+        parts.append(torch.cat([pieces[hi][a - mine[hi][0] : a - mine[hi][0] + c] for _, hi, a, c in segs])
+                     if segs else like[:0])
+    want = list(wanted(d))
+    plan = [segments(want, list(held(j))) for j in range(n)]
+    got = mesh.all_to_all_rows(parts, [sum(seg[3] for seg in segs) for segs in plan], name)
+    out = [torch.zeros((c, int(like.shape[1])), dtype=like.dtype, device=like.device) for _, c in want]
+    for rows, segs in zip(got, plan):
+        pos = 0
+        for wi, _, a, c in segs:
+            out[wi][a - want[wi][0] : a - want[wi][0] + c] = rows[pos : pos + c]
+            pos += c
+    return out
+
+
 def reshard_rows(mesh: RowMesh, x: torch.Tensor, h_in: int, h_out: int, name: str = "reshard") -> torch.Tensor:
     """The height-h_in sharded matrix cut to its first h_out rows, or
     zero-extended to h_out rows, in blocks of h_out / n rows (the zero pad
@@ -148,21 +188,10 @@ def reshard_rows(mesh: RowMesh, x: torch.Tensor, h_in: int, h_out: int, name: st
         raise ValueError(f"cannot reshard {tuple(x.shape)} blocks of {h_in} rows into {h_out} over {n} ranks")
     live = min(h_in, h_out)
 
-    def overlap(a0, a1, b0, b1):
-        lo_, hi_ = max(a0, b0, 0), min(a1, b1, live)
-        return lo_, max(lo_, hi_)
+    def held(j):
+        return [(j * li, max(0, min(li, live - j * li)))]
 
-    parts, recv = [], []
-    for j in range(n):
-        s0, s1 = overlap(d * li, (d + 1) * li, j * lo, (j + 1) * lo)
-        parts.append(x[s0 - d * li : s1 - d * li])
-        r0, r1 = overlap(j * li, (j + 1) * li, d * lo, (d + 1) * lo)
-        recv.append(r1 - r0)
-    got = mesh.all_to_all_rows(parts, recv, name)
-    out = torch.zeros((lo, int(x.shape[1])), dtype=x.dtype, device=x.device)
-    rows = torch.cat(got, dim=0)
-    out[: rows.shape[0]] = rows
-    return out
+    return move_rows(mesh, held, [x[: held(d)[0][1]]], lambda j: [(j * lo, lo)], name)[0]
 
 
 def pad_rows(mesh: RowMesh, x: torch.Tensor, log_h: int, added_bits: int) -> torch.Tensor:

@@ -90,7 +90,7 @@ class ShardedPcs(TwoAdicFriPcs):
         k = self.num_random_codewords
         if self._is_block(domain, evals):
             r0, rows = block(self.mesh, domain.size)
-            return draw_rows(self.rng, domain.size, k, r0, rows, evals.device)
+            return draw_rows(self.rng, domain.size, k, r0, rows, evals.device)[0]
         return bb.to_tensor(self.rng.sample_babybear_matrix_monty(domain.size, k), evals.device)
 
     def commit(self, domains_and_evals: Sequence[Tuple[TwoAdicCoset, torch.Tensor]], _randomize: bool = True):
@@ -160,7 +160,9 @@ class ShardedPcs(TwoAdicFriPcs):
     def _eval_points(self, data: PcsProverData, m_idx: int, zs: Sequence[ExtPoint]) -> List[torch.Tensor]:
         rc = data.r_coeffs[m_idx]
         domain = data.domains[m_idx]
-        if not zs or not self._is_block(domain, rc):
+        # a streamed wide matrix sums its own coefficient rows (all-reducing
+        # them when it is held in rank blocks)
+        if not zs or hasattr(rc, "eval_at_points") or not self._is_block(domain, rc):
             return super()._eval_points(data, m_idx, zs)
         # the rank's coefficient rows [r0, r0 + rows) against z^(r0 + t),
         # reduced on the rank, then summed mod p over the ranks
@@ -182,6 +184,8 @@ class ShardedPcs(TwoAdicFriPcs):
         return 0, 1 << log_h
 
     def _own_rows(self, mat, log_h: int):
+        if getattr(mat, "mesh", None) is not None:  # a streamed source in rank blocks: its rows already
+            return mat
         r0, rows = self._row_range(log_h)
         if int(mat.shape[0]) == rows:
             return mat

@@ -28,11 +28,18 @@ products several times that.  Here:
   evaluations, the reduced openings and the query rows
   (``commit/pcs.py`` dispatches on ``eval_at_points`` / ``reduced_contrib``).
 
+On a mesh (``create_config(mesh=make_row_mesh())``) every rank holds the
+compact trace whole and runs the same steps: its block of each chunk's LDE
+(``ShardedWideSource``: the whole iNTT on K2, its randomizer rows, the
+exchange-stage NTT of ``dist/ntt.py``), its leaves and subtree under
+``ShardedMmcs``, a share of the quotient's partitions summed over the
+ranks, and the open phase on its rows.  GSPMD does this for the JAX
+package's same code; here each consumer of the source is rank-aware.
+
 Proofs are byte-identical to the JAX package's, and to the dense prover's
-wherever both fit (zk: with one column chunk).  Not ported: the sharded
-mesh path (ROADMAP A4b: a sharded config raises), and the JAX package's
-per-partition-class program cache and 64-column panel padding, which exist
-only to bound XLA compiles.
+wherever both fit (zk: with one column chunk), on a mesh too.  Not ported:
+the JAX package's per-partition-class program cache and 64-column panel
+padding, which exist only to bound XLA compiles.
 """
 
 from __future__ import annotations
@@ -50,6 +57,10 @@ from ..commit.pcs import (
 )
 from ..commit.poseidon2_mmcs import Poseidon2Mmcs
 from ..compat.device_rng import DeviceRng, _sample_monty, fold_in
+from ..dist import ntt as dntt
+from ..dist.comm import block
+from ..dist.merkle import draw_rows
+from ..dist.pcs import _min_sharded_log_h
 from ..fields import babybear as bb
 from ..fields import extension as ext4
 from ..fields import ref_field as rf
@@ -125,6 +136,9 @@ class WideMatrixSource:
         # relabeling scale onto the plain frame (as pcs.commit): canonical powers
         sigma = (bb.GENERATOR * rf.finv(domain.shift)) % bb.P
         self._sigma_pows = bb.powers(sigma, self.n_committed, self.device)
+        # the LDE rows this process holds: all of them, unless a mesh holds
+        # the source in rank blocks (ShardedWideSource)
+        self.mesh, self.row0, self.block_h = None, 0, self.lde_h
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -193,7 +207,10 @@ class WideMatrixSource:
 
     # -- PCS hooks -------------------------------------------------------------
     def __getitem__(self, rows) -> torch.Tensor:
-        """Full LDE rows at the given bit-reversed indices, all at once."""
+        """Full LDE rows at the given bit-reversed indices (or a slice of
+        them), all at once."""
+        if isinstance(rows, slice):
+            rows = torch.arange(self.block_h, device=self.device)[rows]
         rows = torch.as_tensor(rows, device=self.device)
         return torch.cat([self.lde_br_chunk(off, wc)[rows] for off, wc in self.chunks()], dim=1)
 
@@ -218,11 +235,118 @@ class WideMatrixSource:
             c = _combine_columns(self.lde_br_chunk(off, wc), apows[off : off + wc])
             combined = c if combined is None else ext4.add(combined, c)
         s = _opened_sum(apows, p_z)
-        rows = _block_plan(self.lde_h, self.col_chunk)[0]
-        out = torch.empty((self.lde_h, 4), dtype=bb.I32, device=self.device)
-        for r0 in range(0, self.lde_h, rows):
+        h = int(combined.shape[0])  # the rows this process holds
+        rows = _block_plan(h, self.col_chunk)[0]
+        out = torch.empty((h, 4), dtype=bb.I32, device=self.device)
+        for r0 in range(0, h, rows):
             out[r0 : r0 + rows] = _over_y_minus_z(combined[r0 : r0 + rows], s, z_dev, y_br[r0 : r0 + rows])
         return out
+
+
+class ShardedWideSource(WideMatrixSource):
+    """A ``WideMatrixSource`` on a row mesh (the JAX package's
+    ``_tf_coeffs_mesh`` and mesh ``lde_br_chunk``): every rank holds the
+    compact trace whole and its block of each chunk's LDE, ``block_h`` =
+    lde_h / ranks rows from ``row0``.  Per chunk:
+
+    * the iNTT runs whole on the rank (K2, no collective);
+    * zk: rank d draws the rows [d * m, (d + 1) * m) of the chunk's
+      randomizer, m = n / ranks, never its whole (n, wc) stream, and the
+      rows that the ranks' LDE blocks read under [q - r ; r] travel in one
+      all-to-all (``dist.ntt.move_rows``);
+    * the rank builds its block of the zero-padded plain-frame coefficients
+      locally (rows past n_committed are zero), and ``dist.ntt.dft_br``
+      (K2's local stages, the exchange stages) gives its block of the
+      bit-reversed codeword, the rows of the single-device ``lde_br_chunk``.
+
+    The point sums dot the coefficient rows the rank drew with z^i and
+    all-reduce mod p once; ``reduced_contrib`` and the row reads (by
+    block-local index) work on the rank's block.  Every method that reads
+    LDE rows is collective: every rank calls it."""
+
+    def __init__(self, trace, dft, log_blowup: int, domain: TwoAdicCoset, mesh, col_chunk: Optional[int] = None,
+                 zk_seed: Optional[int] = None):
+        super().__init__(trace, dft, log_blowup, domain, col_chunk=col_chunk, zk_seed=zk_seed)
+        self.mesh = mesh
+        self.row0, self.block_h = block(mesh, self.lde_h)
+        self._m = self.n // mesh.size  # the randomizer rows of a chunk that each rank draws
+        self.rand_rows = 0  # the most rows of a chunk's randomizer that one draw took
+
+    def _rand_rows(self, chunk_idx: int, wc: int, r0: int, rows: int) -> torch.Tensor:
+        """Rows [r0, r0 + rows) of chunk ``chunk_idx``'s (n, wc) randomizer."""
+        self.rand_rows = max(self.rand_rows, rows)
+        return _sample_monty(fold_in(self._zk_key, chunk_idx), rows, wc, self.device, row0=r0)
+
+    def _block_rows(self, j: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of the coefficient rows under rank j's LDE
+        block: its rows of q (- r), and in zk its rows of r (as rows of r)."""
+        r0, n = j * self.block_h, self.n
+        out = [(r0, max(0, min(r0 + self.block_h, n) - r0))]
+        if self.zk:
+            a = max(r0, n)
+            out.append((a - n, max(0, min(r0 + self.block_h, 2 * n) - a)))
+        return out
+
+    def lde_br_chunk(self, off: int, wc: int) -> torch.Tensor:
+        """(block_h, wc): the rank's rows of the bit-reversed committed
+        codeword columns [off, off + wc)."""
+        q = self.dft.idft_batch(bb.from_u32(self.trace[:, off : off + wc]))
+        spans = self._block_rows(self.mesh.rank)
+        (a, k) = spans[0]
+        pad = torch.zeros((self.block_h, wc), dtype=bb.I32, device=self.device)
+        live = k
+        if self.zk:
+            m = self._m
+            mine = self._rand_rows(off // self.col_chunk, wc, self.mesh.rank * m, m)
+            r_lo, r_hi = dntt.move_rows(self.mesh, lambda j: [(j * m, m)], [mine], self._block_rows, "randomizer")
+            pad[:k] = bb.sub(q[a : a + k], r_lo)
+            a2, k2 = spans[1]
+            if k2:
+                at = self.n + a2 - self.row0
+                pad[at : at + k2] = r_hi
+                live = at + k2
+        else:
+            pad[:k] = q[a : a + k]
+        del q
+        pad[:live] = bb.mul_canonical(pad[:live], self._sigma_pows[self.row0 : self.row0 + live, None])
+        return dntt.dft_br(self.mesh, pad, log2_strict(self.lde_h))
+
+    def eval_at_points(self, points) -> List[torch.Tensor]:
+        """A (w, 4) Monty tensor per plain-frame point: the rank sums the
+        coefficient rows it draws (rows [d * m, (d + 1) * m) of q - r, and
+        of r at n + d * m) against z^i, then one all-reduce mod p sums the
+        ranks' values for every chunk and point."""
+        dev, m = self.device, self._m
+        s = self.mesh.rank * m
+        starts = [s, self.n + s] if self.zk else [s]
+        zpows = [[ext4.mul(ext4.powers_device(z, m, dev), ext4.scalar(rf.epow(z, st), dev)[None, :]) for st in starts]
+                 for z in points]
+        parts: List[List[torch.Tensor]] = [[] for _ in points]
+        for off, wc in self.chunks():
+            q = self.dft.idft_batch(bb.from_u32(self.trace[:, off : off + wc]))[s : s + m]
+            held = [q]
+            if self.zk:
+                r = self._rand_rows(off // self.col_chunk, wc, s, m)
+                held = [bb.sub(q, r), r]
+            held = [bb.mul_canonical(h, self._sigma_pows[st : st + m, None]) for h, st in zip(held, starts)]
+            for part, zp in zip(parts, zpows):
+                vals = [_eval_at_point(h, zpow) for h, zpow in zip(held, zp)]
+                part.append(vals[0] if len(vals) == 1 else ext4.add(vals[0], vals[1]))
+        local = torch.stack([torch.cat(part, dim=0) for part in parts])
+        return list(self.mesh.all_reduce_mod_p(local, "point_sums"))
+
+
+def wide_source(trace, pcs, domain: TwoAdicCoset, col_chunk: Optional[int] = None,
+                zk_seed: Optional[int] = None) -> WideMatrixSource:
+    """The streamed source for ``pcs``: on a mesh, rank blocks from the
+    height at which the JAX package shards its transforms (n >= ranks^2,
+    ``dist.pcs._min_sharded_log_h``); below it, and without a mesh, the
+    single-device source (a mesh commits it whole)."""
+    mesh = getattr(pcs, "mesh", None)
+    args = (trace, pcs.dft, pcs.fri.log_blowup, domain)
+    if mesh is not None and domain.log_n >= _min_sharded_log_h(mesh):
+        return ShardedWideSource(*args, mesh, col_chunk=col_chunk, zk_seed=zk_seed)
+    return WideMatrixSource(*args, col_chunk=col_chunk, zk_seed=zk_seed)
 
 
 # ---------------------------------------------------------------------------
@@ -264,42 +388,39 @@ class P2RowStream:
         return self._state[:, :OUT].contiguous()
 
 
-def _wide_salts(mmcs, lde_h: int, device):
-    """A hiding MMCS's salts for the streamed commit, drawn from its rng as
-    the dense commit draws them: (the salt matrix, what the prover data
-    keeps).  A counter-based rng keeps only the draw (``LazyMatrix``)."""
-    if not mmcs.hiding:
-        return None, None
-    rng = mmcs._rng
-    if hasattr(rng, "sample_lazy"):
-        handle = rng.sample_lazy(lde_h, mmcs.SALT_ELEMS)
-        return handle.materialize(), handle
-    salts = bb.to_tensor(rng.sample_babybear_matrix_monty(lde_h, mmcs.SALT_ELEMS), device)
-    return salts, salts
-
-
 def commit_wide(pcs, domain: TwoAdicCoset, source: WideMatrixSource) -> Tuple[tuple, PcsProverData]:
     """Streamed ``pcs.commit([(domain, evals)])`` for one wide matrix: the
     same Merkle root, no materialized LDE, on either stack, hiding included
-    (the salts absorbed after the row values, as the dense leaves hash
-    them).  Chunks run one after another (a device sync each), so one
-    chunk's LDE is alive at a time."""
+    (the salts, drawn as the dense commit draws them and kept as their
+    ``LazyMatrix`` on a counter-based rng, absorbed after the row values,
+    as the dense leaves hash them).  Chunks run one after another (a device
+    sync each), so one chunk's LDE is alive at a time.  On a mesh a
+    ``ShardedWideSource`` absorbs its rows and salts and builds its subtree
+    (``ShardedMmcs.commit_digest_blocks``); a single-device source is
+    committed whole on every rank."""
     mmcs = pcs.val_mmcs
+    inner = getattr(mmcs, "inner", mmcs)  # a mesh's ShardedMmcs wraps the stack's MMCS
     if mmcs.hiding and pcs.zk_layout != "tpu":
         raise ValueError("a hiding streamed commit needs zk_layout='tpu' (the p3 layout appends dense "
                          "random columns: use the dense prover)")
-    salt_mat, salt_store = _wide_salts(mmcs, source.lde_h, source.device)
-    if isinstance(mmcs, Poseidon2Mmcs):  # rows hash as their Monty values
-        stream, feed = P2RowStream(source.lde_h, source.device), (lambda m: m)
+    salt_mat = salt_store = None
+    if mmcs.hiding:
+        salt_mat, salt_store = draw_rows(inner._rng, source.lde_h, inner.SALT_ELEMS, source.row0, source.block_h,
+                                         source.device)
+    if isinstance(inner, Poseidon2Mmcs):  # rows hash as their Monty values
+        stream, feed = P2RowStream(source.block_h, source.device), (lambda m: m)
     else:  # Keccak: rows hash in canonical u32 form
-        stream, feed = KeccakRowStream(source.lde_h, source.device), bb.to_u32
+        stream, feed = KeccakRowStream(source.block_h, source.device), bb.to_u32
     for off, wc in source.chunks():
         stream.absorb_cols(feed(source.lde_br_chunk(off, wc)))
         _sync(source.device)
     if salt_mat is not None:
         stream.absorb_cols(feed(salt_mat))
     del salt_mat
-    root, data = mmcs.commit_digests(source, stream.finalize(), salt_store)
+    if source.mesh is not None:
+        root, data = mmcs.commit_digest_blocks(source, stream.finalize(), source.lde_h, salt_store)
+    else:
+        root, data = mmcs.commit_digests(source, stream.finalize(), salt_store)
     return root, PcsProverData(data, [source], [domain], [source.w])
 
 
@@ -392,6 +513,21 @@ def _panel_on_coset(dft, tf: torch.Tensor, log_m: int, shift: int) -> torch.Tens
     return dft.dft_batch(bb.mul_canonical(fold, bb.powers(shift, m, tf.device)[:, None]))
 
 
+def partition_share(air: BaseAir, mesh) -> List[int]:
+    """The partitions that this rank of ``mesh`` evaluates in the streamed
+    quotient: in turn, the widest panel first, each goes to the rank with
+    the fewest panel columns so far (ties to the lower rank)."""
+    sizes = [len(_panel_cols(part)[0]) for part in air.partitions()]
+    load = [0] * mesh.size
+    mine = []
+    for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
+        r = min(range(mesh.size), key=lambda r: (load[r], r))
+        load[r] += sizes[i]
+        if r == mesh.rank:
+            mine.append(i)
+    return sorted(mine)
+
+
 def quotient_chunks_streamed(
     air: BaseAir,
     source: WideMatrixSource,
@@ -401,6 +537,7 @@ def quotient_chunks_streamed(
     pis: Sequence[torch.Tensor],
     panel_budget: int = PANEL_BUDGET,
     min_block_log: int = MIN_BLOCK_LOG,
+    mesh=None,
 ) -> Tuple[List[TwoAdicCoset], List[torch.Tensor]]:
     """Quotient chunk values, one (n, 4) ext matrix per quotient coset: the
     dense quotient pass's values split ``[j::qd]``.  Each partition's
@@ -409,7 +546,12 @@ def quotient_chunks_streamed(
     shift_j * g^(k + r*t), the next rows are block k+1's (the last block's
     are block 0's, shifted by one row), the selectors are the coset's own
     at those rows, and the alpha-folded constraints add into rows k::r of
-    the coset's accumulator."""
+    the coset's accumulator.
+
+    On a ``mesh`` each rank evaluates its ``partition_share`` over the
+    whole height (its trace is whole: no collective), and one all-reduce
+    mod p of the accumulators gives every rank the whole chunks (field
+    addition is exact and commutative: the single-device values)."""
     dev = source.device
     n = source.n
     log_n = trace_domain.log_n
@@ -421,7 +563,10 @@ def quotient_chunks_streamed(
     counts = partition_counts(air, len(pis))
     offs = np.concatenate([[0], np.cumsum(counts)])
     accs = [ext4.zero((n,), dev) for _ in range(qd)]
+    share = set(range(len(counts))) if mesh is None else set(partition_share(air, mesh))
     for p_idx, part in enumerate(air.partitions()):
+        if p_idx not in share:
+            continue
         cols, local_pos, next_pos = _panel_cols(part)
         local_pos = torch.as_tensor(local_pos, device=dev)
         next_pos = torch.as_tensor(next_pos, device=dev)
@@ -451,6 +596,8 @@ def quotient_chunks_streamed(
                 cur = nxt
             del wrap
         del tf
+    if mesh is not None and mesh.size > 1:
+        accs = list(mesh.all_reduce_mod_p(torch.stack(accs), "quotient_sums"))
     chunks = [ext4.mul_base(accs[j], selectors[j]["inv_zeroifier"]) for j in range(qd)]
     return chunk_domains, chunks
 
@@ -476,9 +623,12 @@ def prove_wide(
     regenerated per column chunk).  If ``timings`` is a dict, the device is
     synchronized at each phase boundary and the phase wall times (s) are
     stored in it: trace_lde (the trace upload), trace_commit, quotient,
-    quotient_commit, open."""
-    if getattr(config.pcs, "mesh", None) is not None:
-        raise NotImplementedError("the streamed wide prove on a mesh (ROADMAP A4b) is not ported yet")
+    quotient_commit, open.
+
+    On a mesh (``create_config(mesh=...)``) every rank runs this with the
+    whole trace: the trace's LDE lives in rank blocks
+    (``ShardedWideSource``), the quotient is shared out by partition, and
+    every rank ends with the single-device proof."""
     if air.partitions() is None:
         raise ValueError("the wide prover needs air.partitions() (see air.keccak_air.Partition)")
     if config.zk and config.zk_rng != "device":
@@ -498,8 +648,7 @@ def prove_wide(
     log_qd = get_log_quotient_degree(air, len(public_values), config.zk)
 
     trace_domain = pcs.natural_domain_for_degree(n)
-    source = WideMatrixSource(trace, pcs.dft, pcs.fri.log_blowup, trace_domain, col_chunk=col_chunk,
-                              zk_seed=config.rng_seed if config.zk else None)
+    source = wide_source(trace, pcs, trace_domain, col_chunk=col_chunk, zk_seed=config.rng_seed if config.zk else None)
     mark("trace_lde")
     committed_domain = pcs.natural_domain_for_degree(source.n_committed)
     trace_commit, trace_data = commit_wide(pcs, committed_domain, source)
@@ -513,7 +662,7 @@ def prove_wide(
     alpha_pows_dev, pis_dev = constraint_inputs(air, public_values, alpha, dev)
     chunk_domains, chunks = quotient_chunks_streamed(
         air, source, trace_domain, log_qd, alpha_pows_dev,
-        [pis_dev[i] for i in range(len(public_values))], panel_budget, min_block_log,
+        [pis_dev[i] for i in range(len(public_values))], panel_budget, min_block_log, getattr(pcs, "mesh", None),
     )
     mark("quotient")
     quotient_commit, quotient_data = pcs.commit(list(zip(chunk_domains, chunks)))
