@@ -143,10 +143,22 @@ line each, any failure an uncaught exception and a nonzero exit:
     prove_keccak_air``; every rank's wall clock, peak, bytes sent and
     staged, and launches printed); the ranks load the library phase 1
     built and return their kernels' operand shapes for phase 13;
+23. the speed-of-light report (``tpu_stark_torch.bench.sol.run()`` at full
+    size; launch counts reset just before it, read just after, its operand
+    shapes noted): the card's mul, alu and stream roofs measured by the
+    probe kernels of ``csrc/sol_probes.cu`` (each > 0, the stream at most
+    the data sheet's 3.35 TB/s, each probe launched), the 9 kernels of the
+    JAX package's list each scored in (0, 100] on its binding roof or
+    flagged, and its compact block as ``bench.ntt`` prints it; each probe
+    against its plain twin, exact, timed beside its bound (the stream
+    beside ``torch.add``); then ``bench.hash``'s two lines (K1, K3) and
+    ``bench.narrow_ntt``'s seven shapes, its k2 and mxu routes
+    bit-identical, each twin a main path of its own (launch counts reset
+    just before it, read just after, its operand shapes noted);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
     phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
-    the ranks of phase 22 (a) to (e)
+    the ranks of phase 22 (a) to (e), phase 23's report and its two twins
     (the query blocks' leaf and compress layers, the recomputed
     transforms) called its wrapper with (the plain versions on slices of
     at most 2^22 rows or 2^26 elements), printing the shapes only phase 21
@@ -166,9 +178,12 @@ line each, any failure an uncaught exception and a nonzero exit:
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
 summed over the main paths, and by path in ``launches_by_path``: the five
 warm proves, phase 17's five runs, phase 20's prove, phase 21's 2^24 prove
-with the levers and every rank of phase 22 (a) to (e), each under its path
-name: config2-nccl, config5-sharded, dryrun, config4-nccl and
-keccak-air-zk-sharded; time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
+with the levers, every rank of phase 22 (a) to (e) and phase 23's report
+and twins,
+each under its path name: config2-nccl, config5-sharded, dryrun,
+config4-nccl, keccak-air-zk-sharded, sol, bench-hash and
+bench-narrow-ntt; the three SoL probes join it,
+each against its twin at phase 23's shapes; time, plain time and the bound of each kernel at the shape it was timed; the largest error of phases 2-21), and
 last ``{"ok": true, "device": {...}}``.  Exits nonzero without a result when
 CUDA is unavailable or the package is missing.
 
@@ -397,7 +412,10 @@ def import_port():
     from tpu_stark_torch import kernels
     from tpu_stark_torch.air import keccak_air, poseidon2_air
     from tpu_stark_torch.app.__main__ import main as app_main
-    from tpu_stark_torch.bench import harness
+    from tpu_stark_torch.bench import harness, sol
+    from tpu_stark_torch.bench import hash as bench_hash
+    from tpu_stark_torch.bench import narrow_ntt as bench_narrow_ntt
+    from tpu_stark_torch.bench import ntt as bench_ntt
     from tpu_stark_torch.bench import prove as bench_prove
     from tpu_stark_torch.challenger import grind
     from tpu_stark_torch.challenger.challenger import Challenger, HashChallenger
@@ -545,12 +563,17 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         elif kind == "mod_matmul_axis":
             x = rand_monty((n, key[2]))
             both = [mx.limbs_on(n, inverse, x.device) for inverse in (False, True)]
+            step = max(1, PLAIN_ELEMS // n)  # column slices of at most PLAIN_ELEMS elements
             got = torch.stack([mx.mod_matmul_axis(x, w) for w in both])
-            want = torch.stack([mx.mod_matmul_axis_plain(x, w) for w in both])
+            want = torch.stack([torch.cat([mx.mod_matmul_axis_plain(x[:, c : c + step], w)
+                                           for c in range(0, key[2], step)], dim=1) for w in both])
         elif kind == "mod_matmul_twiddle_moved":
             x = rand_monty((n, key[2], key[3]))
             w, tw = mx.limbs_on(n, key[4], x.device), mx.twiddles_on(key[2], n, key[4], x.device)
-            got, want = mx.mod_matmul_twiddle_moved(x, w, tw), mx.mod_matmul_twiddle_moved_plain(x, w, tw)
+            step = max(1, PLAIN_ELEMS // (n * key[2]))  # slices of the trailing axis
+            got = mx.mod_matmul_twiddle_moved(x, w, tw)
+            want = torch.cat([mx.mod_matmul_twiddle_moved_plain(x[:, :, r : r + step], w, tw)
+                              for r in range(0, key[3], step)], dim=2)
         elif kind == "grind_verdicts":
             pre, tail = rand_u32((25, 2)).view(torch.int64).view(25), rand_u32((key[2], 34)).view(torch.int64)
             got = port.grind.verdicts(0, n, pre, tail, key[3], key[4])
@@ -1425,6 +1448,136 @@ def _phase22_sharded(torch, port, dev, seen, smi: str, log_a: int = 20, log_b: i
                   "config4-nccl": launches_d, "keccak-air-zk-sharded": launches_e}
 
 
+# phase 23: each probe of bench/sol.py against its plain twin, the mul and
+# alu probes at sol.py's n with one rep (16 dependent steps of 16 chains a
+# column), the stream at its 2^27 words; int32 instructions a step, read off
+# the probes' SASS: the mul probe's Montgomery product against a vector
+# operand (IMAD.WIDE, IMAD, IMAD.HI, ISETP and three adds), the alu probe's
+# two funnel shifts and one LOP3
+SOL_MUL_STEP_OPS = 7
+SOL_ALU_STEP_OPS = 3
+SOL_STREAM_N = 1 << 27
+
+
+def _sol_probe_rows(torch, port, dev, report, results) -> str:
+    """Each SoL probe kernel against its plain twin on the same inputs,
+    exact, timed beside its bound (and the stream beside ``torch.add``);
+    fills ``results`` and returns the line's part."""
+    sol = port.sol
+    n, ilp = sol._N, sol._ILP
+    steps = sol._INNER * ilp * n
+    parts = []
+
+    def row(name, err, ms, plain_ms, bound, extra):
+        results[name] = (err, ms, plain_ms, *bound, extra)
+        parts.append(f"{name} {ms:.4f} ms vs plain {plain_ms:.3f} ms, {100 * bound[0] / ms:.1f}% of its bound "
+                     f"{bound[0]:.4f} ms ({bound[1]})")
+
+    x, tw = sol.mul_operands(n, dev)
+    err = _max_abs_err(torch, sol.mul_chain(x, tw, 1), sol.mul_chain_plain(x, tw, 1))
+    row("sol_mul_probe", err, _cuda_ms(torch, lambda: sol.mul_chain(x, tw, 1), 10),
+        _cuda_ms(torch, lambda: sol.mul_chain_plain(x, tw, 1), 1),
+        _bound(4 * (2 * ilp * n + n), steps * SOL_MUL_STEP_OPS),
+        {"shape": [ilp, n], "reps": 1, "roof_mul_op_s": report["roofs"]["mul"]})
+    del x, tw
+    x = sol.alu_operands(n, dev)
+    err = _max_abs_err(torch, sol.alu_chain(x, 1), sol.alu_chain_plain(x, 1))
+    row("sol_alu_probe", err, _cuda_ms(torch, lambda: sol.alu_chain(x, 1), 10),
+        _cuda_ms(torch, lambda: sol.alu_chain_plain(x, 1), 1),
+        _bound(8 * ilp * n, steps * SOL_ALU_STEP_OPS),
+        {"shape": [ilp, n], "reps": 1, "roof_alu_op_s": report["roofs"]["alu"]})
+    del x
+    x = torch.arange(SOL_STREAM_N, dtype=torch.int32, device=dev)
+    y, z = x.clone(), torch.empty_like(x)
+    err = _max_abs_err(torch, sol.stream_step(x), sol.stream_step_plain(y))
+    library_ms = _cuda_ms(torch, lambda: torch.add(y, 1, out=z), 10)
+    row("sol_hbm_probe", err, _cuda_ms(torch, lambda: sol.stream_step(x), 10),
+        _cuda_ms(torch, lambda: sol.stream_step_plain(y), 10), _bound(8 * SOL_STREAM_N, SOL_STREAM_N),
+        {"shape": [SOL_STREAM_N], "library_ms": round(library_ms, 6), "roof_hbm_b_s": report["roofs"]["hbm"]})
+    parts[-1] += f", torch.add {library_ms:.4f} ms"
+    del x, y, z
+    torch.cuda.synchronize()
+    bad = {name: results[name][0] for name in ("sol_mul_probe", "sol_alu_probe", "sol_hbm_probe")
+           if results[name][0]}
+    if bad:
+        raise AssertionError(f"SoL probe != its plain twin: {bad}")
+    return "; ".join(parts)
+
+
+def _phase23_sol(torch, port, dev, seen, smi: str, results):
+    """The speed-of-light report (``bench/sol.py``) at full size on the
+    card (the main path: launch counts reset just before it, read just
+    after, its operand shapes noted): every roof > 0, the stream roof at
+    most the data sheet's 3.35 TB/s, every probe launched, each of the 9
+    kernels scored in (0, 100] on a roof or flagged; its compact block as
+    ``bench.ntt`` prints it; each probe against its plain twin; then
+    ``bench.hash``'s two lines and ``bench.narrow_ntt``'s seven shapes, its
+    two routes bit-identical, each twin a path of its own (``bench-hash``,
+    ``bench-narrow-ntt``: counts reset just before it, read just after, its
+    operand shapes noted for phase 13).  Returns (the phase's lines,
+    {path: launches})."""
+    kernels, sol = port.kernels, port.sol
+    t_phase = time.perf_counter()
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        return out, buf.getvalue().splitlines()
+
+    t0 = time.perf_counter()
+    with _record_shapes(port, seen, "sol"):
+        (report, report_lines), launches = _drive(
+            kernels, lambda: quiet(sol.run, False, dev),
+            kernels.SOL_PROBES + (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE,
+                                  kernels.POSEIDON2_SPONGE))
+    sol_s = time.perf_counter() - t0
+    roofs = report["roofs"]
+    if sorted(roofs) != ["alu", "hbm", "mul"] or not all(v > 0 for v in roofs.values()):
+        raise AssertionError(f"SoL roofs {roofs}: each must be > 0")
+    if roofs["hbm"] > HBM_BYTES_PER_S:
+        raise AssertionError(f"the stream roof {roofs['hbm']:.4g} B/s is above the data sheet's {HBM_BYTES_PER_S:.4g}")
+    names = [k["kernel"] for k in report["kernels"]]
+    if len(names) != 9:
+        raise AssertionError(f"the SoL report scored {names}, not the 9 kernels of JAX's list")
+    for k in report["kernels"]:
+        if k["sol_pct"] is None:
+            if not k.get("hbm_model_exceeds_roof"):
+                raise AssertionError(f"{k['kernel']}: unscored and not flagged")
+        elif not (0 < k["sol_pct"] <= 100.0 + 1e-9 and k["binding"] in roofs):
+            raise AssertionError(f"{k['kernel']}: sol_pct {k['sol_pct']} on {k['binding']}")
+    compact = port.bench_ntt.sol_compact(report)
+    probes = _sol_probe_rows(torch, port, dev, report, results)
+
+    with _record_shapes(port, seen, "bench-hash"):
+        (_out, hash_lines), hash_launches = _drive(
+            kernels, lambda: quiet(port.bench_hash.main, ["--device", str(dev)]),
+            (kernels.KECCAK_SPONGE, kernels.POSEIDON2_SPONGE))
+    n, r = port.bench_hash.N, port.bench_hash.R
+    if len(hash_lines) != 2 or not (hash_lines[0].startswith(f"keccak leaf sponge  (N={n}, 6 u32, R={r}):")
+                                    and hash_lines[1].startswith(f"poseidon2-16        (N={n}, R={r}):")):
+        raise AssertionError("bench.hash's lines are not bench_hash.py's two:\n" + "\n".join(hash_lines))
+    with _record_shapes(port, seen, "bench-narrow-ntt"):
+        (_out, narrow_lines), narrow_launches = _drive(
+            kernels, lambda: quiet(port.bench_narrow_ntt.main, ["--device", str(dev)]),
+            (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.MXU_MM))
+    shapes = port.bench_narrow_ntt.SHAPES
+    if sum(ln.strip().startswith("speedup") and "bit-identical" in ln for ln in narrow_lines) != len(shapes):
+        raise AssertionError("bench.narrow_ntt did not print its seven shapes:\n" + "\n".join(narrow_lines))
+    used = {name: c for name, c in launches.items() if c}
+    lines = [
+        f"[23] the SoL report on {smi} ({sol_s:.1f}s; launches {used}): " + " | ".join(report_lines),
+        f"[23] sol_pct_of_roof {json.dumps(compact)}",
+        f"[23] probes == plain (exact): {probes}",
+        "[23] bench.hash: " + " | ".join(hash_lines)
+        + f"; launches {({k: c for k, c in hash_launches.items() if c})}",
+        "[23] bench.narrow_ntt: " + " | ".join(ln.strip() for ln in narrow_lines)
+        + f"; launches {({k: c for k, c in narrow_launches.items() if c})}; phase 23 took "
+        f"{time.perf_counter() - t_phase:.3f}s",
+    ]
+    return "\n".join(lines), {"sol": launches, "bench-hash": hash_launches, "bench-narrow-ntt": narrow_launches}
+
+
 def main() -> int:
     import torch
 
@@ -1864,13 +2017,18 @@ def main() -> int:
     line, sharded_launches = _phase22_sharded(torch, port, dev, seen, smi)
     print(line, flush=True)
 
+    # -- 23. the speed-of-light report and the last two bench twins -------------
+    line, sol_launches = _phase23_sol(torch, port, dev, seen, smi, results)
+    print(line, flush=True)
+
     # -- 13. every kernel vs plain at every shape of the main paths -------------
     path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
                      **app_launches, "keccak-air-zk": zk_launches, "config2-lowmem": lm_launches,
-                     **sharded_launches}
+                     **sharded_launches, **sol_launches}
+    probe_names = {info.name for info in kernels.SOL_PROBES}  # held to their twins in phase 23
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}
-        missing = [name for name, n in launches.items() if n > 0 and name not in noted]
+        missing = [name for name, n in launches.items() if n > 0 and name not in noted and name not in probe_names]
         if missing:
             raise AssertionError(f"{path}: no operand shapes noted for the launched kernels {missing}")
     t0 = time.perf_counter()
@@ -1901,6 +2059,9 @@ def main() -> int:
     sharded_shapes = ", ".join(
         f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] <= set(sharded_launches) and k[0] != "grind_verdicts")
     print(f"[13] operand shapes that only phase 22's ranks gave: {sharded_shapes}", flush=True)
+    twin_shapes = ", ".join(f"{k[0]} {k[1:]}" for k in sorted(seen, key=repr)
+                            if seen[k] & {"bench-hash", "bench-narrow-ntt"})
+    print(f"[13] operand shapes of phase 23's twins (bench-hash, bench-narrow-ntt): {twin_shapes}", flush=True)
     print(f"[13] every kernel == plain (exact) at the {len(seen)} operand shapes of the main paths and phase 17 "
           f"({', '.join(f'{call} {c}' for call, (c, _e) in sorted(checked.items()))}) in "
           f"{time.perf_counter() - t0:.1f}s; keccak-air's transforms: {dft_shapes}; config 2's K5 "

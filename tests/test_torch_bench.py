@@ -29,7 +29,8 @@ import pytest
 from tpu_stark.bench import harness as jax_harness
 from tpu_stark.fields import babybear as jax_bb
 from tpu_stark.ntt.reference import naive_dft_matrix as jax_naive_dft
-from tpu_stark_torch.bench import harness, profiling
+from tpu_stark_torch.bench import harness, narrow_ntt, profiling
+from tpu_stark_torch.bench import hash as bench_hash
 from tpu_stark_torch.bench import ntt as bench_ntt
 from tpu_stark_torch.bench import prove as bench_prove
 from tpu_stark_torch.fields import babybear as bb
@@ -104,6 +105,82 @@ def test_ntt_twin_needs_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         bench_ntt.main(["--device", "cpu"])
     assert bench_ntt.BASELINE_MELEMS == 135.0
+
+
+@pytest.mark.parametrize("twin", [bench_hash, narrow_ntt], ids=["hash", "narrow_ntt"])
+def test_hash_and_narrow_twins_need_the_card(twin):
+    with pytest.raises(ValueError, match="CUDA"):
+        twin.main(["--device", "cpu"])
+
+
+def test_narrow_twin_shapes_are_the_jax_scripts():
+    import bench_narrow_ntt
+
+    assert narrow_ntt.SHAPES == bench_narrow_ntt.SHAPES
+    assert len(narrow_ntt.SHAPES) == 7
+    # every shape passes the mxu route's gate
+    assert all(w <= radix2.NARROW_MAX_W and log_h >= radix2.NARROW_MIN_LOG_H for log_h, w in narrow_ntt.SHAPES)
+    assert [narrow for _label, narrow in narrow_ntt.ROUTES] == list(radix2.NARROW_ROUTES)
+
+
+def test_hash_twin_sizes_are_the_jax_scripts():
+    """bench_hash.py's n and reps are locals of its main(): read them off
+    its source."""
+    import ast
+
+    import bench_hash as jax_bench_hash
+
+    tree = ast.parse(pathlib.Path(jax_bench_hash.__file__).read_text())
+    main = next(f for f in tree.body if isinstance(f, ast.FunctionDef) and f.name == "main")
+    consts = {
+        node.targets[0].id: eval(compile(ast.Expression(node.value), "bench_hash.py", "eval"))
+        for node in main.body
+        if isinstance(node, ast.Assign) and isinstance(node.targets[0], ast.Name)
+        and node.targets[0].id in ("n", "reps")
+    }
+    assert (bench_hash.N, bench_hash.R) == (consts["n"], consts["reps"]) == (1 << 20, 32)
+
+
+@pytest.mark.parametrize("step", ["keccak", "poseidon2"])
+def test_hash_twin_steps_equal_jax_bodies(step):
+    """One step of each chain the hash twin times (``bench/sol.py``'s
+    helpers, here on their plain versions) equals the JAX script's loop body
+    on the same 64 rows: the Keccak leaf sponge's first 6 digest words, and
+    K3's compress = the first 8 words of the width-16 permutation."""
+    import jax.numpy as jnp
+
+    from tpu_stark.hash import poseidon2 as jax_poseidon2
+    from tpu_stark.hash import sponge as jax_sponge
+    from tpu_stark_torch.bench import sol
+
+    n = 64
+    if step == "keccak":
+        mat = sol.keccak_leaf_input(n, "cpu")
+        got = sol.keccak_leaf_step(mat).numpy().view(np.uint32)
+        want = np.asarray(jax_sponge.hash_field_rows_batched(jnp.asarray(mat.numpy().view(np.uint32))))
+        want = want.reshape(n, 8)[:, :6]
+    else:
+        left, right = sol.poseidon2_compress_input(n, "cpu")
+        got = bb.to_numpy(sol.poseidon2_compress_step(right)(left))
+        state = np.concatenate([bb.to_numpy(left), bb.to_numpy(right)], axis=1)
+        want = np.asarray(jax_poseidon2.permute_batched(jnp.asarray(state)))[:, :8]
+    assert got.shape == want.shape
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("label,narrow", narrow_ntt.ROUTES)
+def test_narrow_routes_equal_jax_radix2(label, narrow):
+    """Each route of the narrow twin (the plain versions here: K2's passes,
+    the limb-matmul NTT) equals the JAX package's radix-2 DFT at (2^16, 4)."""
+    import jax.numpy as jnp
+
+    from tpu_stark.ntt import radix2 as jax_radix2
+
+    mat = bb.np_to_monty(np.random.default_rng(15).integers(0, bb.P, size=(1 << 16, 4), dtype=np.uint32))
+    x = bb.to_tensor(mat, "cpu")
+    assert radix2._mxu(x, narrow) == (label == "mxu")
+    got = bb.to_numpy(radix2.dft_batch(x, narrow))
+    assert np.array_equal(got, np.asarray(jax_radix2.dft_batch(jnp.asarray(mat))))
 
 
 @pytest.mark.parametrize("shift", [1, bb.GENERATOR])

@@ -4,7 +4,7 @@ the grind kernel on the card against their plain torch versions, and the
 port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and
 keccak-air wide proofs (zk off, and zk on the Keccak stack) on the card
 against the golden files and the JAX fixtures; the app, the DFT harness (its exact check against the CPU tier),
-the NTT oracle and the prove twins on the card.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
+the NTT oracle, the prove twins and the SoL probes on the card.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py -q
@@ -581,3 +581,20 @@ def test_ntt_twin_on_card(dev):
     out = bench_ntt.main(["--device", str(dev)])
     assert out["metric"] == "babybear_ntt_kernel_16384x128" and out["unit"] == "Melems/s"
     assert out["value"] > 0 and out["vs_baseline"] == out["value"] / 135.0
+    block = out["sol_pct_of_roof"]
+    assert set(block) == {"dispatch_floor_ms", "roofs", "roof_sources", "kernels"}
+    assert set(block["roofs"]) == {"mul", "alu", "hbm"} and len(block["kernels"]) == 9
+
+
+@pytest.mark.parametrize("n,reps", [(1, 1), (1000, 2), (4099, 1)])
+def test_sol_probes_equal_plain(dev, n, reps):
+    from tpu_stark_torch.bench import sol
+
+    x, tw = sol.mul_operands(n, dev)
+    before = [k.launches for k in kernels.SOL_PROBES]
+    assert torch.equal(sol.mul_chain(x, tw, reps), sol.mul_chain_plain(x, tw, reps))
+    v = sol.alu_operands(n, dev)
+    assert torch.equal(sol.alu_chain(v, reps), sol.alu_chain_plain(v, reps))
+    s = torch.arange(n, dtype=torch.int32, device=dev)
+    assert torch.equal(sol.stream_step(s.clone()), sol.stream_step_plain(s.clone()))
+    assert [k.launches for k in kernels.SOL_PROBES] == [b + 1 for b in before]

@@ -26,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu")
+SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu")
 HEADERS = ("babybear.cuh",)
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
@@ -83,8 +83,22 @@ KECCAK_GRIND = KernelInfo(
     "keccak_grind", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/challenger/grind.py:74",
 )
+# the speed-of-light probes of bench/sol.py; they replace its XLA probes
+SOL_MUL = KernelInfo(
+    "sol_mul_probe", "tpu_stark_torch/csrc/sol_probes.cu",
+    "tpu_stark/bench/sol.py:235",
+)
+SOL_ALU = KernelInfo(
+    "sol_alu_probe", "tpu_stark_torch/csrc/sol_probes.cu",
+    "tpu_stark/bench/sol.py:268",
+)
+SOL_HBM = KernelInfo(
+    "sol_hbm_probe", "tpu_stark_torch/csrc/sol_probes.cu",
+    "tpu_stark/bench/sol.py:301",
+)
+SOL_PROBES = (SOL_MUL, SOL_ALU, SOL_HBM)
 ALL = (KECCAK_SPONGE, KECCAK_TREE, KECCAK_ABSORB, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
-       KECCAK_GRIND)
+       KECCAK_GRIND) + SOL_PROBES
 
 
 def reset_launch_counts() -> None:
@@ -190,6 +204,12 @@ def lib() -> ctypes.CDLL:
             so.ts_mxu_mm.restype = i32
             so.ts_keccak_grind.argtypes = [vp, vp, i32, i32, i32, ctypes.c_uint64, i64, vp, vp]
             so.ts_keccak_grind.restype = i32
+            so.ts_sol_mul.argtypes = [vp, vp, vp, i64, i32, vp]
+            so.ts_sol_mul.restype = i32
+            so.ts_sol_alu.argtypes = [vp, vp, i64, i32, vp]
+            so.ts_sol_alu.restype = i32
+            so.ts_sol_stream.argtypes = [vp, i64, vp]
+            so.ts_sol_stream.restype = i32
             _lib = so
         return _lib
 
