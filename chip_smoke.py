@@ -64,9 +64,13 @@ line each, any failure an uncaught exception and a nonzero exit:
     with a prove's launches summed; then the narrow NTT route
     (``narrow_ntt="mxu"``) against K2 at (2^16, 2), (2^21, 2), (2^22, 4),
     (2^23, 2) and (2^20, 32), forward and inverse, each timed beside K2;
-15. the device zk rng against JAX's samples
-    (tests/golden/torch_device_rng_jax.json: seeds 1 and 7, every stream
-    tag, counters 0-2, up to (2^21, 4)), timed; the grind kernel against
+15. the device zk rng (K6, ``csrc/threefry.cu``: one launch a sample)
+    against JAX's samples (tests/golden/torch_device_rng_jax.json: seeds 1
+    and 7, every stream tag, counters 0-2, up to (2^21, 4)), each sample
+    one K6 launch; K6 against the plain Threefry, exact, at whole samples,
+    columns with repeats, rows from row0 past flat index 2^32 and gathered
+    rows (``RNG_CHECKS``); K6 at cell 6's randomizer chunk (2^20, 64) and
+    at (2^21, 4) and (2^22, 4) timed beside the plain version and its bound; the grind kernel against
     its plain version and the host check at 8-16 bits, and ``device_grind``
     against the witnesses JAX's stored;
 16. BASELINE config 2 (fib_air zk at the defaults: device zk rng, blowup 2,
@@ -106,7 +110,8 @@ line each, any failure an uncaught exception and a nonzero exit:
     numbers come from its twin, ``python -m tpu_stark_torch.bench.prove
     keccak-air 20 bench 1 keccak zk``), phase times, peak device memory and
     the port's verifier; no JAX log of this configuration exists, so the
-    proof's length is the port's own;
+    proof is held to the SHA-256 of the tree before K6
+    (``KECCAK_AIR_ZK_SHA256``, the plain Threefry's bytes);
 21. BASELINE config 2 in low-memory mode (lazy salts drawn row by row, 3
     dropped leaf layers rebuilt per query block, codewords released and
     recomputed): at n = 2^24, on one generated trace, one prove with
@@ -171,8 +176,10 @@ line each, any failure an uncaught exception and a nonzero exit:
     and finalize by rows, the pending and new words' widths, strides and
     alignment (phase 20's, printed), K5's leaf
     products by n and width (both directions' tables) and its inner levels
-    by n, A, R and direction (config 2's set must be phase 14's), and the
-    grind's chunks by count, tail blocks, witness offset and bits, on
+    by n, A, R and direction (config 2's set must be phase 14's), the
+    grind's chunks by count, tail blocks, witness offset and bits, and K6's
+    samples by rows, columns, selected columns, row0 or row indices and
+    whether a flat index passes 2^32 (checked past it), on
     random inputs of those shapes.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
@@ -207,7 +214,10 @@ whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
 shifts per 64-bit rotation), K5's epilogue 17 per output (the 7-diagonal
 recombine in five wide multiply-adds and a 64-bit add, two Montgomery
 steps, a conditional subtract) and at an inner level a Montgomery product
-more for the twiddle.
+more for the twiddle, and a K6 element 157 (two Threefry-2x32 of 20
+rounds of an add, a funnel shift and an xor, 12 key injections and the
+output xor each, two conditional subtracts, a Montgomery product and a
+modular add), whose only bytes are its 4-byte output (``threefry_bound``).
 
 A Poseidon2 permutation (K3, K4) counts the least int32 work of
 csrc/poseidon2_sponge.cu's arithmetic, 5,892 instructions: a lazy
@@ -261,6 +271,13 @@ JAX_PROOF_BYTES = {
 # equal: config 2 at 2^20 (phase 16) and at 2^24 (phase 21), keccak-air at
 # 2^20 (phase 12)
 SINGLE_DEVICE_SHA256 = {}
+
+# SHA-256 of phase 20's proof (keccak-air 2^20 x 3608, Keccak, zk, device
+# rng, benchmark FRI; no JAX log of this configuration) from the tree before
+# K6 (commit 4ca5582, the plain Threefry on the card; ``port_timing.py
+# profile --workload keccak-zk --tree`` of its checkout): K6 must give the
+# same bytes
+KECCAK_AIR_ZK_SHA256 = "55c2653a2da3418468255f595436f8ea8c7fd6ac2aa668e420f1f17e061a129e"
 
 
 def _check_jax_length(label: str, blob: bytes) -> str:
@@ -318,6 +335,17 @@ def _ntt_ops(n: int, stages: int, first: bool) -> int:
 INT8_TENSOR_OPS_PER_S = 1.979e15
 MXU_EPILOGUE_OPS = 17  # per output of K5 (see the module docstring)
 MONTY_MUL_OPS = 5
+# K6 (csrc/threefry.cu), an element: two Threefry-2x32 of 20 rounds (an add,
+# a funnel shift and an xor each), 12 key injections and the output xor,
+# then two conditional subtracts (2 each), a Montgomery product and a
+# modular add
+THREEFRY_MONTY_OPS = 2 * (20 * 3 + 12 + 1) + 2 * 2 + MONTY_MUL_OPS + 2
+
+
+def threefry_bound(elems: int):
+    """K6's bound for a sample of ``elems`` elements: each written once
+    (4 bytes), THREEFRY_MONTY_OPS int32 instructions each."""
+    return _bound(4 * elems, elems * THREEFRY_MONTY_OPS)
 
 
 def _bound(n_bytes: float, n_ops: float, n_tensor_ops: float = 0.0):
@@ -423,7 +451,7 @@ def import_port():
     from tpu_stark_torch.air.air import get_symbolic_info
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
     from tpu_stark_torch.commit import lowmem, pcs
-    from tpu_stark_torch.compat import native
+    from tpu_stark_torch.compat import device_rng, native
     from tpu_stark_torch.dist import dryrun
     from tpu_stark_torch.fields import babybear as bb
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
@@ -465,7 +493,22 @@ _SHAPE_KERNELS = {
     "mod_matmul_axis": ("mxu_mm",),
     "mod_matmul_twiddle_moved": ("mxu_mm",),
     "grind_verdicts": ("keccak_grind",),
+    "rng_sample": ("threefry_monty",),
 }
+
+
+def _rng_key(k, rows, cols, device, sel=None, row0=0, row_idx=None):
+    """A K6 call's shape key (see ``_record_shapes``)."""
+    import torch
+
+    n = rows if row_idx is None else len(row_idx)
+    n_sel = -1 if sel is None else len(sel)
+    high = False
+    if n > 0 and n_sel != 0:
+        last_col = cols - 1 if sel is None else int(torch.as_tensor(sel).max())
+        last_row = row0 + (n - 1 if row_idx is None else int(torch.as_tensor(row_idx).max()))
+        high = last_row * cols + last_col >= 1 << 32
+    return ("rng_sample", int(n), int(cols), n_sel, row0 != 0, row_idx is not None, high)
 
 
 @contextlib.contextmanager
@@ -480,7 +523,10 @@ def _record_shapes(port, seen: dict, path: str):
     alignment; K5's
     ``mod_matmul_axis`` by n and width and ``mod_matmul_twiddle_moved`` by
     n, A, R and direction; the grind's ``verdicts`` by count,
-    tail blocks, witness offset and bits."""
+    tail blocks, witness offset and bits; K6's samples (``device_rng.
+    _monty_kernel``) by rows, columns, the number of ``sel`` columns (-1:
+    all), whether ``row0`` and row indices are given, and whether a flat
+    index reaches 2^32."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
 
     def rows(t):  # width, row stride, and the base's offset in words past a 16-byte boundary
@@ -506,6 +552,7 @@ def _record_shapes(port, seen: dict, path: str):
             w is port.mxu_ntt._DEVICE_TABLES.get((str(x.device), "limbs", (int(x.shape[0]),), True))),
         (port.grind, "verdicts"): lambda start, count, pre, tail, w_off, bits: (
             "grind_verdicts", int(count), int(tail.shape[0]), int(w_off), int(bits)),
+        (port.device_rng, "_monty_kernel"): _rng_key,
     }
     originals = {}
     for (mod, name), key in keys.items():
@@ -528,6 +575,7 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
     version, exactly, on random operands of the noted shapes, row strides
     and alignments.  Returns {call kind: [shapes checked, max_abs_err]}."""
     nk, kk, pk, mx = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel, port.mxu_ntt
+    dev = rand_u32((1,)).device
 
     def operand(rand, n, k, stride, mis):
         if k == 0:
@@ -574,6 +622,15 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             got = mx.mod_matmul_twiddle_moved(x, w, tw)
             want = torch.cat([mx.mod_matmul_twiddle_moved_plain(x[:, :, r : r + step], w, tw)
                               for r in range(0, key[3], step)], dim=2)
+        elif kind == "rng_sample":
+            cols, n_sel, has_row0, has_idx, high = key[2:]
+            k = port.device_rng.fold_in(port.device_rng.key(3), done.get(kind, [0])[0])
+            sel = None if n_sel < 0 else rand_monty((n_sel,)).long() % cols
+            idx = rand_monty((n,)).long() % max(1, n) if has_idx else None
+            # a noted flat index past 2^32 is checked past it: rows straddling 2^32 / cols
+            row0 = (max(1, (1 << 32) // cols - n // 2) if high else 1) if (has_row0 or has_idx) else 0
+            got = port.device_rng._monty_kernel(k, n, cols, dev, sel=sel, row0=row0, row_idx=idx)
+            want = _rng_plain(torch, port, k, cols, dev, n, sel, row0, idx)
         elif kind == "grind_verdicts":
             pre, tail = rand_u32((25, 2)).view(torch.int64).view(25), rand_u32((key[2], 34)).view(torch.int64)
             got = port.grind.verdicts(0, n, pre, tail, key[3], key[4])
@@ -791,13 +848,41 @@ def _phase14_mxu(torch, port, rand_monty, results) -> str:
             f"{total_bound:.4f} ms. Narrow route == K2 (dft and idft, exact); dft times: " + "; ".join(route))
 
 
+def _rng_plain(torch, port, k, cols, dev, rows=0, sel=None, row0=0, row_idx=None):
+    """The plain Threefry sample on the card (``device_rng._monty_at``) of
+    rows row0 + (r or row_idx[r]) and columns (c or sel[c]) of a sample of
+    ``cols`` columns, in row slices of ``device_rng._DRAW_ELEMS`` elements,
+    as the plain path draws them."""
+    drng = port.device_rng
+    r = torch.arange(rows, device=dev) if row_idx is None else torch.as_tensor(row_idx, device=dev)
+    c = torch.arange(cols, device=dev) if sel is None else torch.as_tensor(sel, device=dev)
+    step = max(1, drng._DRAW_ELEMS // max(1, int(c.shape[0])))
+    return torch.cat([drng._monty_at(k, (r[i : i + step, None] + row0) * cols + c[None, :])
+                      for i in range(0, max(1, int(r.shape[0])), step)])
+
+
+# phase 15's K6 checks: (rows, cols, sel, row0, row_idx), whole samples,
+# columns with repeats, rows past flat index 2^32, gathered rows
+RNG_CHECKS = (
+    (1 << 22, 4, None, 0, None), (1 << 20, 64, None, 0, None), (4097, 3, None, 0, None),
+    (1 << 16, 64, list(range(63, -1, -5)) + [0, 0], 0, None), (1 << 20, 4, None, (1 << 32) // 4 - (1 << 19), None),
+    (4096, 64, [1, 1, 62], (1 << 33) // 64, None), (0, 4, None, (1 << 32) // 4 - 8, list(range(15, -1, -1)) * 2),
+)
+# timed: a randomizer chunk of cell 6 (n = 2^20 rows of a 64-column chunk),
+# then salts of 2^21 and 2^22 rows (the last is the kernels line's shape)
+RNG_TIMED = ((1 << 20, 64), (1 << 21, 4), (1 << 22, 4))
+
+
 def _phase15_rng_grind(torch, port, dev, results) -> str:
-    """The device rng against JAX's samples, the grind kernel against its
-    plain version, the host check and JAX's witnesses; returns the line."""
+    """K6 against the plain Threefry and JAX's samples, timed; the grind
+    kernel against its plain version, the host check and JAX's witnesses;
+    returns the line."""
     import numpy as np
 
     with open(os.path.join(GOLDEN, "torch_device_rng_jax.json")) as f:
         fixture = json.load(f)
+    drng, kernels = port.device_rng, port.kernels
+    before = kernels.THREEFRY_MONTY.launches
     for e in fixture["samples"]:
         rng = port.DeviceRng(e["seed"], e["stream"], dev)
         for _ in range(e["counter"]):
@@ -807,9 +892,29 @@ def _phase15_rng_grind(torch, port, dev, results) -> str:
         if got != (e["sha256"], e["first"]):
             raise AssertionError(f"device rng {e['seed']}/{e['stream']!r}/{e['counter']} "
                                  f"({e['rows']}, {e['cols']}) differs from JAX's sample")
-    rng = port.DeviceRng(1, "salts", dev)
-    rng_ms = {shape: _cuda_ms(torch, lambda: rng.sample_babybear_matrix_monty(*shape), 5)
-              for shape in [(1 << 21, 4), (1 << 22, 4)]}
+    if kernels.THREEFRY_MONTY.launches - before != sum(e["counter"] + 1 for e in fixture["samples"]):
+        raise AssertionError("the device rng's samples on the card did not each launch K6 once")
+    k = drng.fold_in(drng.key(1), 5)
+    err = 0
+    for rows, cols, sel, row0, row_idx in RNG_CHECKS:
+        if row_idx is None:
+            got = drng._sample_monty(k, rows, cols, dev, sel=sel, row0=row0)
+        else:
+            got = drng.LazyMatrix(k, 1 << 31, cols, dev, row0=row0).rows(torch.tensor(row_idx, device=dev))
+        want = _rng_plain(torch, port, k, cols, dev, rows, sel, row0, row_idx)
+        torch.cuda.synchronize()
+        err = max(err, _max_abs_err(torch, got, want))
+        if err != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K6 ({rows}, {cols}, sel {sel}, row0 {row0}, rows {row_idx}): kernel != plain "
+                                 f"(max_abs_err {err})")
+    rng_lines = []
+    for rows, cols in RNG_TIMED:
+        ms = _cuda_ms(torch, lambda: drng._sample_monty(k, rows, cols, dev), 20)
+        plain_ms = _cuda_ms(torch, lambda: _rng_plain(torch, port, k, cols, dev, rows), 3)
+        bound_ms, bound_by = threefry_bound(rows * cols)
+        results["threefry_monty"] = [err, ms, plain_ms, bound_ms, bound_by, {"shape": [rows, cols]}]
+        rng_lines.append(f"({rows}, {cols}) {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                         f"({bound_by}), {100 * bound_ms / ms:.1f}% of it")
     grind = port.grind
     lines = []
     err = 0
@@ -841,9 +946,10 @@ def _phase15_rng_grind(torch, port, dev, results) -> str:
                 (1 << 17) + 8 * (25 + 17 * n_blocks), (1 << 17) * n_blocks * KECCAK_F_OPS)]
             lines[-1] += f" (2^17-candidate chunk, {n_blocks} block(s): {ms:.4f} ms vs plain {plain_ms:.3f} ms)"
     results["keccak_grind"][0] = err
-    return (f"[15] device rng == JAX's {len(fixture['samples'])} samples; one sample (2^21, 4) "
-            f"{rng_ms[(1 << 21, 4)]:.4f} ms, (2^22, 4) {rng_ms[(1 << 22, 4)]:.4f} ms. Grind kernel == plain "
-            f"== host check; device_grind == JAX: " + "; ".join(lines))
+    return (f"[15] device rng (K6) == JAX's {len(fixture['samples'])} samples; K6 == plain (exact) at "
+            f"{len(RNG_CHECKS)} samples (whole, sel with repeats, rows from row0 past flat index 2^32, gathered "
+            f"rows); one sample: " + "; ".join(rng_lines) + ". Grind kernel == plain == host check; "
+            f"device_grind == JAX: " + "; ".join(lines))
 
 
 @contextlib.contextmanager
@@ -897,9 +1003,10 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
     cold = time.perf_counter() - t0
     launches, warm, timings, blobs, peaks, rng_shapes = {}, {}, {}, {}, {}, {}
     for narrow, path, path_kernels in (
-        ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_GRIND)),
+        ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_GRIND,
+                                kernels.THREEFRY_MONTY)),
         (None, "config2-k2", (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
-                              kernels.KECCAK_GRIND)),
+                              kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY)),
     ):
         torch.cuda.reset_peak_memory_stats(dev)
         timings[path] = {}
@@ -951,7 +1058,7 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
 # JAX proof has the twin's configuration, the kernels the path must launch)
 TWINS = (
     ("twin-fib", ["fib", "12", "keccak", "zk", "1", "bench"], ("torch_fib_zk_device_jax_proofs.json", "12"),
-     ("KECCAK_SPONGE", "KECCAK_TREE", "NTT_PASS0", "NTT_PASS", "KECCAK_GRIND")),
+     ("KECCAK_SPONGE", "KECCAK_TREE", "NTT_PASS0", "NTT_PASS", "KECCAK_GRIND", "THREEFRY_MONTY")),
     ("twin-chain", ["chain", "6"], ("torch_poseidon2_jax_proofs.json", "chain_6"),
      ("NTT_PASS0", "POSEIDON2_SPONGE")),
     # 7: the perms_5 fixture's 128 rows, generate_trace(128 // 24, seed=1)
@@ -960,7 +1067,7 @@ TWINS = (
     # the reference's stack at 64 rows: as long as the zk fixture's proof
     ("twin-keccak-air-zk", ["keccak-air", "6", "test", "1", "keccak", "zk"],
      ("torch_keccak_air_wide_zk_jax_proofs.json", "keccak_4chunks"),
-     ("NTT_PASS0", "KECCAK_SPONGE", "KECCAK_TREE", "KECCAK_ABSORB")),
+     ("NTT_PASS0", "KECCAK_SPONGE", "KECCAK_TREE", "KECCAK_ABSORB", "THREEFRY_MONTY")),
 )
 
 
@@ -1132,7 +1239,7 @@ def _phase20_zk_wide(torch, port, dev, seen, smi: str, log_k: int = 20):
     with _record_shapes(port, seen, "keccak-air-zk"):
         (proof, cold_s), launches = _drive(kernels, cold, (
             kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_ABSORB, kernels.NTT_PASS0,
-            kernels.NTT_PASS, kernels.KECCAK_GRIND))
+            kernels.NTT_PASS, kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY))
     peak = torch.cuda.max_memory_allocated(dev)
     blob = port.serialize_proof(proof)
     t0 = time.perf_counter()
@@ -1145,13 +1252,18 @@ def _phase20_zk_wide(torch, port, dev, seen, smi: str, log_k: int = 20):
             or len(proof.opened_values.trace_local) != keccak_air.COLS):
         raise AssertionError(f"zk keccak-air 2^{log_k} proof is not a 100-query Keccak zk proof of "
                              f"2^{log_k} x 3608 with 8 quotient chunks")
+    sha = hashlib.sha256(blob).hexdigest()
+    if log_k == 20 and sha != KECCAK_AIR_ZK_SHA256:
+        raise AssertionError(f"zk keccak-air 2^{log_k}: SHA-256 {sha} is not the plain Threefry's "
+                             f"{KECCAK_AIR_ZK_SHA256}")
     phases = ", ".join(f"{k} {v:.3f}s" for k, v in timings.items())
     used = {k: n for k, n in launches.items() if n}
     line = (f"[20] keccak-air n=2^{log_k} x {keccak_air.COLS} prove_wide on the reference's stack (Keccak, zk, "
             f"device rng, blowup 2, 100 queries, 16 PoW bits; 2^{log_k + 1} committed rows, 2^{log_k + 2} LDE "
             f"rows, {-(-keccak_air.COLS // port.wide.default_col_chunk(1 << (log_k + 2)))} chunks): trace generation "
             f"{trace_s:.3f}s; cold (only) {cold_s:.3f}s ({phases}); verify {verify_s:.3f}s ok; proof "
-            f"{len(blob)} B (the port's own: no JAX log of this configuration); launches {used}; peak device "
+            f"{len(blob)} B, SHA-256 {sha} (the port's own: no JAX log of this configuration; the plain Threefry's "
+            f"bytes); launches {used}; peak device "
             f"memory {peak / 2**30:.3f} GiB (trace included); on {smi}")
     return line, launches
 
@@ -1215,7 +1327,7 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
         with _record_shapes(port, seen, "config2-lowmem"):
             (on_blob, on_note), launches = _drive(kernels, lambda: one(log_n, trace, lowmem.LOWMEM_LOG), (
                 kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
-                kernels.KECCAK_GRIND))
+                kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY))
         n_on = len(recomputes)
         del trace
         if not n_on:
@@ -1251,13 +1363,14 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
     return line, launches
 
 
-SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind")
+SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind", "threefry_monty")
 # the dry run's proves use the test FRI, whose 1-bit grind is host work
-DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge", "poseidon2_absorb")
+DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge", "poseidon2_absorb",
+                  "threefry_monty")
 # the streamed wide prove on a mesh: (d) BASELINE config 4 on the Poseidon2
 # stack, (e) the reference's stack (Keccak trees, zk)
 WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb"),
-                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb")}
+                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb", "threefry_monty")}
 
 
 def _phase22_rank(mesh, path: str, log_n: int, trace_path):

@@ -36,12 +36,15 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   rows its launch took, in buckets < 2^12, 2^12-2^16 and >= 2^16 rows;
   beside it the stream time between CUDA events around each launch, which
   also holds the host's launch path where the card waits for it), and the
-  20 ops with the most device time.  It also times the device rng's
-  plain-torch Threefry (every ``_sample_monty`` call: the salts, the random
-  codewords and, in zk wide proves, the trace randomizer that every pass
-  over the chunks regenerates) with CUDA events around each call on the
-  prove's stream, and prints its calls, its stream time and its share of
-  the profiled prove's device time and wall clock.  The
+  20 ops with the most device time; K6 (the device rng's sample) is among
+  the hand-written kernels.  It also times the device rng's samples
+  (every ``_sample_monty`` call: the salts, the random codewords and, in zk
+  wide proves, the trace randomizer that every pass over the chunks
+  regenerates; K6, or in an older tree the plain-torch Threefry) with CUDA
+  events around each call on the prove's stream, and prints its calls, its
+  stream time and its share of the profiled prove's device time and wall
+  clock.  Each prove's proof SHA-256 is printed, so that two trees'
+  bytes compare.  The
   profiler's own host cost lengthens the profiled wall clock, so the idle
   share is an upper bound.  Every prove's phases carry the peak device
   memory allocated within each (``max_memory_allocated``, reset at each
@@ -157,6 +160,7 @@ subcommand prints the card (nvidia-smi name and power limit) first.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import os
 import subprocess
@@ -245,7 +249,7 @@ KERNEL_KEYS = (
     ("K1 keccak_sponge", ("keccak_rows_kernel", "keccak_tree_kernel")),
     ("K1 keccak_absorb", ("keccak_absorb_kernel",)), ("K2 ntt_pass", ("ntt_pass_kernel",)),
     ("K3 poseidon2_sponge", ("p2_sponge_kernel",)), ("K4 poseidon2_absorb", ("p2_absorb_kernel",)),
-    ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)),
+    ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)), ("K6 threefry_monty", ("threefry_monty",)),
 )
 
 
@@ -256,6 +260,7 @@ class _Bounds:
     def __init__(self):
         cs = _chip_smoke()
         from tpu_stark_torch.challenger import grind
+        from tpu_stark_torch.compat import device_rng
         from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
         from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel
 
@@ -304,6 +309,10 @@ class _Bounds:
             n, a = int(x.shape[0]), int(x.shape[1])
             return "K5 mxu_mm", cs.k5_bound(n, a, x.numel() // (n * a))[0]
 
+        def rng(k, rows, cols, device, sel=None, row0=0, row_idx=None):
+            n = rows if row_idx is None else len(row_idx)
+            return "K6 threefry_monty", cs.threefry_bound(n * (cols if sel is None else len(sel)))[0]
+
         def verdicts(start, count, pre, tail, w_off, bits):
             return "grind", cs._bound(count + 8 * (25 + 17 * int(tail.shape[0])),
                                       count * int(tail.shape[0]) * cs.KECCAK_F_OPS)[0]
@@ -316,6 +325,7 @@ class _Bounds:
             (mxu_ntt, "mod_matmul_twiddle_moved", mxu_level),
             (grind, "verdicts", verdicts), (keccak_kernel, "compress_levels", tree),
             (keccak_kernel, "absorb_rows", keccak_absorb), (keccak_kernel, "finalize_rows", keccak_finalize),
+            (device_rng, "_monty_kernel", rng),
         ]
         self._orig = []
 
@@ -395,8 +405,9 @@ class _K1Launches:
 
 
 class _RngTime:
-    """While open, times every device-rng sample (``_sample_monty``: plain
-    torch Threefry) with CUDA events around it on the current stream."""
+    """While open, times every device-rng sample (``_sample_monty``: K6, or
+    in an older tree the plain torch Threefry) with CUDA events around it on
+    the current stream."""
 
     def __init__(self, torch):
         from tpu_stark_torch.compat import device_rng
@@ -431,7 +442,7 @@ class _RngTime:
         self.torch.cuda.synchronize()
         ms = sum(s.elapsed_time(e) for s, e, _n in self.noted)
         elems = sum(n for _s, _e, n in self.noted)
-        return (f"device rng (plain-torch Threefry): {len(self.noted)} samples, {elems} elements, "
+        return (f"device rng (_sample_monty): {len(self.noted)} samples, {elems} elements, "
                 f"{ms:.3f} ms of stream time: {100 * ms / 1e3 / device_s:.1f}% of the device time, "
                 f"{100 * ms / 1e3 / wall_s:.1f}% of the profiled wall clock")
 
@@ -453,8 +464,12 @@ def profile(torch, dev, args) -> None:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
+    from tpu_stark_torch.prover.proof import serialize_proof
     from tpu_stark_torch.prover.prove import prove
     from tpu_stark_torch.prover.wide import prove_wide
+
+    def sha(proof) -> str:
+        return hashlib.sha256(serialize_proof(proof)).hexdigest()
 
     if args.workload in ("fib", "config2"):
         from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
@@ -498,9 +513,10 @@ def profile(torch, dev, args) -> None:
         timings = _PhasePeaks(torch, dev)
         if i == 0:
             torch.cuda.memory._record_memory_history(max_entries=1 << 21)
-        _, s = _timed(torch, lambda: run(timings))
+        proof, s = _timed(torch, lambda: run(timings))
         print(f"{label}: {'cold (under the memory history)' if i == 0 else 'warm'} {s:.3f}s, {timings.top()} "
-              f"({_phases(timings)})", flush=True)
+              f"({_phases(timings)}); proof SHA-256 {sha(proof)}", flush=True)
+        del proof
         if i == 0:
             snapshot = torch.cuda.memory._snapshot()
             torch.cuda.memory._record_memory_history(enabled=None)

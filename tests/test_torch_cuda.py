@@ -1,6 +1,6 @@
 """Kernels K1-K5 (K1's tree kernel, its carried-state absorb and K5's fused
-inner level too) and
-the grind kernel on the card against their plain torch versions, and the
+inner level too),
+the grind kernel and K6 (the device rng's sample) on the card against their plain torch versions, and the
 port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and
 keccak-air wide proofs (zk off, and zk on the Keccak stack) on the card
 against the golden files and the JAX fixtures; the app, the DFT harness (its exact check against the CPU tier),
@@ -18,6 +18,7 @@ import torch
 
 from tpu_stark_torch import kernels
 from tpu_stark_torch.challenger import grind
+from tpu_stark_torch.compat import device_rng as drng
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
 from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel, radix2
@@ -507,6 +508,59 @@ def test_config2_n8_proof_on_card_matches_jax(dev):
         proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
         assert kernels.KECCAK_GRIND.launches > before
         assert serialize_proof(proof).hex() == fixture["3"]["proof_hex"]
+
+
+def _rng_plain(k, cols, dev, rows=0, sel=None, row0=0, row_idx=None):
+    """The plain Threefry sample on the card's tensors: rows row0 + (r or
+    row_idx[r]) and columns (c or sel[c]) of a sample of ``cols`` columns."""
+    r = torch.arange(rows) if row_idx is None else torch.as_tensor(row_idx)
+    c = torch.arange(cols) if sel is None else torch.as_tensor(sel)
+    return drng._monty_at(k, ((r[:, None] + row0) * cols + c[None, :]).to(dev))
+
+
+# (rows, cols, sel, row0, row_idx) of K6's calls: whole samples (the salts'
+# 4 columns, odd widths), columns with repeats, rows from row0 with flat
+# indices past 2^32, gathered rows with repeats
+RNG_CASES = [
+    (1, 1, None, 0, None), (1000, 4, None, 0, None), (777, 3, None, 0, None), (4099, 64, None, 0, None),
+    (1 << 20, 4, None, 0, None), (513, 13, [12, 0, 0, 5, 5, 5, 7], 0, None), (300, 64, list(range(0, 64, 3)), 9, None),
+    (1000, 4, None, (1 << 32) // 4 - 500, None), (17, 5, [4, 1], (1 << 33) + 3, None),
+    (0, 4, None, 0, [7, 7, 0, 1 << 20, 3, 3]), (0, 4, None, (1 << 32) // 4 - 2, [0, 1, 2, 3, 1, 0]),
+    (0, 7, None, 5, [9, 2, 2]),
+]
+
+
+@pytest.mark.parametrize("rows,cols,sel,row0,row_idx", RNG_CASES)
+def test_threefry_kernel_equals_plain(dev, rows, cols, sel, row0, row_idx):
+    k = drng.fold_in(drng.key(1), 5)
+    before = kernels.THREEFRY_MONTY.launches
+    if row_idx is None:
+        got = drng._sample_monty(k, rows, cols, dev, sel=sel, row0=row0)
+    else:
+        got = drng.LazyMatrix(k, 1 << 21, cols, dev, row0=row0).rows(torch.tensor(row_idx, device=dev))
+    assert kernels.THREEFRY_MONTY.launches == before + 1
+    assert torch.equal(got, _rng_plain(k, cols, dev, rows, sel, row0, row_idx))
+
+
+def test_rng_never_runs_plain_on_the_card(dev, monkeypatch):
+    """Config 2 at n = 8 (device rng) with the plain Threefry refused: K6
+    draws every sample and the bytes are the JAX fixture's."""
+    from tpu_stark_torch.air.fibonacci import FibonacciAir, generate_trace_rows
+    from tpu_stark_torch.fri.config import create_benchmark_fri_params
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.prove import prove
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain Threefry ran on CUDA tensors")
+
+    monkeypatch.setattr(drng, "_monty_at", refuse)
+    fixture = json.loads((pathlib.Path(__file__).parent / "golden" / "torch_fib_zk_device_jax_proofs.json").read_text())
+    before = kernels.THREEFRY_MONTY.launches
+    cfg = create_config(create_benchmark_fri_params(1), zk=True, device=dev)
+    proof = prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, 21])
+    assert kernels.THREEFRY_MONTY.launches > before
+    assert serialize_proof(proof).hex() == fixture["3"]["proof_hex"]
 
 
 def test_harness_case_on_card_equals_cpu_tier(dev):

@@ -3,7 +3,8 @@ and the sharded prover's rejections (``tpu_stark_torch/dist/``).
 
 The commit and quotient follow ``tests/test_dist.py``: the column-sharded
 commit's root equals ``MerkleTreeMmcs().commit`` of the single-device LDE
-and its row blocks are that LDE's; the sharded quotient equals the port's
+and its row blocks are that LDE's; a ``ShardedPcs.commit`` of several
+heights equals the single-device commit; the sharded quotient equals the port's
 single-device ``_quotient_values`` (which ``tests/test_torch_wide.py`` and
 the proof fixtures hold exact against JAX).  The ranks run once: four gloo
 ranks on the CPU, one torch thread each, the 2-rank cases on the subgroup
@@ -21,7 +22,7 @@ from tpu_stark_torch.air.keccak_air import KeccakAir
 from tpu_stark_torch.commit.merkle import MerkleTreeMmcs
 from tpu_stark_torch.dist import multihost
 from tpu_stark_torch.dist.comm import RowMesh
-from tpu_stark_torch.dist.dryrun import column_commit, fib_quotient, pod_order, run_plan, run_ranks
+from tpu_stark_torch.dist.dryrun import column_commit, fib_quotient, multi_height_commit, pod_order, run_plan, run_ranks
 from tpu_stark_torch.dist.merkle import ShardedMmcs
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.fri.domains import TwoAdicCoset
@@ -41,6 +42,30 @@ QUOTIENT_LOG_N = 6
 HOSTS = {"interleaved": ["a", "b", "a", "b"], "host-major": ["a", "a", "b", "b"]}
 
 
+# a multi-height commit: heights 2^4, 2^5, 2^4 (the second 2^4 matrix handed
+# over as rank blocks), opened at these LDE rows
+MULTI_SHAPES = ((16, 3, False), (32, 2, False), (16, 1, True))
+MULTI_QUERIES = [0, 5, 127, 64, 33, 96]
+
+
+def _multi_evals():
+    return [_trace(h, w, 10 + h + w) for h, w, _blk in MULTI_SHAPES]
+
+
+def _multi_layout(hiding):
+    return "p3" if hiding else "tpu"
+
+
+def _multi_calls():
+    blocks = [blk for _h, _w, blk in MULTI_SHAPES]
+    return [(multi_height_commit, (_multi_evals(), blocks, MULTI_QUERIES, hiding, _multi_layout(hiding)))
+            for hiding in (False, True)]
+
+
+# where each group's multi-height calls start (after the other calls)
+_MULTI_AT = {4: sum(1 for c in COMMITS if c[0] == 4) + 1 + len(HOSTS), 2: sum(1 for c in COMMITS if c[0] == 2) + 1}
+
+
 @pytest.fixture(scope="module")
 def results():
     plan = []
@@ -49,6 +74,7 @@ def results():
         calls.append((fib_quotient, (QUOTIENT_LOG_N,)))
         if size == 4:
             calls += [(pod_order, (hosts,)) for hosts in HOSTS.values()]
+        calls += _multi_calls()
         plan.append((size, calls))
     per_rank = run_ranks(4, run_plan, plan, device="cpu")
     return {size: [per_rank[r][g] for r in range(size)] for g, (size, _) in enumerate(plan)}
@@ -99,14 +125,40 @@ def _mesh(size=1, rank=0):
 
 
 def test_multi_height_commit_on_a_mesh_raises():
+    """A commit's blocks must be the rank's blocks of their heights (checked
+    before any collective)."""
     mmcs = ShardedMmcs(MerkleTreeMmcs(lowmem_log=0), _mesh(2))
-    with pytest.raises(ValueError, match="multi-height"):
-        mmcs.commit_blocks([torch.zeros((4, 2), dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32)], 8)
-    pcs = create_config(zk=False, mesh=_mesh(), device="cpu").pcs
-    items = [(TwoAdicCoset(3), torch.zeros((8, 2), dtype=torch.int32)),
-             (TwoAdicCoset(4), torch.zeros((16, 2), dtype=torch.int32))]
-    with pytest.raises(ValueError, match="multi-height"):
-        pcs.commit(items)
+    with pytest.raises(ValueError, match="rank's block"):
+        mmcs.commit_blocks([torch.zeros((4, 2), dtype=torch.int32), torch.zeros((2, 2), dtype=torch.int32)], [8, 8])
+    with pytest.raises(ValueError, match="rank's block"):
+        mmcs.commit_blocks([torch.zeros((1, 2), dtype=torch.int32)], [1])
+    with pytest.raises(ValueError, match="blocks for"):
+        mmcs.commit_blocks([torch.zeros((4, 2), dtype=torch.int32)], [8, 4])
+
+
+@pytest.mark.parametrize("hiding", [False, True], ids=["plain", "hiding"])
+@pytest.mark.parametrize("size", [2, 4])
+def test_multi_height_commit_on_a_mesh_matches_single_device(results, size, hiding):
+    """``ShardedPcs.commit`` of several heights (JAX's ``tpu_stark/dist/
+    pcs.py`` accepts them) equals the single-device commit: the root, every
+    rank's blocks of the LDEs and coefficients, the domains and widths, and
+    the openings.  Hiding: salts and the p3 layout's random columns."""
+    got = [r[_MULTI_AT[size] + int(hiding)] for r in results[size]]
+    items = [(TwoAdicCoset(int(e.shape[0]).bit_length() - 1), bb.to_tensor(e, "cpu")) for e in _multi_evals()]
+    pcs = create_config(zk=hiding, zk_layout=_multi_layout(hiding), device="cpu").pcs
+    root, data = pcs.commit(items)
+    want = pcs.val_mmcs.open_batch_many(MULTI_QUERIES, data.merkle)
+    for r in got:
+        assert r["root"] == tuple(root)
+        assert r["domains"] == [(d.log_n, d.shift) for d in data.domains] and r["widths"] == data.widths
+        for (vals, salts, proof), op in zip(r["openings"], want):
+            assert proof == op.proof
+            assert all(np.array_equal(a, b) for a, b in zip(vals, op.opened_values))
+            assert (salts is None) == (op.opened_salts is None)
+            assert salts is None or all(np.array_equal(a, b) for a, b in zip(salts, op.opened_salts))
+    for k in range(len(items)):
+        np.testing.assert_array_equal(np.concatenate([r["ldes"][k] for r in got]), bb.to_numpy(data.merkle.matrices[k]))
+        np.testing.assert_array_equal(np.concatenate([r["r_coeffs"][k] for r in got]), bb.to_numpy(data.r_coeffs[k]))
 
 
 def test_prove_wide_on_a_mesh_raises():

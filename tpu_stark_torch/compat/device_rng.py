@@ -3,9 +3,8 @@
 randomizer, made where they are used, with no host round trip.
 
 The stream is JAX's Threefry-2x32 as ``jax.random`` runs it with
-``jax_threefry_partitionable`` on, reproduced bit for bit in plain torch
-(int64 lanes masked to 32 bits), so the port's default-config proofs equal
-the JAX package's:
+``jax_threefry_partitionable`` on, reproduced bit for bit, so the port's
+default-config proofs equal the JAX package's:
 
 * ``key(seed)`` is the pair ``(seed >> 32, seed & 0xFFFFFFFF)``;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``, the output pair being
@@ -20,9 +19,16 @@ not empty) and then one call counter per sample, as JAX does.
 sample's key and shape, which regenerates the same values on demand, the
 whole matrix or only some of its rows (a hiding commit keeps it instead of
 the salts, and its openings draw the opened rows alone).  A sample is
-the Monty value ``(hi * 2^32 + lo) mod p`` of two 32-bit draws.  Threefry
-is XLA, not Pallas, in the JAX package: here it is plain torch elementwise
-work on the sample's device.
+the Monty value ``(hi * 2^32 + lo) mod p`` of two 32-bit draws.
+
+The key arithmetic (``key``, ``fold_in``, ``split``) is Python-int work on
+the host.  A sample on the card is one launch of kernel K6
+(``csrc/threefry.cu``, ``_monty_kernel``), which computes each element
+from its flat index in registers; the JAX package runs the same function
+as an XLA program (its ``_sample_monty``), no Pallas kernel.  On the CPU a
+sample is the plain version: ``threefry2x32`` on int64 lanes masked to 32
+bits (``_monty_at``), in row blocks of ``_DRAW_ELEMS`` elements.
+``random_bits`` is the plain draw alone, for the tests.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from .. import kernels
 from ..fields import babybear as bb
 
 _M32 = 0xFFFFFFFF
@@ -104,15 +111,54 @@ def _monty_at(k: Key, i: torch.Tensor) -> torch.Tensor:
     return ((_bits_at(k_hi, i) * _TWO32_MOD_P + _bits_at(k_lo, i)) % bb.P).to(torch.int32)
 
 
-# a draw runs in row blocks of at most this many elements: the plain
+# a plain draw runs in row blocks of at most this many elements: the plain
 # Threefry holds about eight int64 temporaries of a block's size at once
 _DRAW_ELEMS = 1 << 24
+
+
+def _monty_kernel(k: Key, rows: int, cols: int, device, sel=None, row0: int = 0, row_idx=None) -> torch.Tensor:
+    """K6: the (rows, len(sel) or cols) int32 Monty values of the sample
+    under ``k`` of ``cols`` columns at its rows [row0, row0 + rows) (or the
+    rows row0 + ``row_idx``, repeats allowed) and its columns ``sel`` (or
+    all), in one launch on the CUDA ``device``.  A failed build or launch
+    raises."""
+    so = kernels.lib()  # builds the library (or raises) before any CUDA allocation
+    device = torch.device(device)
+    k_hi, k_lo = split(k)
+    sel_t = None if sel is None else torch.as_tensor(sel, dtype=torch.int64).to(device).contiguous()
+    idx_t = None if row_idx is None else torch.as_tensor(row_idx, dtype=torch.int64).to(device).contiguous()
+    n_rows = rows if idx_t is None else int(idx_t.shape[0])
+    n_out = cols if sel_t is None else int(sel_t.shape[0])
+    out = torch.empty((n_rows, n_out), dtype=torch.int32, device=device)
+    if out.numel() == 0:
+        return out
+    kernels.THREEFRY_MONTY.launches += 1
+    kernels.check(
+        so.ts_threefry_monty(
+            k_hi[0], k_hi[1], k_lo[0], k_lo[1], cols, None if sel_t is None else sel_t.data_ptr(), n_out, row0,
+            None if idx_t is None else idx_t.data_ptr(), n_rows, out.data_ptr(), kernels.stream_handle(device),
+        ),
+        "threefry monty",
+    )
+    return out
+
+
+def _on_card(device) -> bool:
+    """Whether a sample on ``device`` runs K6 (CUDA) or the plain version
+    (the CPU); any other device raises."""
+    kind = torch.device(device).type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"device rng: unsupported device {device}")
+    return kind == "cuda"
 
 
 def _sample_monty(k: Key, rows: int, cols: int, device, sel=None, row0: int = 0) -> torch.Tensor:
     """(rows, cols) int32 Monty residues of the sample under ``k``; only the
     columns ``sel`` of that matrix when given; the rows [row0, row0 + rows)
-    of a taller sample of ``cols`` columns when ``row0`` is given."""
+    of a taller sample of ``cols`` columns when ``row0`` is given.  K6 on
+    the card, the plain version on the CPU."""
+    if _on_card(device):
+        return _monty_kernel(k, rows, cols, device, sel=sel, row0=row0)
     idx = _flat_index(1, cols, sel, device)  # the first row's flat indices
     out = torch.empty((rows, int(idx.shape[1])), dtype=torch.int32, device=device)
     step = max(1, _DRAW_ELEMS // max(1, int(idx.shape[1])))
@@ -145,6 +191,8 @@ class LazyMatrix:
         """``materialize()[idx]``, bit for bit, drawing only those rows:
         (len(idx), cols) for any int64 row indices, repeats included."""
         cols = self.shape[1]
+        if _on_card(self.device):
+            return _monty_kernel(self._key, 0, cols, self.device, row0=self.row0, row_idx=idx)
         idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device) + self.row0
         col_idx = torch.arange(cols, dtype=torch.int64, device=self.device)
         out = torch.empty((int(idx.shape[0]), cols), dtype=torch.int32, device=self.device)

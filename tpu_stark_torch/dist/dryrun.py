@@ -327,6 +327,34 @@ def column_commit(mesh, trace: np.ndarray, log_blowup: int):
     return tuple(root), bb.to_numpy(rows), sharded_prove_step(mesh, mine, log_blowup)
 
 
+def multi_height_commit(mesh, evals: List[np.ndarray], as_block: List[bool], queries: List[int],
+                        zk: bool, zk_layout: str = "tpu") -> dict:
+    """``ShardedPcs.commit`` of matrices of several heights (``evals``:
+    global Monty matrices, each its evaluations on the plain subgroup of its
+    height; a matrix marked in ``as_block`` is handed over as the rank's row
+    block, the others whole) on the Keccak stack, hiding when ``zk``: the
+    root, the rank's blocks of the committed LDEs and of the coefficients,
+    the domains and widths, and the MMCS openings at ``queries``."""
+    from ..fields import babybear as bb
+    from ..fri.domains import TwoAdicCoset
+    from ..prover.config import create_config
+    from .comm import block
+
+    pcs = create_config(zk=zk, zk_layout=zk_layout, mesh=mesh, device=mesh.device).pcs
+    items = []
+    for e, part in zip(evals, as_block):
+        h = int(e.shape[0])
+        r0, rows = block(mesh, h) if part else (0, h)
+        items.append((TwoAdicCoset(h.bit_length() - 1), bb.to_tensor(np.ascontiguousarray(e[r0 : r0 + rows]),
+                                                                     mesh.device)))
+    root, data = pcs.commit(items)
+    openings = pcs.val_mmcs.open_batch_many(queries, data.merkle)
+    return {"root": tuple(root), "ldes": [bb.to_numpy(m) for m in data.merkle.matrices],
+            "r_coeffs": [bb.to_numpy(r) for r in data.r_coeffs],
+            "domains": [(d.log_n, d.shift) for d in data.domains], "widths": list(data.widths),
+            "openings": [(o.opened_values, o.opened_salts, o.proof) for o in openings]}
+
+
 def fib_quotient(mesh, log_n: int, alpha=(3, 1, 4, 1)):
     """The row-sharded quotient of fib_air (not zk) at 2^log_n rows, as
     JAX's test builds its inputs: (the rank's block, the single-device

@@ -13,9 +13,10 @@ subtree:
   rows: a counter-based rng (``DeviceRng``) draws only those rows
   (``sample_lazy(h, 4).block``, bit-exact), the host ``SmallRng`` draws the
   whole stream on every rank and slices it, so that every rank's rng state
-  stays equal.  Only single-height commits are sharded (every commit of
-  ``prove()`` is); a multi-height one raises.  ``commit_digest_blocks``
-  takes the rank's leaf digests ready-made (the streamed wide commit).
+  stays equal.  A commit of several heights is one tree, as on one device:
+  a shorter matrix's rank block is injected into the rank's subtree at the
+  layer of its height.  ``commit_digest_blocks`` takes the rank's leaf
+  digests ready-made (the streamed wide commit).
 * **openings**: the owner rank of a query opens its rows, salts and local
   path through the inner MMCS; the top path comes from the replicated top
   levels; one all-reduce hands every opening to every rank.  A streamed
@@ -121,18 +122,27 @@ class ShardedMmcs:
         self.largest_whole = max(self.largest_whole, int(digests.shape[0]))
         return self.inner.commit_digests(matrix, digests, salts)
 
-    def commit_blocks(self, blocks: Sequence[torch.Tensor], height: int) -> Tuple[Digest, ShardedProverData]:
-        """Commit matrices of global height ``height`` of which this rank
-        holds the row blocks ``blocks``."""
+    def commit_blocks(self, blocks: Sequence[torch.Tensor],
+                      heights: Sequence[int]) -> Tuple[Digest, ShardedProverData]:
+        """Commit matrices of global heights ``heights`` (at least n rows
+        each) of which this rank holds the row blocks ``blocks``: one tree,
+        a shorter matrix injected at the layer of its height.  The rank's
+        block of the tallest is a complete subtree, and the layer at a
+        shorter height holds exactly the rank's rows of that matrix, so each
+        rank builds its subtree with the injections, as ``build_layers``
+        does on one device."""
         inner, mesh = self.inner, self.mesh
-        blocks = list(blocks)
-        r0, rows = block(mesh, height)
-        if any(int(b.shape[0]) != rows for b in blocks):
-            raise ValueError("a multi-height commit cannot be sharded (every block must hold height / n rows)")
+        blocks, heights = list(blocks), [int(h) for h in heights]
+        if len(blocks) != len(heights):
+            raise ValueError(f"{len(blocks)} blocks for {len(heights)} heights")
+        for b, h in zip(blocks, heights):
+            if h < mesh.size or int(b.shape[0]) != block(mesh, h)[1]:
+                raise ValueError(f"a block of {b.shape[0]} rows is not a rank's block of {h} rows")
         salts = None
         if inner.hiding:
-            salts = [draw_rows(inner._rng, height, inner.SALT_ELEMS, r0, rows, b.device)[0] for b in blocks]
-        return self._commit_layers(build_layers(inner, blocks, salts), blocks, salts, height)
+            salts = [draw_rows(inner._rng, h, inner.SALT_ELEMS, *block(mesh, h), b.device)[0]
+                     for b, h in zip(blocks, heights)]
+        return self._commit_layers(build_layers(inner, blocks, salts), blocks, salts, max(heights))
 
     def commit_digest_blocks(self, matrix, digests: torch.Tensor, height: int,
                              salts=None) -> Tuple[Digest, ShardedProverData]:

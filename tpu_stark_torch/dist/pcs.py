@@ -8,7 +8,8 @@ contiguous row blocks, one a rank, and are never gathered whole:
   of the evals (free for a matrix every rank holds whole, one all-to-all
   for a rank block), the sharded iNTT, the coset scale, the zero pad and
   the sharded DIF NTT, whose output is the rank's block of the committed
-  frame; the tree is ``ShardedMmcs``'s (local subtree, gathered subroots).
+  frame; the tree is ``ShardedMmcs``'s (local subtree, gathered subroots),
+  one tree for all the heights, as on one device.
   ``commit`` tells a replicated matrix (height = domain size) from a rank
   block (height = domain size / n); with one rank the two coincide.
 * **get_evaluations_on_domain**: in the bit-reversed frame the stride-s
@@ -34,7 +35,7 @@ single-device ``Dft`` on the rank's device, with its ``narrow`` route.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -103,39 +104,47 @@ class ShardedPcs(TwoAdicFriPcs):
             whole = [(d, mesh.all_gather(e, "small_gather") if self._is_block(d, e) else e) for d, e in items]
             items.clear()
             return super().commit(whole, _randomize=False)
-        heights = {d.size for d, _ in items}
-        if len(heights) != 1:
-            raise ValueError("a multi-height commit cannot be sharded")
-        h = heights.pop()
-        log_h = log2_strict(h)
-        lde_h = h << self.fri.log_blowup
         domains = [d for d, _ in items]
         widths = [int(e.shape[1]) for _, e in items]
-        # every matrix's block of the bit-reversed frame, side by side
-        br = [dntt.bitrev_reshard(mesh, e, log_h) if self._is_block(d, e) else _br_block(mesh, e) for d, e in items]
+        ldes_br: List[torch.Tensor] = [None] * len(items)
+        r_coeffs: List[torch.Tensor] = [None] * len(items)
+        groups: Dict[int, List[int]] = {}
+        for k, d in enumerate(domains):
+            groups.setdefault(d.log_n, []).append(k)
+        # each height's matrices share one transform, as on one device; the
+        # tree then takes the mixed heights, the shorter ones injected
+        for log_h, ks in groups.items():
+            # every matrix's block of the bit-reversed frame, side by side
+            br = []
+            for k in ks:
+                d, e = items[k]
+                items[k] = (d, None)
+                br.append(dntt.bitrev_reshard(mesh, e, log_h) if self._is_block(d, e) else _br_block(mesh, e))
+                del e
+            wide = br[0] if len(br) == 1 else torch.cat(br, dim=1)
+            del br
+            q_coeffs = dntt.idft_from_br(mesh, wide, log_h)
+            del wide
+            # committed codeword = q on (GEN/shift)*K relabeled to the plain
+            # frame: r(y) = q(sigma * y), a per-column coefficient scale
+            rows = int(q_coeffs.shape[0])
+            sig = torch.cat([
+                dntt.row_powers(mesh, log_h, bb.GENERATOR * rf.finv(domains[k].shift) % bb.P, q_coeffs.device)[:, None]
+                .expand(rows, widths[k]) for k in ks], dim=1)
+            r_small = bb.mul_canonical(q_coeffs, sig)
+            del q_coeffs, sig
+            padded = dntt.pad_rows(mesh, r_small, log_h, self.fri.log_blowup)
+            codeword_br = dntt.dft_br(mesh, padded, log_h + self.fri.log_blowup)
+            del padded
+            off = 0
+            for k in ks:
+                w = widths[k]
+                ldes_br[k] = codeword_br[:, off : off + w].contiguous()
+                r_coeffs[k] = r_small[:, off : off + w].contiguous()
+                off += w
+            del codeword_br, r_small
         items.clear()
-        wide = br[0] if len(br) == 1 else torch.cat(br, dim=1)
-        del br
-        q_coeffs = dntt.idft_from_br(mesh, wide, log_h)
-        del wide
-        # committed codeword = q on (GEN/shift)*K relabeled to the plain
-        # frame: r(y) = q(sigma * y), a per-column coefficient scale
-        rows = int(q_coeffs.shape[0])
-        sig = torch.cat([
-            dntt.row_powers(mesh, log_h, bb.GENERATOR * rf.finv(d.shift) % bb.P, q_coeffs.device)[:, None]
-            .expand(rows, w) for d, w in zip(domains, widths)], dim=1)
-        r_small = bb.mul_canonical(q_coeffs, sig)
-        del q_coeffs, sig
-        padded = dntt.pad_rows(mesh, r_small, log_h, self.fri.log_blowup)
-        codeword_br = dntt.dft_br(mesh, padded, log_h + self.fri.log_blowup)
-        del padded
-        ldes_br, r_coeffs, off = [], [], 0
-        for w in widths:
-            ldes_br.append(codeword_br[:, off : off + w].contiguous())
-            r_coeffs.append(r_small[:, off : off + w].contiguous())
-            off += w
-        del codeword_br, r_small
-        root, merkle_data = self.val_mmcs.commit_blocks(ldes_br, lde_h)
+        root, merkle_data = self.val_mmcs.commit_blocks(ldes_br, [d.size << self.fri.log_blowup for d in domains])
         return root, PcsProverData(merkle_data, r_coeffs, domains, widths)
 
     def get_evaluations_on_domain(self, data: PcsProverData, idx: int, domain: TwoAdicCoset) -> torch.Tensor:
@@ -195,7 +204,7 @@ class ShardedPcs(TwoAdicFriPcs):
 
     def _commit_level(self, current: torch.Tensor, log_h: int):
         if self._sharded_height(log_h):
-            return self.challenge_mmcs.commit_blocks([current.reshape(-1, 8)], 1 << (log_h - 1))
+            return self.challenge_mmcs.commit_blocks([current.reshape(-1, 8)], [1 << (log_h - 1)])
         return super()._commit_level(current, log_h)
 
     def _fold(self, current: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torch.Tensor:

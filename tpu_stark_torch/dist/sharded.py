@@ -43,7 +43,7 @@ def sharded_lde_commit(mesh: RowMesh, trace_cols: torch.Tensor, log_blowup: int,
     got = mesh.all_to_all_rows(parts, [rows] * mesh.size, "columns_to_rows")
     row_block = torch.cat(got, dim=1)
     root, _ = ShardedMmcs(mmcs if mmcs is not None else MerkleTreeMmcs(lowmem_log=0), mesh).commit_blocks(
-        [row_block], h_lde)
+        [row_block], [h_lde])
     return row_block, root
 
 

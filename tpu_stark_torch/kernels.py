@@ -26,7 +26,7 @@ from typing import Optional
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu")
+SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu", "threefry.cu")
 HEADERS = ("babybear.cuh",)
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
@@ -83,6 +83,12 @@ KECCAK_GRIND = KernelInfo(
     "keccak_grind", "tpu_stark_torch/csrc/keccak_sponge.cu",
     "tpu_stark/challenger/grind.py:74",
 )
+# K6, the device zk rng's Monty sample; its JAX counterpart is XLA (no
+# Pallas kernel): the sample program of the JAX package's device rng
+THREEFRY_MONTY = KernelInfo(
+    "threefry_monty", "tpu_stark_torch/csrc/threefry.cu",
+    "tpu_stark/compat/device_rng.py:41",
+)
 # the speed-of-light probes of bench/sol.py; they replace its XLA probes
 SOL_MUL = KernelInfo(
     "sol_mul_probe", "tpu_stark_torch/csrc/sol_probes.cu",
@@ -98,7 +104,7 @@ SOL_HBM = KernelInfo(
 )
 SOL_PROBES = (SOL_MUL, SOL_ALU, SOL_HBM)
 ALL = (KECCAK_SPONGE, KECCAK_TREE, KECCAK_ABSORB, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
-       KECCAK_GRIND) + SOL_PROBES
+       KECCAK_GRIND, THREEFRY_MONTY) + SOL_PROBES
 
 
 def reset_launch_counts() -> None:
@@ -204,6 +210,9 @@ def lib() -> ctypes.CDLL:
             so.ts_mxu_mm.restype = i32
             so.ts_keccak_grind.argtypes = [vp, vp, i32, i32, i32, ctypes.c_uint64, i64, vp, vp]
             so.ts_keccak_grind.restype = i32
+            u32 = ctypes.c_uint32
+            so.ts_threefry_monty.argtypes = [u32, u32, u32, u32, i64, vp, i64, i64, vp, i64, vp, vp]
+            so.ts_threefry_monty.restype = i32
             so.ts_sol_mul.argtypes = [vp, vp, vp, i64, i32, vp]
             so.ts_sol_mul.restype = i32
             so.ts_sol_alu.argtypes = [vp, vp, i64, i32, vp]
