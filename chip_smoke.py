@@ -8,7 +8,11 @@ nvcc and a CUDA build of PyTorch.  Imports nothing of JAX.  Phases, one
 line each, any failure an uncaught exception and a nonzero exit:
 
 1. device name, ``nvidia-smi`` name and power limit; build the kernels of
-   ``tpu_stark_torch/csrc`` with nvcc (and the C host helper);
+   ``tpu_stark_torch/csrc`` with nvcc (and the C host helper), and beside
+   them K7's libraries, one a constraint DAG of fib, the chain and
+   keccak-air (``air/quotient_kernel.py``: 10 sources generated from the
+   AIRs, each compiled by its own nvcc), with each one's compile seconds
+   and ptxas registers;
 2. K1 (Keccak sponge) against its plain torch version, exact, at leaf
    shapes (2^20, 6), (2^20, 8), (1000, 40) and 2^20 compress pairs; then
    its tree kernel (``compress_levels``, every compress layer of a tree in
@@ -21,6 +25,15 @@ line each, any failure an uncaught exception and a nonzero exit:
    plain, the per-pass bound and the whole transform's HBM bound (one read
    and one write of the matrix), its int32 bound beside it (L2 flushed
    before each launch where the matrix would fit in it);
+24. (run after 3) K7 against its plain version, exact, and timed beside
+    its bound: one keccak-air partition of each of its 8 DAGs at config
+    4's panel (2^20 rows a coset cut into ``block_count``'s blocks: a
+    block's rows, the next block's as next rows, the last block's strided
+    selectors and accumulator rows, added in place), the dense pass of
+    config 2 at 2^20 (2^21 x 2, step 2, times 1/Z_H) and of the chain (2^19
+    x 493); K8 against its plain version, exact, and timed beside its bound
+    at config 4's and cell 6's panel folds ((2^20, 768), (2^21, 768),
+    (2^20, 257), (2^21, 24) coefficients);
 4. fib_air zk n = 8 proofs, both layouts, byte-equal to the golden files;
 5. n = 2^14 proofs, both layouts, with the SHA-256 and length the JAX
    package produced (tests/golden/torch_fib_zk_jax_proofs.json);
@@ -159,7 +172,9 @@ line each, any failure an uncaught exception and a nonzero exit:
     beside ``torch.add``); then ``bench.hash``'s two lines (K1, K3) and
     ``bench.narrow_ntt``'s seven shapes, its k2 and mxu routes
     bit-identical, each twin a main path of its own (launch counts reset
-    just before it, read just after, its operand shapes noted);
+    just before it, read just after, its operand shapes noted); and K7
+    scored the same way at one keccak-air partition of each DAG over 2^20
+    rows (``sol.run_quotient_partitions``, in the report's path);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
     phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
@@ -179,8 +194,12 @@ line each, any failure an uncaught exception and a nonzero exit:
     by n, A, R and direction (config 2's set must be phase 14's), the
     grind's chunks by count, tail blocks, witness offset and bits, and K6's
     samples by rows, columns, selected columns, row0 or row indices and
-    whether a flat index passes 2^32 (checked past it), on
-    random inputs of those shapes.
+    whether a flat index passes 2^32 (checked past it), K7's calls by DAG,
+    rows, operand widths and strides, next rows and shift, selector and
+    accumulator strides, ``add`` and ``invz`` (the plain version over row
+    slices of 2^22), K8's by operand shape and coset size, on random inputs
+    of those shapes.  Every path that proves must have launched K7, and no
+    path may have called a plain quotient version.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
 summed over the main paths, and by path in ``launches_by_path``: the five
@@ -242,6 +261,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -381,6 +401,41 @@ def k5_levels(h: int, w: int):
     return out
 
 
+# K7 (the quotient pass's generated kernels): a multiply of the DAG a
+# Montgomery product, an add, subtract or negation a modular add, and a fold
+# four products and four 64-bit adds; its bytes the columns it reads of the
+# two panels (of one panel, each word once, where the next rows are the
+# current panel's: ``one_panel``), its selectors (and inv_zeroifier with
+# invz) and the 16-byte accumulator row written (and read with add)
+MOD_ADD_OPS = 2
+QUOTIENT_FOLD_OPS = 4 * (MONTY_MUL_OPS + 2)
+
+
+def same_panel(cur, nxt) -> bool:
+    """Whether K7's next rows come from its current panel (the dense pass)."""
+    return cur.data_ptr() == nxt.data_ptr() and cur.stride(0) == nxt.stride(0)
+
+
+def quotient_eval_bound(dag, rows: int, add: bool, invz: bool, one_panel: bool = False):
+    (lo0, hi0), (lo1, hi1) = dag.span(0), dag.span(1)
+    if one_panel and hi0 > lo0 and hi1 > lo1 and lo1 <= hi0 and lo0 <= hi1:
+        panel_words = max(hi0, hi1) - min(lo0, lo1)  # the two spans overlap: their union
+    else:
+        panel_words = (hi0 - lo0) + (hi1 - lo1)
+    used = {n[1] for n in dag.nodes if n[0] == "sel"}
+    n_bytes = 4 * rows * (panel_words + len(used) + int(invz)) + 16 * rows * (1 + int(add))
+    node_ops = sum(MONTY_MUL_OPS if n[0] == "mul" else MOD_ADD_OPS for n in dag.nodes
+                   if n[0] in ("add", "sub", "mul", "neg"))
+    return _bound(n_bytes, rows * (node_ops + QUOTIENT_FOLD_OPS * len(dag.roots)))
+
+
+def panel_fold_bound(n: int, u: int, m: int):
+    """K8 on (n, u) coefficients folded to m rows: each read once, each
+    output written once; a term two products and a modular add, a row's
+    scale and its next power two products."""
+    return _bound(4 * (n + m) * u, m * u * ((n // m - 1) * (2 * MONTY_MUL_OPS + MOD_ADD_OPS) + 2 * MONTY_MUL_OPS))
+
+
 # phase 14's K5 leaves (n, M) and narrow-route transforms (h, w)
 K5_TIMED = ((256, 65536), (128, 131072), (64, 262147), (32, 524269), (16, 1048573))
 ROUTE_TIMED = ((1 << 16, 2), (1 << 21, 2), (1 << 22, 4), (1 << 23, 2), (1 << 20, 32))
@@ -439,6 +494,7 @@ def import_port():
 
     from tpu_stark_torch import kernels
     from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.air import quotient_kernel
     from tpu_stark_torch.app.__main__ import main as app_main
     from tpu_stark_torch.bench import harness, sol
     from tpu_stark_torch.bench import hash as bench_hash
@@ -494,6 +550,8 @@ _SHAPE_KERNELS = {
     "mod_matmul_twiddle_moved": ("mxu_mm",),
     "grind_verdicts": ("keccak_grind",),
     "rng_sample": ("threefry_monty",),
+    "quotient_eval": ("quotient_eval",),
+    "panel_fold": ("panel_fold",),
 }
 
 
@@ -511,6 +569,18 @@ def _rng_key(k, rows, cols, device, sel=None, row0=0, row_idx=None):
     return ("rng_sample", int(n), int(cols), n_sel, row0 != 0, row_idx is not None, high)
 
 
+def _quotient_key(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc, acc_off, acc_stride, add,
+                  invz):
+    """A K7 call's shape key (see ``_record_shapes``); None off the card
+    (the SoL report audits the plain twin on ``meta`` through the wrapper)."""
+    if not cur.is_cuda:
+        return None
+    return ("quotient_eval", prog.dag.key, int(cur.shape[0]), int(cur.shape[1]), int(cur.stride(0)),
+            int(nxt.shape[0]), int(nxt.shape[1]), int(nxt.stride(0)), int(nshift), int(sel_stride),
+            int(sels["is_first_row"].shape[0]), int(acc_stride), int(acc.shape[0]), bool(add), bool(invz),
+            int(pis.shape[0]))
+
+
 @contextlib.contextmanager
 def _record_shapes(port, seen: dict, path: str):
     """While open, note in ``seen`` (key -> the paths that gave it) the
@@ -526,7 +596,12 @@ def _record_shapes(port, seen: dict, path: str):
     tail blocks, witness offset and bits; K6's samples (``device_rng.
     _monty_kernel``) by rows, columns, the number of ``sel`` columns (-1:
     all), whether ``row0`` and row indices are given, and whether a flat
-    index reaches 2^32."""
+    index reaches 2^32; K7's ``eval_fold`` by its DAG, rows, operand widths
+    and row strides, next-row count and shift, selector and accumulator
+    strides and lengths, ``add``, ``invz`` and the public values' count
+    (``_quotient_key``); K8's ``panel_fold`` by its operand's shape and the
+    coset's size.  A call of either plain version notes ``plain_quotient``,
+    which no main path may give on the card."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
 
     def rows(t):  # width, row stride, and the base's offset in words past a 16-byte boundary
@@ -553,13 +628,22 @@ def _record_shapes(port, seen: dict, path: str):
         (port.grind, "verdicts"): lambda start, count, pre, tail, w_off, bits: (
             "grind_verdicts", int(count), int(tail.shape[0]), int(w_off), int(bits)),
         (port.device_rng, "_monty_kernel"): _rng_key,
+        (port.quotient_kernel, "eval_fold"): _quotient_key,
+        (port.quotient_kernel, "panel_fold"): lambda tf, log_m, shift: (
+            ("panel_fold", int(tf.shape[0]), int(tf.shape[1]), int(log_m)) if tf.is_cuda else None),
+        (port.quotient_kernel, "eval_fold_plain"): lambda prog, cur, *a, **k: (
+            ("plain_quotient", "eval_fold_plain") if cur.is_cuda else None),
+        (port.quotient_kernel, "panel_fold_plain"): lambda tf, *a, **k: (
+            ("plain_quotient", "panel_fold_plain") if tf.is_cuda else None),
     }
     originals = {}
     for (mod, name), key in keys.items():
         orig = originals[(mod, name)] = getattr(mod, name)
 
         def recorded(*args, _orig=orig, _key=key, **kw):
-            seen.setdefault(_key(*args, **kw), set()).add(path)
+            k = _key(*args, **kw)
+            if k is not None:  # None: a call that no kernel serves (the SoL report's audit on meta)
+                seen.setdefault(k, set()).add(path)
             return _orig(*args, **kw)
 
         setattr(mod, name, recorded)
@@ -602,10 +686,19 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             out.append(d)
         return out
 
+    qk = port.quotient_kernel
+    progs = {p.dag.key: p for air, npis in ((port.FibonacciAir(), 3), (port.poseidon2_air.Poseidon2ChainAir(), 32),
+                                            (port.keccak_air.KeccakAir(), 0)) for p in qk.programs(air, npis)}
     done = {}
     for key in sorted(seen, key=repr):
         kind, n = key[0], key[1]
-        if kind == "dft":
+        if kind == "quotient_eval":
+            got, want = _check_quotient_eval(torch, qk, progs[key[1]], key, rand_monty)
+        elif kind == "panel_fold":
+            tf = rand_monty((n, key[2]))
+            shift = 31 * pow(port.bb.two_adic_generator(key[3] + 1), 5, port.bb.P) % port.bb.P
+            got, want = qk.panel_fold(tf, key[3], shift), qk.panel_fold_plain(tf, key[3], shift)
+        elif kind == "dft":
             x = rand_monty((n, key[2]))
             got, want = nk.dft(x, key[3]), dft_plain(x, key[3])
         elif kind == "mod_matmul_axis":
@@ -672,6 +765,30 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
         entry[0] += 1
         entry[1] = max(entry[1], err)
     return done
+
+
+def _check_quotient_eval(torch, qk, prog, key, rand_monty):
+    """K7 at a noted shape (``_quotient_key``) on random operands, and its
+    plain version over slices of PLAIN_ROWS rows (each slice's next rows,
+    selectors and accumulator rows offset to its first row); the last
+    block's offsets when the selector stride is above 1."""
+    rows, u, ld, nrows, u_nxt, ld_nxt, nshift, sel_stride, sel_len, acc_stride, acc_len, add, invz, npis = key[2:]
+
+    def operand(n, k, stride):
+        return rand_monty((n * stride,)).as_strided((n, k), (stride, 1))
+
+    cur, nxt = operand(rows, u, ld), operand(nrows, u_nxt, ld_nxt)
+    sels = {name: rand_monty((sel_len,)) for name in qk.SELECTORS}
+    pis, alpha, acc = rand_monty((npis,)), rand_monty((prog.count, 4)), rand_monty((acc_len, 4))
+    sel_off, acc_off = sel_stride - 1, acc_stride - 1
+    got = qk.eval_fold(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                       acc_stride, add, invz)
+    want = acc.clone()
+    for r0 in range(0, rows, PLAIN_ROWS):
+        qk.eval_fold_plain(prog, cur[r0 : r0 + PLAIN_ROWS], nxt, (nshift + r0) % nrows, sels,
+                           sel_off + r0 * sel_stride, sel_stride, pis, alpha, want, acc_off + r0 * acc_stride,
+                           acc_stride, add, invz)
+    return got, want
 
 
 # phase 13's plain versions run on slices of at most this many rows (row-wise
@@ -780,6 +897,87 @@ def _phase3_k2(torch, port, rand_monty, results, dev) -> str:
             f"{' (L2 flushed)' if cold is not None else ''}; " + "; ".join(passes))
     del flush
     return "[3] K2 ntt == plain (exact): " + " | ".join(lines)
+
+
+def _phase24_quotient(torch, port, rand_monty, results, log_n: int = 20) -> str:
+    """K7 and K8 against their plain versions, exact, and timed beside their
+    bounds at the main paths' shapes: K7 on one partition of each of
+    keccak-air's DAGs at config 4's panel (2^20 rows a coset in
+    ``block_count``'s blocks: a block's rows, the next block's as next rows,
+    the last block's strided selectors and accumulator rows), the dense
+    pass of config 2 at 2^20 (2^21 x 2, times 1/Z_H) and of the chain
+    (2^19 x 493); K8 at config 4's and cell 6's panel folds (2^20 and 2^21
+    coefficients)."""
+    qk, wide = port.quotient_kernel, port.wide
+    n = 1 << log_n
+    timed, lines, err = [], [], 0
+
+    def one(label, prog, cur, nxt, nshift, sels, off, stride, pis, add, invz):
+        nonlocal err
+        alpha, acc = rand_monty((prog.count, 4)), rand_monty((int(sels["is_first_row"].shape[0]), 4))
+        args = (prog, cur, nxt, nshift, sels, off, stride, pis, alpha)
+        got = qk.eval_fold(*args, acc.clone(), off, stride, add, invz)
+        want = qk.eval_fold_plain(*args, acc.clone(), off, stride, add, invz)
+        torch.cuda.synchronize()
+        e = _max_abs_err(torch, got, want)
+        if e != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K7 {label}: kernel != plain (max_abs_err {e})")
+        err = max(err, e)
+        ms = _cuda_ms(torch, lambda: qk.eval_fold(*args, acc, off, stride, add, invz), 10)
+        plain_ms = _cuda_ms(torch, lambda: qk.eval_fold_plain(*args, acc, off, stride, add, invz), 1)
+        bound_ms, bound_by = quotient_eval_bound(prog.dag, int(cur.shape[0]), add, invz, same_panel(cur, nxt))
+        row = {"label": label, "shape": list(cur.shape), "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+               "bound_ms": round(bound_ms, 6), "bound_by": bound_by}
+        timed.append(row)
+        lines.append(f"{label} {tuple(cur.shape)}: {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}, {100 * bound_ms / ms:.1f} %)")
+        return row
+
+    no_pis = torch.zeros((0,), dtype=torch.int32, device=rand_monty((1,)).device)
+    seen_dags = set()
+    for prog in qk.programs(port.keccak_air.KeccakAir(), 0):
+        if prog.dag.key in seen_dags:
+            continue
+        seen_dags.add(prog.dag.key)
+        u = len(prog.cols)
+        r = wide.block_count(n, u, len(prog.next_cols) > 0, wide.PANEL_BUDGET, wide.MIN_BLOCK_LOG)
+        sels = {k: rand_monty((n,)) for k in qk.SELECTORS}
+        row = one(f"keccak-air {prog.name}", prog, rand_monty((n // r, u)), rand_monty((n // r, u)), 0, sels, r - 1,
+                  r, no_pis, True, False)
+        if prog.name == "apdef0":
+            results["quotient_eval"] = (0, row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"])
+    for label, air, npis, log_h in (("config 2 dense", port.FibonacciAir(), 3, log_n + 1),
+                                    ("chain dense", port.poseidon2_air.Poseidon2ChainAir(), 32, log_n - 1)):
+        prog = qk.programs(air, npis)[0]
+        h = 1 << log_h
+        cur = rand_monty((h, air.width))
+        one(label, prog, cur, cur, 2, {k: rand_monty((h,)) for k in qk.SELECTORS}, 0, 1, rand_monty((npis,)), False,
+            True)
+    k8 = []
+    for label, n_coef, u, log_m in (("config 4 apdef", n, 768, log_n - 2), ("cell 6 apdef", 2 * n, 768, log_n - 2),
+                                    ("config 4 trans", n, 257, log_n - 2), ("cell 6 flags", 2 * n, 24, log_n)):
+        tf = rand_monty((n_coef, u))
+        shift = 31 * pow(port.bb.two_adic_generator(22), 3, port.bb.P) % port.bb.P
+        got, want = qk.panel_fold(tf, log_m, shift), qk.panel_fold_plain(tf, log_m, shift)
+        torch.cuda.synchronize()
+        e = _max_abs_err(torch, got, want)
+        if e != 0 or not torch.equal(got, want):
+            raise AssertionError(f"K8 {label}: kernel != plain (max_abs_err {e})")
+        ms = _cuda_ms(torch, lambda: qk.panel_fold(tf, log_m, shift), 10)
+        plain_ms = _cuda_ms(torch, lambda: qk.panel_fold_plain(tf, log_m, shift), 1)
+        bound_ms, bound_by = panel_fold_bound(n_coef, u, 1 << log_m)
+        k8.append({"label": label, "shape": [n_coef, u, 1 << log_m], "ms": round(ms, 6),
+                   "plain_ms": round(plain_ms, 6), "bound_ms": round(bound_ms, 6), "bound_by": bound_by})
+        lines.append(f"K8 {label} ({n_coef}, {u}) -> {1 << log_m} rows: {ms:.4f} ms vs plain {plain_ms:.3f} ms, "
+                     f"bound {bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.1f} %)")
+        if label == "config 4 apdef":
+            results["panel_fold"] = (0, ms, plain_ms, bound_ms, bound_by, {"shape": [n_coef, u, 1 << log_m],
+                                                                          "timed": k8})
+        del tf, got, want
+    ms, plain_ms, bound_ms, bound_by = results["quotient_eval"][1:]
+    shape = next(row["shape"] for row in timed if row["label"] == "keccak-air apdef0")
+    results["quotient_eval"] = (err, ms, plain_ms, bound_ms, bound_by, {"shape": shape, "timed": timed})
+    return "[24] K7 and K8 == plain (exact): " + "; ".join(lines)
 
 
 def _phase14_mxu(torch, port, rand_monty, results) -> str:
@@ -1004,9 +1202,9 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
     launches, warm, timings, blobs, peaks, rng_shapes = {}, {}, {}, {}, {}, {}
     for narrow, path, path_kernels in (
         ("mxu", "config2-mxu", (kernels.MXU_MM, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_GRIND,
-                                kernels.THREEFRY_MONTY)),
+                                kernels.THREEFRY_MONTY, kernels.QUOTIENT_EVAL)),
         (None, "config2-k2", (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
-                              kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY)),
+                              kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY, kernels.QUOTIENT_EVAL)),
     ):
         torch.cuda.reset_peak_memory_stats(dev)
         timings[path] = {}
@@ -1058,16 +1256,16 @@ def _phase16_config2(torch, port, dev, seen, log_n: int):
 # JAX proof has the twin's configuration, the kernels the path must launch)
 TWINS = (
     ("twin-fib", ["fib", "12", "keccak", "zk", "1", "bench"], ("torch_fib_zk_device_jax_proofs.json", "12"),
-     ("KECCAK_SPONGE", "KECCAK_TREE", "NTT_PASS0", "NTT_PASS", "KECCAK_GRIND", "THREEFRY_MONTY")),
+     ("KECCAK_SPONGE", "KECCAK_TREE", "NTT_PASS0", "NTT_PASS", "KECCAK_GRIND", "THREEFRY_MONTY", "QUOTIENT_EVAL")),
     ("twin-chain", ["chain", "6"], ("torch_poseidon2_jax_proofs.json", "chain_6"),
-     ("NTT_PASS0", "POSEIDON2_SPONGE")),
+     ("NTT_PASS0", "POSEIDON2_SPONGE", "QUOTIENT_EVAL")),
     # 7: the perms_5 fixture's 128 rows, generate_trace(128 // 24, seed=1)
     ("twin-keccak-air", ["keccak-air", "7", "bench", "1"], ("torch_keccak_air_jax_proofs.json", "perms_5"),
-     ("NTT_PASS0", "POSEIDON2_SPONGE", "POSEIDON2_ABSORB")),
+     ("NTT_PASS0", "POSEIDON2_SPONGE", "POSEIDON2_ABSORB", "QUOTIENT_EVAL", "PANEL_FOLD")),
     # the reference's stack at 64 rows: as long as the zk fixture's proof
     ("twin-keccak-air-zk", ["keccak-air", "6", "test", "1", "keccak", "zk"],
      ("torch_keccak_air_wide_zk_jax_proofs.json", "keccak_4chunks"),
-     ("NTT_PASS0", "KECCAK_SPONGE", "KECCAK_TREE", "KECCAK_ABSORB", "THREEFRY_MONTY")),
+     ("NTT_PASS0", "KECCAK_SPONGE", "KECCAK_TREE", "KECCAK_ABSORB", "THREEFRY_MONTY", "QUOTIENT_EVAL", "PANEL_FOLD")),
 )
 
 
@@ -1100,7 +1298,7 @@ def _phase17_app_bench(torch, port, kind: str, seen: dict):
         with _record_shapes(port, seen, "app"):
             (rc, lines), launches["app"] = _drive(
                 kernels, lambda: quiet(port.app_main, ["--backend", "cuda", "fib", "bench"]),
-                (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS))
+                (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS, kernels.QUOTIENT_EVAL))
     finally:
         harness.run_case = real_run_case
     dft_lines = [ln for ln in lines if ln.startswith("dft ")]
@@ -1239,7 +1437,7 @@ def _phase20_zk_wide(torch, port, dev, seen, smi: str, log_k: int = 20):
     with _record_shapes(port, seen, "keccak-air-zk"):
         (proof, cold_s), launches = _drive(kernels, cold, (
             kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.KECCAK_ABSORB, kernels.NTT_PASS0,
-            kernels.NTT_PASS, kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY))
+            kernels.NTT_PASS, kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY, kernels.QUOTIENT_EVAL, kernels.PANEL_FOLD))
     peak = torch.cuda.max_memory_allocated(dev)
     blob = port.serialize_proof(proof)
     t0 = time.perf_counter()
@@ -1327,7 +1525,7 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
         with _record_shapes(port, seen, "config2-lowmem"):
             (on_blob, on_note), launches = _drive(kernels, lambda: one(log_n, trace, lowmem.LOWMEM_LOG), (
                 kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE, kernels.KECCAK_TREE,
-                kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY))
+                kernels.KECCAK_GRIND, kernels.THREEFRY_MONTY, kernels.QUOTIENT_EVAL))
         n_on = len(recomputes)
         del trace
         if not n_on:
@@ -1363,14 +1561,15 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
     return line, launches
 
 
-SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind", "threefry_monty")
+SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind", "threefry_monty",
+                   "quotient_eval")
 # the dry run's proves use the test FRI, whose 1-bit grind is host work
 DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge", "poseidon2_absorb",
-                  "threefry_monty")
+                  "threefry_monty", "quotient_eval", "panel_fold")
 # the streamed wide prove on a mesh: (d) BASELINE config 4 on the Poseidon2
 # stack, (e) the reference's stack (Keccak trees, zk)
-WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb"),
-                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb", "threefry_monty")}
+WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb", "quotient_eval", "panel_fold"),
+                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb", "threefry_monty", "quotient_eval", "panel_fold")}
 
 
 def _phase22_rank(mesh, path: str, log_n: int, trace_path):
@@ -1424,6 +1623,11 @@ def _rank_port():
     port = import_port()
     if not port.kernels.up_to_date():
         raise RuntimeError("the kernel library is missing or stale: a rank would start an nvcc build")
+
+    def no_nvcc():
+        raise RuntimeError("a rank would start an nvcc build of a K7 library that phase 1 did not build")
+
+    port.kernels._nvcc = no_nvcc
     return port
 
 
@@ -1638,12 +1842,16 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
             out = fn(*args)
         return out, buf.getvalue().splitlines()
 
+    def sol_run():
+        report, report_lines = quiet(sol.run, False, dev)
+        return report, report_lines, sol.run_quotient_partitions(report["roofs"], device=dev)
+
     t0 = time.perf_counter()
     with _record_shapes(port, seen, "sol"):
-        (report, report_lines), launches = _drive(
-            kernels, lambda: quiet(sol.run, False, dev),
+        (report, report_lines, q_parts), launches = _drive(
+            kernels, sol_run,
             kernels.SOL_PROBES + (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE,
-                                  kernels.POSEIDON2_SPONGE))
+                                  kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL))
     sol_s = time.perf_counter() - t0
     roofs = report["roofs"]
     if sorted(roofs) != ["alu", "hbm", "mul"] or not all(v > 0 for v in roofs.values()):
@@ -1659,6 +1867,13 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
                 raise AssertionError(f"{k['kernel']}: unscored and not flagged")
         elif not (0 < k["sol_pct"] <= 100.0 + 1e-9 and k["binding"] in roofs):
             raise AssertionError(f"{k['kernel']}: sol_pct {k['sol_pct']} on {k['binding']}")
+    if [k["kernel"] for k in q_parts] != [f"quotient_{p}_2^20" for p in sol.QUOTIENT_PARTITIONS] or not all(
+            k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9 for k in q_parts):
+        raise AssertionError(f"K7's SoL lines {q_parts}")
+    q_line = " | ".join(
+        f"{k['kernel']} {k['melems_s']:.1f} Mrows/s, " + (f"{k['sol_pct']:.1f} % ({k['binding']})"
+                                                          if k["sol_pct"] is not None else "n/a")
+        + f", utils {json.dumps({r: round(v, 2) for r, v in k['utils'].items()})}" for k in q_parts)
     compact = port.bench_ntt.sol_compact(report)
     probes = _sol_probe_rows(torch, port, dev, report, results)
 
@@ -1680,6 +1895,7 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
     used = {name: c for name, c in launches.items() if c}
     lines = [
         f"[23] the SoL report on {smi} ({sol_s:.1f}s; launches {used}): " + " | ".join(report_lines),
+        f"[23] K7 at one keccak-air partition of each DAG, 2^20 rows (sol.run_quotient_partitions): {q_line}",
         f"[23] sol_pct_of_roof {json.dumps(compact)}",
         f"[23] probes == plain (exact): {probes}",
         "[23] bench.hash: " + " | ".join(hash_lines)
@@ -1718,13 +1934,32 @@ def main() -> int:
 
     # -- 1. device + build ---------------------------------------------------
     t0 = time.perf_counter()
+    q_texts, q_names = {}, {}
+    for label, air_q, npis in (("fib", FibonacciAir(), 3), ("chain", poseidon2_air.Poseidon2ChainAir(), 32),
+                               ("keccak-air", keccak_air.KeccakAir(), 0)):
+        for prog in port.quotient_kernel.programs(air_q, npis):
+            q_texts.setdefault(prog.dag.key, port.quotient_kernel.source(prog.dag))
+            q_names.setdefault(prog.dag.key, f"{label} {prog.name}")
+    q_builds = {}
+    q_thread = threading.Thread(target=lambda: q_builds.update(kernels.build_generated(q_texts, force=True)))
+    q_thread.start()  # K7's nvcc processes run beside the library's
     build = kernels.build(force=True)
+    q_thread.join()
+    if set(q_builds) != set(q_texts):
+        raise RuntimeError("K7's generated kernels did not all build")
     kernels.lib()
     if native.get_lib() is None:
         raise RuntimeError("the C host helper (tpu_stark_torch/csrc/host) did not build")
     regs = [ln.strip() for ln in build.log.splitlines() if "registers" in ln]
-    print(f"[1] device {kind!r}; nvidia-smi: {smi}; nvcc build {build.seconds:.2f}s "
-          f"(all builds {time.perf_counter() - t0:.2f}s); ptxas: {' | '.join(regs)}", flush=True)
+    q_regs = []
+    for key, res in sorted(q_builds.items(), key=lambda kv: q_names[kv[0]]):
+        used = [ln.split("Used", 1)[1].strip() for ln in res.log.splitlines() if "Used" in ln]
+        spills = [ln.strip() for ln in res.log.splitlines() if "spill" in ln and "0 bytes spill" not in ln]
+        q_regs.append(f"{q_names[key]} ({key}) {res.seconds:.1f}s: {'; '.join(used)}{' ' + str(spills) if spills else ''}")
+    print(f"[1] device {kind!r}; nvidia-smi: {smi}; nvcc build {build.seconds:.2f}s, K7's {len(q_builds)} generated "
+          f"libraries (fib, the chain, keccak-air) beside it, the last done {max(r.seconds for r in q_builds.values()):.2f}s "
+          f"(all builds {time.perf_counter() - t0:.2f}s); ptxas: {' | '.join(regs)}; K7 ptxas by DAG: "
+          f"{' | '.join(q_regs)}", flush=True)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1787,6 +2022,9 @@ def main() -> int:
     # -- 3. K2 vs plain --------------------------------------------------------
     print(_phase3_k2(torch, port, rand_monty, results, dev), flush=True)
 
+    # -- 24. K7 and K8 vs plain ------------------------------------------------
+    print(_phase24_quotient(torch, port, rand_monty, results), flush=True)
+
     air = FibonacciAir()
 
     traces = {}
@@ -1842,7 +2080,8 @@ def main() -> int:
 
     with _record_shapes(port, seen, "fib"):
         ((cfg, pis, blob), warm), fib_launches = _drive(
-            kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS))
+            kernels, warm_fib, (kernels.KECCAK_SPONGE, kernels.KECCAK_TREE, kernels.NTT_PASS0, kernels.NTT_PASS,
+                                kernels.QUOTIENT_EVAL))
     peak = torch.cuda.max_memory_allocated(dev)
     t0 = time.perf_counter()
     ok = verify(cfg, air, deserialize_proof(blob), pis)
@@ -1954,7 +2193,7 @@ def main() -> int:
 
     with _record_shapes(port, seen, "chain"):
         ((cfg, p_air, pis, proof), chain_warm), chain_launches = _drive(
-            kernels, warm_chain, (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE))
+            kernels, warm_chain, (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL))
     chain_peak = torch.cuda.max_memory_allocated(dev)
     blob = serialize_proof(proof)
     chain_len = _check_jax_length("chain 2^18", blob)
@@ -2075,7 +2314,8 @@ def main() -> int:
 
     with _record_shapes(port, seen, "keccak-air"):
         (proof, k_warm), k_launches = _drive(kernels, warm_keccak, (
-            kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE, kernels.POSEIDON2_ABSORB))
+            kernels.NTT_PASS0, kernels.NTT_PASS, kernels.POSEIDON2_SPONGE, kernels.POSEIDON2_ABSORB,
+            kernels.QUOTIENT_EVAL, kernels.PANEL_FOLD))
     k_peak = torch.cuda.max_memory_allocated(dev)
     blob = serialize_proof(proof)
     k_len = _check_jax_length("keccak-air 2^20", blob)
@@ -2138,6 +2378,12 @@ def main() -> int:
     path_launches = {"fib": fib_launches, "chain": chain_launches, "keccak-air": k_launches, **c2_launches,
                      **app_launches, "keccak-air-zk": zk_launches, "config2-lowmem": lm_launches,
                      **sharded_launches, **sol_launches}
+    plain_q = sorted(path for key, paths in seen.items() if key[0] == "plain_quotient" for path in paths)
+    if plain_q:
+        raise AssertionError(f"a plain quotient version ran on the card on the paths {plain_q}")
+    for path, launches in path_launches.items():
+        if path not in ("bench-hash", "bench-narrow-ntt") and launches["quotient_eval"] <= 0:
+            raise AssertionError(f"{path}: proved without launching K7")
     probe_names = {info.name for info in kernels.SOL_PROBES}  # held to their twins in phase 23
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}

@@ -9,6 +9,7 @@
     python3 port_timing.py p2 [--tree DIR]
     python3 port_timing.py k1 [--tree DIR]
     python3 port_timing.py k5 [--tree DIR] [--phases]
+    python3 port_timing.py k7
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
     python3 port_timing.py wgmma
@@ -36,8 +37,10 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   rows its launch took, in buckets < 2^12, 2^12-2^16 and >= 2^16 rows;
   beside it the stream time between CUDA events around each launch, which
   also holds the host's launch path where the card waits for it), and the
-  20 ops with the most device time; K6 (the device rng's sample) is among
-  the hand-written kernels.  It also times the device rng's samples
+  20 ops with the most device time; K6 (the device rng's sample), K7
+  (the quotient's constraint evaluation and fold) and K8 (its panel coset
+  fold) are among the hand-written kernels (an older tree without them
+  shows 0 launches).  It also times the device rng's samples
   (every ``_sample_monty`` call: the salts, the random codewords and, in zk
   wide proves, the trace randomizer that every pass over the chunks
   regenerates; K6, or in an older tree the plain-torch Threefry) with CUDA
@@ -114,6 +117,19 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   ``K5_PHASE_SHAPES``, each phase's share of the warpgroups' SM clocks
   (raw wait and split, wgmma products with the next tile's cp.async issue
   inside their window, epilogue and stores).
+* ``k7``: where K7's time goes.  Builds, beside each constraint DAG of fib,
+  the chain and keccak-air as the tree generates it (``base``), variants of
+  its source (``K7_VARIANTS``: the part functions out of line, the
+  constraint code replaced by one fold (staging and store left), the
+  staging skipped (compute on whatever shared memory holds)), prints each
+  kernel's ptxas registers, its SASS count and its local-memory,
+  shared-memory and global loads (``cuobjdump``), the blocks an SM holds
+  (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and each variant's
+  device time (``torch.profiler``, 10 launches; CUDA events around them
+  where the profiler returns no kernel event) beside its bound at
+  ``chip_smoke.py`` phase 24's calls (fib and the chain as the dense pass,
+  keccak-air's DAGs as a streamed last block); variants that compute the
+  same function are held to the plain version first.
 * ``sass``: builds the kernels of this tree (``--tree DIR``: of DIR) with
   nvcc, prints the build time, ptxas's register and spill report, and the
   SASS instruction mix of K4 (``p2_absorb_kernel``) and K3
@@ -250,6 +266,7 @@ KERNEL_KEYS = (
     ("K1 keccak_absorb", ("keccak_absorb_kernel",)), ("K2 ntt_pass", ("ntt_pass_kernel",)),
     ("K3 poseidon2_sponge", ("p2_sponge_kernel",)), ("K4 poseidon2_absorb", ("p2_absorb_kernel",)),
     ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)), ("K6 threefry_monty", ("threefry_monty",)),
+    ("K7 quotient_eval", ("quotient_kernel",)), ("K8 panel_fold", ("panel_fold_kernel",)),
 )
 
 
@@ -317,6 +334,14 @@ class _Bounds:
             return "grind", cs._bound(count + 8 * (25 + 17 * int(tail.shape[0])),
                                       count * int(tail.shape[0]) * cs.KECCAK_F_OPS)[0]
 
+        def quotient_eval(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc, acc_off, acc_stride,
+                          add, invz):
+            return "K7 quotient_eval", cs.quotient_eval_bound(prog.dag, int(cur.shape[0]), add, invz,
+                                                              cs.same_panel(cur, nxt))[0]
+
+        def panel_fold(tf, log_m, shift):
+            return "K8 panel_fold", cs.panel_fold_bound(int(tf.shape[0]), int(tf.shape[1]), 1 << log_m)[0]
+
         self._wrap = [
             (keccak_kernel, "hash_rows", keccak), (ntt_kernel, "dft", dft),
             (poseidon2_kernel, "hash_rows", sponge),
@@ -327,6 +352,10 @@ class _Bounds:
             (keccak_kernel, "absorb_rows", keccak_absorb), (keccak_kernel, "finalize_rows", keccak_finalize),
             (device_rng, "_monty_kernel", rng),
         ]
+        if importlib.util.find_spec("tpu_stark_torch.air.quotient_kernel") is not None:  # not in older trees
+            from tpu_stark_torch.air import quotient_kernel
+
+            self._wrap += [(quotient_kernel, "eval_fold", quotient_eval), (quotient_kernel, "panel_fold", panel_fold)]
         self._orig = []
 
     def __enter__(self):
@@ -1284,6 +1313,129 @@ PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) 
                      ("grind keccak_grind_kernel", "2^17 candidates, one block", 1 << 17))
 
 
+# K7's source variants (``k7``): name -> (what it changes, whether it still
+# computes K7's function)
+K7_VARIANTS = {
+    "base": ("as generated", True),
+    "noinline": ("the part functions out of line", True),
+    "nocompute": ("each part one fold of one staged word", False),
+    "nostage": ("phase 0 skipped", False),
+}
+K7_OCCUPANCY = """
+extern "C" int ts_occ_{key}(int* blocks) {{
+  const int bytes = tsq::Layout<Q_{key}>::kWordsTotal * 4;
+  cudaFuncSetAttribute(tsq::quotient_kernel<Q_{key}>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tsq::quotient_kernel<Q_{key}>, Q_{key}::S * 32,
+                                                            bytes);
+}}
+"""
+
+
+def _k7_source(qk, header: str, dag, kind: str) -> str:
+    """The DAG's K7 source with ``kind``'s change, the header inlined, and an
+    occupancy query.  Raises if a change finds nothing to change."""
+    import re
+
+    text = qk.source(dag)
+    h = header.replace("#pragma once", "")
+    old_text, old_h = text, h
+    if kind == "noinline":
+        text = text.replace("__device__ __forceinline__ static void part", "__device__ __noinline__ static void part")
+    elif kind == "nocompute":
+        text = re.sub(r"(static void part\d+\([^)]*\) \{\n)(.*?)(\n  \})",
+                      lambda m: m.group(1) + "    tsq::fold(acc, a, 0, lc[0] ^ nc[0]); (void)t;" + m.group(3), text,
+                      flags=re.S)
+    elif kind == "nostage":
+        h = h.replace("  if (ph == 0) {", "  if (ph == 0) {\n    if (a.rows > 0) return;", 1)
+    if kind != "base" and (text, h) == (old_text, old_h):
+        raise AssertionError(f"k7 variant {kind}: its change matched nothing in the generated source or header")
+    return text.replace(f'#include "{qk.HEADER}"', h) + K7_OCCUPANCY.format(key=dag.key)
+
+
+def k7_timing(torch, dev, args) -> None:
+    import ctypes
+    import re
+
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from tpu_stark_torch import kernels
+    from tpu_stark_torch.air import keccak_air, poseidon2_air
+    from tpu_stark_torch.air import quotient_kernel as qk
+    from tpu_stark_torch.air.fibonacci import FibonacciAir
+    from tpu_stark_torch.prover import wide
+
+    cs = _chip_smoke()
+    kernels.lib()
+    with open(os.path.join(kernels.SRC_DIR, qk.HEADER)) as f:
+        header = f.read()
+    progs = {}
+    for air, npis in ((FibonacciAir(), 3), (poseidon2_air.Poseidon2ChainAir(), 32), (keccak_air.KeccakAir(), 0)):
+        for p in qk.programs(air, npis):
+            progs.setdefault(p.dag.key, (p, npis))
+    texts = {f"{kind}_{key}": _k7_source(qk, header, p.dag, kind) for kind in K7_VARIANTS
+             for key, (p, _n) in progs.items()}
+    t0 = time.perf_counter()
+    built = kernels.build_generated(texts)
+    print(f"k7: built {len(built)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rand(*shape):
+        return torch.randint(0, 0x78000001, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+
+    n = 1 << 20
+    for kind, (what, same) in K7_VARIANTS.items():
+        parts = []
+        for key, (prog, npis) in progs.items():
+            res = built[f"{kind}_{key}"]
+            lib = ctypes.CDLL(res.path)
+            blocks = ctypes.c_int(0)
+            getattr(lib, f"ts_occ_{key}")(ctypes.byref(blocks))
+            fn = getattr(lib, f"ts_q_{key}")
+            fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+            qk._FNS[key] = fn
+            listing = subprocess.run([_cuobjdump(), "-sass", res.path], capture_output=True, text=True).stdout
+            code = [c for name, c in _sass_functions(listing).items() if "quotient_kernel" in name][0]
+            ops = [op.split(".")[0] for _a, op, _t in code]
+            regs = re.findall(r"Used (\d+) registers", res.log)
+            u = len(prog.cols)
+            if prog.name == "air":  # the dense pass (phase 24): next rows 2 on in the same panel, times 1/Z_H
+                rows = n if u == 2 else n // 2
+                cur = rand(rows, u)
+                sels = {name: rand(rows) for name in qk.SELECTORS}
+                call = (prog, cur, cur, 2, sels, 0, 1, rand(npis), rand(prog.count, 4))
+                tail, acc = (0, 1, False, True), rand(rows, 4)
+            else:  # the streamed pass's last block (phase 24)
+                r = wide.block_count(n, u, len(prog.next_cols) > 0, wide.PANEL_BUDGET, wide.MIN_BLOCK_LOG)
+                rows = n // r
+                cur = rand(rows, u)
+                sels = {name: rand(rows * r) for name in qk.SELECTORS}
+                call = (prog, cur, rand(rows, u), 0, sels, r - 1, r, rand(npis), rand(prog.count, 4))
+                tail, acc = (r - 1, r, True, False), rand(rows * r, 4)
+            if same:
+                want = qk.eval_fold_plain(*call, acc.clone(), *tail)
+                if not torch.equal(qk.eval_fold(*call, acc.clone(), *tail), want):
+                    raise AssertionError(f"k7 {kind} {prog.name}: kernel != plain")
+            qk.eval_fold(*call, acc, *tail)
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    qk.eval_fold(*call, acc, *tail)
+                torch.cuda.synchronize()
+            ms = sum(e.self_device_time_total for e in prof.key_averages() if "quotient_kernel" in e.key) / 1e4
+            if ms == 0.0:  # the profiler returned no kernel event: CUDA events around the launches instead
+                ms = cs._cuda_ms(torch, lambda: qk.eval_fold(*call, acc, *tail), 10)
+            bound = cs.quotient_eval_bound(prog.dag, rows, tail[2], tail[3], cs.same_panel(call[1], call[2]))[0]
+            label = prog.name if prog.name != "air" else ("fib" if u == 2 else "chain")
+            parts.append(f"{label} ({rows}, {u}) {ms:.4f} ms ({100 * bound / ms:.1f} % of {bound:.4f}); "
+                         f"{regs[-1] if regs else '?'} regs, {blocks.value} blocks/SM, {len(ops)} SASS, LDL "
+                         f"{ops.count('LDL')} STL {ops.count('STL')} LDS {ops.count('LDS')} LDG {ops.count('LDG')}")
+            del cur, sels, acc, call
+        qk._FNS.clear()
+        print(f"k7 {kind} ({what}): " + " | ".join(parts), flush=True)
+
+
 def _cuobjdump() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     return os.path.join(home, "bin", "cuobjdump")
@@ -1659,7 +1811,8 @@ def wgmma(torch, dev, args) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "sass", "probe", "wgmma"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "sass", "probe",
+                                         "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
@@ -1687,7 +1840,8 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "k1": k1_timing, "k5": k5_timing, "sass": sass, "probe": probe, "wgmma": wgmma}[args.what](torch, dev, args)
+     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "sass": sass, "probe": probe,
+     "wgmma": wgmma}[args.what](torch, dev, args)
     return 0
 
 

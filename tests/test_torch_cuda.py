@@ -4,7 +4,11 @@ the grind kernel and K6 (the device rng's sample) on the card against their plai
 port's n = 8 proofs (the BASELINE config 2 one on both NTT routes) and
 keccak-air wide proofs (zk off, and zk on the Keccak stack) on the card
 against the golden files and the JAX fixtures; the app, the DFT harness (its exact check against the CPU tier),
-the NTT oracle, the prove twins and the SoL probes on the card.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
+the NTT oracle, the prove twins and the SoL probes on the card; K7 (the
+quotient pass's constraint evaluation and fold, generated from the AIR's
+DAG) and K8 (the panel coset fold) against their plain versions and the
+DAG's numpy interpretation, and the dense and streamed quotient passes on
+the card against the CPU.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py -q
@@ -13,10 +17,15 @@ file imports no jax, so it also runs where jax is absent:
 import json
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
+from quotient_dag import interpret
 from tpu_stark_torch import kernels
+from tpu_stark_torch.air import keccak_air, poseidon2_air
+from tpu_stark_torch.air import quotient_kernel as qk
+from tpu_stark_torch.air.fibonacci import FibonacciAir
 from tpu_stark_torch.challenger import grind
 from tpu_stark_torch.compat import device_rng as drng
 from tpu_stark_torch.fields import babybear as bb
@@ -652,3 +661,125 @@ def test_sol_probes_equal_plain(dev, n, reps):
     s = torch.arange(n, dtype=torch.int32, device=dev)
     assert torch.equal(sol.stream_step(s.clone()), sol.stream_step_plain(s.clone()))
     assert [k.launches for k in kernels.SOL_PROBES] == [b + 1 for b in before]
+
+
+# ---------------------------------------------------------------------------
+# K7 and K8: the quotient pass
+# ---------------------------------------------------------------------------
+QUOTIENT_AIRS = {"fib": (FibonacciAir, 3), "chain": (poseidon2_air.Poseidon2ChainAir, 32),
+                 "keccak-air": (keccak_air.KeccakAir, 0)}
+# one program of each DAG: fib's, the chain's and keccak-air's eight
+QUOTIENT_PROGRAMS = ["fib", "chain", "flags", "bool_a0", "bool_c_chi", "theta1", "apdef3", "chi00def", "iota",
+                     "trans7"]
+# (next rows, next-row shift, selector offset and stride, accumulator offset
+# and stride, add, invz): the dense pass, a rank block, a streamed block, the
+# last streamed block
+QUOTIENT_MODES = {
+    "dense": (0, 2, 0, 1, 0, 1, False, True),
+    "rank-block": (0, 0, 160, 1, 0, 1, False, True),
+    "block": (0, 0, 1, 4, 1, 4, True, False),
+    "last-block": (0, 1, 3, 4, 3, 4, True, False),
+}
+
+
+def _quotient_program(name):
+    if name in QUOTIENT_AIRS:
+        cls, npis = QUOTIENT_AIRS[name]
+        return qk.programs(cls(), npis)[0], npis
+    return next(p for p in qk.programs(keccak_air.KeccakAir(), 0) if p.name == name), 0
+
+
+@pytest.mark.parametrize("rows", [1, 33, 4096])
+@pytest.mark.parametrize("mode", list(QUOTIENT_MODES))
+@pytest.mark.parametrize("name", QUOTIENT_PROGRAMS)
+def test_quotient_eval_equals_plain(dev, name, mode, rows):
+    _, nshift, sel_off, sel_stride, acc_off, acc_stride, add, invz = QUOTIENT_MODES[mode]
+    prog, npis = _quotient_program(name)
+    seed = QUOTIENT_PROGRAMS.index(name) * 100 + list(QUOTIENT_MODES).index(mode) * 10 + rows
+    u = len(prog.cols) + 3  # a row stride past the program's columns
+    cur, nxt = _monty(dev, (rows, u), seed), _monty(dev, (rows, u), seed + 1)
+    nshift = min(nshift, rows)
+    sels = {k: _monty(dev, (sel_off + rows * sel_stride,), seed + 2 + i) for i, k in enumerate(qk.SELECTORS)}
+    pis, alpha = _monty(dev, (npis,), seed + 7), _monty(dev, (prog.count, 4), seed + 8)
+    acc = _monty(dev, (acc_off + rows * acc_stride, 4), seed + 9)
+    before = kernels.QUOTIENT_EVAL.launches
+    got = qk.eval_fold(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                       acc_stride, add, invz)
+    want = qk.eval_fold_plain(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                              acc_stride, add, invz)
+    torch.cuda.synchronize()
+    assert kernels.QUOTIENT_EVAL.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", QUOTIENT_PROGRAMS)
+def test_quotient_eval_equals_dag_interpretation(dev, name):
+    prog, npis = _quotient_program(name)
+    rows, u = 1000, len(prog.cols)
+    cur, nxt = _monty(dev, (rows, u), 1), _monty(dev, (rows, u), 2)
+    sels = {k: _monty(dev, (rows,), 3 + i) for i, k in enumerate(qk.SELECTORS)}
+    pis, alpha = _monty(dev, (npis,), 8), _monty(dev, (prog.count, 4), 9)
+    acc = torch.zeros((rows, 4), dtype=torch.int32, device=dev)
+    qk.eval_fold(prog, cur, nxt, 0, sels, 0, 1, pis, alpha, acc, 0, 1, False, False)
+    host = {k: v.cpu().numpy() for k, v in sels.items()}
+    want = interpret(prog.dag, cur.cpu().numpy(), nxt.cpu().numpy(), host, pis.cpu().numpy(), alpha.cpu().numpy())
+    assert np.array_equal(acc.cpu().numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("n,u,log_m", [(64, 3, 6), (4096, 24, 10), (1 << 16, 257, 14), (1 << 17, 768, 14),
+                                       (1 << 12, 5, 12)])
+def test_panel_fold_equals_plain(dev, n, u, log_m):
+    tf = _monty(dev, (n, u), n + u)
+    shift = 31 * pow(bb.two_adic_generator(20), n + u, bb.P) % bb.P
+    before = kernels.PANEL_FOLD.launches
+    got = qk.panel_fold(tf, log_m, shift)
+    want = qk.panel_fold_plain(tf, log_m, shift)
+    torch.cuda.synchronize()
+    assert kernels.PANEL_FOLD.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(QUOTIENT_AIRS))
+def test_dense_quotient_on_card_equals_cpu(dev, name, monkeypatch):
+    """``_quotient_values`` launches K7 (one launch a program) and never the
+    plain fold on the card, and equals the CPU pass."""
+    from tpu_stark_torch.prover.prove import _quotient_values
+
+    cls, npis = QUOTIENT_AIRS[name]
+    air = cls()
+    progs = qk.programs(air, npis)
+    log_n, log_m = 8, 10
+    on_q = _monty(dev, (1 << log_m, air.width), 11)
+    pis, apows = _monty(dev, (npis,), 12), _monty(dev, (sum(p.count for p in progs), 4), 13)
+    want = _quotient_values(air, on_q.cpu(), pis.cpu(), apows.cpu(), log_n, log_m)
+    monkeypatch.setattr(qk, "eval_fold_plain", lambda *a, **k: pytest.fail("the plain fold ran on the card"))
+    before = kernels.QUOTIENT_EVAL.launches
+    got = _quotient_values(air, on_q, pis, apows, log_n, log_m)
+    torch.cuda.synchronize()
+    assert kernels.QUOTIENT_EVAL.launches == before + len(progs)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_streamed_quotient_on_card_equals_cpu(dev, monkeypatch):
+    """keccak-air's streamed quotient in 16 row blocks a coset on K8, K2 and
+    K7 equals the CPU pass."""
+    from tpu_stark_torch.prover import wide
+    from tpu_stark_torch.prover.config import create_config
+
+    def chunks(device):
+        trace = keccak_air.generate_trace(3, seed=12, device=device)  # 128 rows
+        pcs = create_config(zk=False, hash="poseidon2", device=device).pcs
+        domain = pcs.natural_domain_for_degree(int(trace.shape[0]))
+        src = wide.WideMatrixSource(trace, pcs.dft, 1, domain)
+        apows = _monty(dev, (7241, 4), 4).to(device)
+        return wide.quotient_chunks_streamed(keccak_air.KeccakAir(), src, domain, 2, apows, [], 0, 3)[1]
+
+    want = chunks("cpu")
+    monkeypatch.setattr(qk, "eval_fold_plain", lambda *a, **k: pytest.fail("the plain fold ran on the card"))
+    monkeypatch.setattr(qk, "panel_fold_plain", lambda *a, **k: pytest.fail("the plain panel fold ran on the card"))
+    before = (kernels.QUOTIENT_EVAL.launches, kernels.PANEL_FOLD.launches)
+    got = chunks(dev)
+    torch.cuda.synchronize()
+    assert (kernels.QUOTIENT_EVAL.launches - before[0], kernels.PANEL_FOLD.launches - before[1]) == (3072, 3072)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -1,0 +1,496 @@
+"""The quotient pass's kernels K7 (constraint evaluation and alpha fold,
+generated from the AIR's constraint DAG) and K8 (the panel coset fold) of
+``tpu_stark_torch/air/quotient_kernel.py``, on the CPU:
+
+(a) ``TracingAirBuilder`` counts the constraints ``SymbolicAirBuilder``
+    counts, for fib, the chain, keccak-air and each of its 48 partitions;
+(b) each captured DAG, interpreted with numpy (``quotient_dag.py``) on
+    seeded random Monty panels, equals the plain ``QuotientBuilder`` /
+    ``PartitionBuilder`` fold bit for bit, and the port's fold equals JAX's
+    ``QuotientBuilder`` on the same inputs;
+(c) the generated source is deterministic, and partitions with one DAG share
+    one kernel (keccak-air: 8 for 48 partitions);
+(d) the generated K7 sources and ``csrc/quotient.cu`` (K8), compiled with
+    g++ under a host shim (``__device__`` and ``__forceinline__`` as
+    ``inline``, ``__ldg`` a load; each launch a loop over blocks, phases and
+    threads), equal the plain versions at 2^6-2^8 rows; through the real
+    wrappers, the dense and streamed quotient passes and whole proves give
+    the plain versions' values and the JAX fixtures' bytes.
+"""
+
+import ctypes
+import gc
+import hashlib
+import json
+import pathlib
+import subprocess
+import weakref
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from quotient_dag import interpret
+from tpu_stark.air import builders as jbuilders
+from tpu_stark.air import fibonacci as jfib
+from tpu_stark.air import keccak_air as jkeccak_air
+from tpu_stark.air.values import DevVal as JDevVal
+from tpu_stark.prover import wide as jwide
+from tpu_stark_torch import kernels
+from tpu_stark_torch.air import keccak_air, poseidon2_air
+from tpu_stark_torch.air import quotient_kernel as qk
+from tpu_stark_torch.air.air import BaseAir, SymbolicAirBuilder, TracingAirBuilder
+from tpu_stark_torch.air.builders import PartitionBuilder, QuotientBuilder
+from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
+from tpu_stark_torch.air.values import DevVal
+from tpu_stark_torch.dist.dryrun import keccak_subset_air
+from tpu_stark_torch.fields import babybear as bb
+from tpu_stark_torch.prover import wide
+from tpu_stark_torch.prover.config import create_config
+from tpu_stark_torch.prover.proof import serialize_proof
+from tpu_stark_torch.prover.prove import _quotient_values, prove
+
+GOLDEN = pathlib.Path(__file__).parent / "golden"
+CSRC = pathlib.Path(qk.__file__).parent.parent / "csrc"
+AIRS = {"fib": (FibonacciAir, 3), "chain": (poseidon2_air.Poseidon2ChainAir, 32), "keccak-air": (keccak_air.KeccakAir, 0)}
+PARTS = [p.name for p in keccak_air.KeccakAir().partitions()]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The proves here are CPU-bound torch work: two intra-op threads keep
+    them off the cores that the suite's other workers use."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
+def _monty(rng, shape):
+    return rng.integers(0, bb.P, size=shape, dtype=np.int64).astype(np.int32)
+
+
+def _program(name):
+    """The program of an AIR without partitions, or of a keccak-air partition."""
+    if name in AIRS:
+        cls, npis = AIRS[name]
+        return qk.programs(cls(), npis)[0], npis
+    return next(p for p in qk.programs(keccak_air.KeccakAir(), 0) if p.name == name), 0
+
+
+def _inputs(prog, npis, m, seed):
+    """Seeded random Monty inputs of one call: panel rows, next rows,
+    selectors, public values, alpha powers."""
+    rng = np.random.default_rng(seed)
+    u = len(prog.cols)
+    sels = {name: _monty(rng, (m,)) for name in qk.SELECTORS}
+    return _monty(rng, (m, u)), _monty(rng, (m, u)), sels, _monty(rng, (npis,)), _monty(rng, (prog.count, 4))
+
+
+def _plain_fold(prog, cur, nxt, sels, pis):
+    """The builder's fold of the program on (cur, nxt) rows: ``QuotientBuilder``
+    for a whole AIR, ``PartitionBuilder`` for a partition."""
+    sel = {k: torch.from_numpy(v) for k, v in sels.items()}
+    pv = [DevVal(torch.tensor(int(p), dtype=torch.int32)) for p in pis]
+    cur, nxt = torch.from_numpy(cur), torch.from_numpy(nxt)
+    if prog.name == "air":
+        return QuotientBuilder(cur, nxt, sel, pv)
+    return PartitionBuilder(cur[:, prog.local_pos], nxt[:, prog.next_pos], prog.local_cols, prog.next_cols, sel, pv)
+
+
+# ---------------------------------------------------------------------------
+# (a) constraint counts
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", list(AIRS) + PARTS)
+def test_tracing_count_equals_symbolic(name):
+    if name in AIRS:
+        cls, npis = AIRS[name]
+        air = cls()
+        fn, width = air.eval, air.width
+    else:
+        air, npis = keccak_air.KeccakAir(), 0
+        fn, width = next(p for p in air.partitions() if p.name == name).eval, air.width
+    ident = {c: c for c in range(width)}
+    traced = TracingAirBuilder(width, npis, ident, ident)
+    fn(traced)
+    symbolic = SymbolicAirBuilder(width, npis)
+    fn(symbolic)
+    assert traced.constraint_count == symbolic.constraint_count == len(traced.roots) > 0
+
+
+# ---------------------------------------------------------------------------
+# (b) the DAG interpreted against the plain fold, and against JAX
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["fib", "chain"] + PARTS)
+def test_dag_interpretation_equals_plain(name):
+    prog, npis = _program(name)
+    cur, nxt, sels, pis, alpha = _inputs(prog, npis, 64, seed=len(name) * 31 + prog.offset)
+    b = _plain_fold(prog, cur, nxt, sels, pis)
+    prog.eval_fn(b)
+    want = b.folded_constraints(torch.from_numpy(alpha)).numpy()
+    got = interpret(prog.dag, cur, nxt, sels, pis, alpha)
+    assert got.dtype == np.uint32 and np.array_equal(got, want.view(np.uint32))
+
+
+@pytest.mark.parametrize("name", ["fib", "iota", "trans3", "apdef2", "flags"])
+def test_fold_equals_jax(name):
+    """The port's fold (interpreted DAG and ``eval_fold``) on the inputs
+    JAX's builder folds: JAX's ``QuotientBuilder`` / ``_PartitionBuilder``."""
+    prog, npis = _program(name)
+    m = 32
+    cur, nxt, sels, pis, alpha = _inputs(prog, npis, m, seed=5)
+    jsel = {k: jnp.asarray(v.view(np.uint32)) for k, v in sels.items()}
+    jpis = [JDevVal(jnp.uint32(int(p))) for p in pis]
+    jcur, jnxt = jnp.asarray(cur.view(np.uint32)), jnp.asarray(nxt.view(np.uint32))
+    if name == "fib":
+        b = jbuilders.QuotientBuilder(jcur, jnxt, jsel, jpis)
+        jfib.FibonacciAir().eval(b)
+    else:
+        part = next(p for p in jkeccak_air.KeccakAir().partitions() if p.name == name)
+        b = jwide._PartitionBuilder(jcur[:, prog.local_pos], jnxt[:, prog.next_pos], part.local_cols,
+                                    part.next_cols, jsel, jpis)
+        part.eval(b)
+    want = np.asarray(b.folded_constraints(jnp.asarray(alpha.view(np.uint32))))
+    assert np.array_equal(interpret(prog.dag, cur, nxt, sels, pis, alpha), want)
+    acc = torch.zeros((m, 4), dtype=torch.int32)
+    qk.eval_fold(prog, torch.from_numpy(cur), torch.from_numpy(nxt), 0, {k: torch.from_numpy(v) for k, v in sels.items()},
+                 0, 1, torch.from_numpy(pis), torch.from_numpy(alpha), acc, 0, 1, add=False, invz=False)
+    assert np.array_equal(acc.numpy().view(np.uint32), want)
+
+
+# ---------------------------------------------------------------------------
+# (c) the generated source
+# ---------------------------------------------------------------------------
+def test_generated_source_is_deterministic_and_shared():
+    progs = qk.programs(keccak_air.KeccakAir(), 0)
+    again = [qk._trace(p.eval_fn, keccak_air.COLS, 0, p.local_cols, p.next_cols, p.local_pos, p.next_pos)
+             for p in progs]
+    assert [d.key for d in again] == [p.dag.key for p in progs]
+    assert [qk.source(d) for d in again] == [qk.source(p.dag) for p in progs]
+    by_class = {}
+    for p in progs:
+        by_class.setdefault(p.name.rstrip("0123456789"), set()).add(p.dag.key)
+    assert len(by_class["trans"]) == 1 and len([p for p in progs if p.name.startswith("trans")]) == 24
+    assert by_class["bool_a"] == by_class["bool_ap"] and len(by_class["bool_a"]) == 1
+    assert len(by_class["theta"]) == len(by_class["apdef"]) == 1
+    assert len(qk.distinct_dags(progs)) == 8
+    assert [p.offset for p in progs] == list(np.cumsum([0] + [p.count for p in progs])[:-1])
+    assert sum(p.count for p in progs) == 7241
+    fib = qk.programs(FibonacciAir(), 3)
+    assert len(fib) == 1 and fib[0].dag.span(0) == fib[0].dag.span(1) == (0, 2)
+    assert "tsq::fold(acc, a, 4," in qk.source(fib[0].dag)
+
+
+def test_trace_prunes_unread_columns():
+    chain = qk.programs(poseidon2_air.Poseidon2ChainAir(), 32)[0].dag
+    assert chain.span(0) == (0, poseidon2_air.COLS) and chain.span(1) == (0, 16)
+    assert all(chain.nodes[i][1:] < (i,) for i in range(len(chain.nodes)) if chain.nodes[i][0] in ("add", "sub", "mul"))
+
+
+class _ScaledAir(BaseAir):
+    """An AIR whose constraint depends on its instance: x0 * k = x1."""
+
+    width = 2
+
+    def __init__(self, k):
+        self.k = k
+
+    def eval(self, b):
+        local = b.main_row(0)
+        b.assert_eq(local[0] * self.k, local[1])
+
+
+def test_programs_are_kept_per_air_instance():
+    """Two instances of one class get their own DAGs; an instance's programs
+    are traced once a count of public values and go with it (the dry run's
+    keccak-air subsets, a class each, leave nothing behind)."""
+    a, b = _ScaledAir(2), _ScaledAir(3)
+    pa = qk.programs(a, 0)
+    assert qk.programs(a, 0) is pa and qk.programs(a, 1) is not pa
+    assert pa[0].dag.key != qk.programs(b, 0)[0].dag.key
+    assert pa[0].dag.key == qk.programs(_ScaledAir(2), 0)[0].dag.key
+    subset = keccak_subset_air(["iota", "trans1"])
+    assert [p.name for p in qk.programs(subset, 0)] == ["iota", "trans1"]
+    refs = [weakref.ref(a), weakref.ref(subset)]
+    del a, pa, subset
+    gc.collect()
+    assert all(r() is None for r in refs)
+
+
+def test_bound_reads_one_panel_once():
+    """K7's bytes bound counts a word of the current panel once where the
+    next rows are read from that panel (the dense pass), and both panels'
+    spans otherwise or where the spans do not meet."""
+    import chip_smoke
+
+    fib = qk.programs(FibonacciAir(), 3)[0]
+    cur = torch.zeros((64, 2), dtype=torch.int32)
+    assert chip_smoke.same_panel(cur, cur) and not chip_smoke.same_panel(cur, cur.clone())
+    rows = 1 << 20
+    two = chip_smoke.quotient_eval_bound(fib.dag, rows, False, True, False)[0]
+    one = chip_smoke.quotient_eval_bound(fib.dag, rows, False, True, True)[0]
+    # fib: 2 + 2 panel words or 2, 3 selectors, 1/Z_H, a 16-byte row written
+    assert two / one == pytest.approx((4 * (4 + 3 + 1) + 16) / (4 * (2 + 3 + 1) + 16))
+    apart = qk.Dag((("col", 0, 0), ("col", 1, 5), ("sub", 0, 1)), (2,))  # spans [0, 1) and [5, 6)
+    assert chip_smoke.quotient_eval_bound(apart, rows, True, False, True) == \
+        chip_smoke.quotient_eval_bound(apart, rows, True, False, False)
+
+
+FAKE_NVCC = """#!/bin/sh
+out=""; prev=""
+for a in "$@"; do
+  [ "$prev" = "-o" ] && out="$a"
+  case "$a" in *broken*) echo "error: a broken source"; exit 1;; esac
+  prev="$a"
+done
+echo "ptxas info    : Used 12 registers"
+echo built > "$out"
+"""
+
+
+def test_nvcc_builds_start_together_and_clean_up(monkeypatch, tmp_path):
+    """``build`` and ``build_generated`` through one parallel nvcc runner,
+    ``kernels._nvcc_all`` (here a stand-in nvcc that writes its output): each
+    output lands under its own name, a built generated hash is reused, a
+    failed compile raises naming it, and no temporary or object is left
+    behind."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC)
+    nvcc.chmod(0o755)
+    out_dir = tmp_path / "build"
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(out_dir))
+    monkeypatch.setattr(kernels, "LIB_PATH", str(out_dir / "libk.so"))
+    res = kernels.build(force=True)
+    assert res.path == str(out_dir / "libk.so") and (out_dir / "libk.so").read_text() == "built\n"
+    assert all(f"== {s}\nptxas info" in res.log for s in kernels.SOURCES)
+    assert sorted(p.name for p in out_dir.iterdir()) == ["libk.so"]
+    first = kernels.build_generated({"a": "// a", "b": "// b"})
+    assert all(r.seconds > 0 and "Used 12 registers" in r.log for r in first.values())
+    again = kernels.build_generated({"a": "// a"})
+    assert again["a"].path == first["a"].path and again["a"].seconds == 0.0
+    with pytest.raises(RuntimeError, match="nvcc failed on the generated quotient kernels:\n== broken"):
+        kernels.build_generated({"c": "// c", "broken": "// x"})
+    assert not [p.name for p in out_dir.iterdir() if ".tmp" in p.name or p.name.endswith(".o")]
+
+
+# ---------------------------------------------------------------------------
+# (d) the kernels' sources on the host
+# ---------------------------------------------------------------------------
+SHIM = """#pragma once
+#include <cstdint>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+struct uint4 { uint32_t x, y, z, w; };
+typedef void* cudaStream_t;
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
+"""
+
+K7_LAUNCH = """
+extern "C" int ts_q_{key}(const int64_t* w, void*) {{
+  const tsq::Args a = tsq::unpack(w);
+  std::vector<uint32_t> smem(tsq::Layout<Q_{key}>::kWordsTotal);
+  const int nt = Q_{key}::S * 32;
+  for (int64_t b = 0; b * tsq::kRows < a.rows; ++b)
+    for (int ph = 0; ph < 3; ++ph)
+      for (int tid = 0; tid < nt; ++tid) tsq::phase<Q_{key}>(a, smem.data(), b, tid, nt, ph);
+  return 0;
+}}
+"""
+
+K8_LAUNCH = """
+#include "quotient.cu"
+extern "C" int ts_panel_fold(const uint32_t* tf, int64_t npan, int64_t m, int64_t u, uint32_t s, uint32_t s_m,
+                             uint32_t* out, void*) {
+  const int64_t items = (m + kRun - 1) / kRun * u;
+  for (int64_t g = 0; g < items; ++g) fold_item(tf, npan, m, u, s, s_m, out, g);
+  return 0;
+}
+"""
+
+
+def _gxx(tmp, name, text):
+    src = tmp / f"{name}.cpp"
+    src.write_text(text)
+    so = tmp / f"lib{name}.so"
+    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{tmp / 'shim'}", f"-I{CSRC}", "-o", str(so),
+                    str(src)], check=True, capture_output=True, text=True)
+    return ctypes.CDLL(str(so))
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    """The K7 sources of fib, the chain and keccak-air and K8's source as host
+    libraries with the card's entry points (a launch runs every block's
+    phases thread by thread)."""
+    tmp = tmp_path_factory.mktemp("quotient_host")
+    (tmp / "shim").mkdir()
+    (tmp / "shim" / "cuda_runtime.h").write_text(SHIM)
+    fns = {}
+    for name, (cls, npis) in AIRS.items():
+        dags = qk.distinct_dags(qk.programs(cls(), npis))
+        text = "#include <vector>\n" + "".join(qk.source(d) + K7_LAUNCH.format(key=d.key) for d in dags)
+        lib = _gxx(tmp, name.replace("-", "_"), text)
+        for d in dags:
+            fn = getattr(lib, f"ts_q_{d.key}")
+            fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
+            fns[d.key] = fn
+    k8 = _gxx(tmp, "k8", K8_LAUNCH)
+    vp, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
+    k8.ts_panel_fold.argtypes, k8.ts_panel_fold.restype = [vp, i64, i64, i64, u32, u32, vp, vp], ctypes.c_int
+    return fns, k8
+
+
+@pytest.fixture
+def emulated(host_libs, monkeypatch):
+    """The wrappers take their kernel path on CPU tensors, through the host
+    libraries; the plain versions refuse to run."""
+    fns, k8 = host_libs
+    monkeypatch.setattr(qk, "_on_card", lambda t: True)
+    monkeypatch.setattr(qk, "_entry", lambda dag: fns[dag.key])
+    monkeypatch.setattr(kernels, "lib", lambda: k8)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: None)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain quotient version ran on the kernel path")
+
+    plain = {"eval_fold_plain": qk.eval_fold_plain, "panel_fold_plain": qk.panel_fold_plain}
+    monkeypatch.setattr(qk, "eval_fold_plain", refuse)
+    monkeypatch.setattr(qk, "panel_fold_plain", refuse)
+    kernels.reset_launch_counts()
+    return plain
+
+
+DAG_PROGRAMS = ["fib", "chain", "flags", "bool_a0", "bool_c_chi", "theta1", "apdef3", "chi00def", "iota", "trans7"]
+# (rows, next rows, next-row shift, selector offset and stride, accumulator
+# offset and stride, add, invz): the dense pass (step 2, times 1/Z_H), a
+# rank block (given next rows), a streamed block (strided rows of the coset,
+# added), the last streamed block (block 0's rows one on)
+MODES = {
+    "dense": (64, 64, 2, 0, 1, 0, 1, False, True),
+    "rank-block": (96, 96, 0, 160, 1, 0, 1, False, True),
+    "block": (256, 256, 0, 1, 4, 1, 4, True, False),
+    "last-block": (64, 64, 1, 3, 4, 3, 4, True, False),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("name", DAG_PROGRAMS)
+def test_host_k7_equals_plain(emulated, name, mode):
+    rows, nrows, nshift, sel_off, sel_stride, acc_off, acc_stride, add, invz = MODES[mode]
+    prog, npis = _program(name)
+    rng = np.random.default_rng(DAG_PROGRAMS.index(name) * 10 + list(MODES).index(mode))
+    u = len(prog.cols) + 3  # wider than the program: a row stride past its columns
+    cur = torch.from_numpy(_monty(rng, (rows, u)))
+    nxt = torch.from_numpy(_monty(rng, (nrows, u)))
+    span = sel_off + rows * sel_stride
+    sels = {k: torch.from_numpy(_monty(rng, (span,))) for k in qk.SELECTORS}
+    pis, alpha = torch.from_numpy(_monty(rng, (npis,))), torch.from_numpy(_monty(rng, (prog.count, 4)))
+    acc = torch.from_numpy(_monty(rng, (acc_off + rows * acc_stride, 4)))
+    want = emulated["eval_fold_plain"](prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(),
+                                       acc_off, acc_stride, add, invz)
+    got = qk.eval_fold(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                       acc_stride, add, invz)
+    assert kernels.QUOTIENT_EVAL.launches == 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,u,log_m", [(64, 3, 6), (64, 24, 4), (256, 40, 5), (128, 257, 3)])
+def test_host_k8_equals_plain(emulated, n, u, log_m):
+    rng = np.random.default_rng(n + u)
+    tf = torch.from_numpy(_monty(rng, (n, u)))
+    shift = 31 * pow(bb.two_adic_generator(10), n + u, bb.P) % bb.P
+    got = qk.panel_fold(tf, log_m, shift)
+    assert kernels.PANEL_FOLD.launches == 1
+    assert torch.equal(got, emulated["panel_fold_plain"](tf, log_m, shift))
+
+
+def test_host_quotient_values_equal_plain(emulated):
+    """``_quotient_values`` through K7 (one launch for fib and the chain, one
+    a partition for keccak-air, a rank block with its given next rows)."""
+    rng = np.random.default_rng(9)
+    for name, log_n, log_m in (("fib", 5, 6), ("chain", 4, 6), ("keccak-air", 4, 6)):
+        cls, npis = AIRS[name]
+        air = cls()
+        progs = qk.programs(air, npis)
+        on_q = torch.from_numpy(_monty(rng, (1 << log_m, air.width)))
+        pis = torch.from_numpy(_monty(rng, (npis,)))
+        apows = torch.from_numpy(_monty(rng, (sum(p.count for p in progs), 4)))
+        kernels.reset_launch_counts()
+        got = _quotient_values(air, on_q, pis, apows, log_n, log_m)
+        assert kernels.QUOTIENT_EVAL.launches == len(progs)
+        step, r0 = (1 << log_m) >> log_n, 16
+        blk = _quotient_values(air, on_q[r0:48], pis, apows, log_n, log_m,
+                               main_next=torch.roll(on_q, -step, 0)[r0:48], row0=r0)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(qk, "_on_card", lambda t: False)
+            mp.setattr(qk, "eval_fold_plain", emulated["eval_fold_plain"])
+            want = _quotient_values(air, on_q, pis, apows, log_n, log_m)
+        assert torch.equal(got, want) and torch.equal(blk, want[r0:48])
+
+
+def test_host_streamed_quotient_equals_plain(emulated):
+    """``quotient_chunks_streamed`` on keccak-air through K8 and K7 in 16
+    row blocks a coset (next rows across every block edge) equals the plain
+    pass."""
+    trace = keccak_air.generate_trace(3, seed=12, device="cpu")  # 128 rows
+    n = int(trace.shape[0])
+    pcs = create_config(zk=False, hash="poseidon2", device="cpu").pcs
+    domain = pcs.natural_domain_for_degree(n)
+    src = wide.WideMatrixSource(trace, pcs.dft, 1, domain)
+    air = keccak_air.KeccakAir()
+    apows = torch.from_numpy(_monty(np.random.default_rng(4), (7241, 4)))
+    got = wide.quotient_chunks_streamed(air, src, domain, 2, apows, [], 0, 3)[1]
+    assert kernels.QUOTIENT_EVAL.launches == 48 * 4 * 16 and kernels.PANEL_FOLD.launches == 48 * 4 * 16
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(qk, "_on_card", lambda t: False)
+        mp.setattr(qk, "eval_fold_plain", emulated["eval_fold_plain"])
+        mp.setattr(qk, "panel_fold_plain", emulated["panel_fold_plain"])
+        want = wide.quotient_chunks_streamed(air, src, domain, 2, apows, [], 0, 3)[1]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_host_kernels_prove_the_jax_fixtures(emulated):
+    """Whole proves through K7 and K8 give the JAX package's bytes: fib zk
+    n = 8 (the golden file), the chain at 2^6 (Poseidon2 stack) and
+    keccak-air zk at 64 rows on the Keccak stack (JAX's zk wide fixture)."""
+    fib = json.loads((GOLDEN / "fib_air_zk_n8_smallrng.json").read_text())
+    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout="tpu", device="cpu")
+    blob = serialize_proof(prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, 8), [0, 1, fibonacci_value(0, 1, 8)]))
+    assert blob.hex() == fib["proof_hex"]
+    chain = json.loads((GOLDEN / "torch_poseidon2_jax_proofs.json").read_text())["chain_6"]
+    trace, pis = poseidon2_air.generate_trace(64, list(range(16)), device="cpu")
+    blob = serialize_proof(prove(create_config(zk=False, hash="poseidon2", device="cpu"),
+                                 poseidon2_air.Poseidon2ChainAir(), trace, pis))
+    assert (len(blob), hashlib.sha256(blob).hexdigest()) == (chain["len"], chain["sha256"])
+    want = json.loads((GOLDEN / "torch_keccak_air_wide_zk_jax_proofs.json").read_text())["keccak_4chunks"]
+    trace = keccak_air.generate_trace(2, seed=8, device="cpu")
+    blob = serialize_proof(wide.prove_wide(create_config(zk=True, hash="keccak", device="cpu"), keccak_air.KeccakAir(),
+                                           trace, [], col_chunk=1024))
+    assert (len(blob), hashlib.sha256(blob).hexdigest()) == (want["len"], want["sha256"])
+    assert kernels.QUOTIENT_EVAL.launches > 48 and kernels.PANEL_FOLD.launches > 0
+
+
+def test_kernel_path_raises_without_its_kernel(emulated, monkeypatch, tmp_path):
+    """No fallback: a failed launch raises, and so does a build without
+    nvcc."""
+    prog, _ = _program("fib")
+    args = (torch.zeros((32, 2), dtype=torch.int32), torch.zeros((32, 2), dtype=torch.int32), 0,
+            {k: torch.zeros(32, dtype=torch.int32) for k in qk.SELECTORS}, 0, 1, torch.zeros(3, dtype=torch.int32),
+            torch.zeros((5, 4), dtype=torch.int32), torch.zeros((32, 4), dtype=torch.int32), 0, 1, False, True)
+    monkeypatch.setattr(qk, "_entry", lambda dag: (lambda w, s: 700))
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        qk.eval_fold(prog, *args)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: (_ for _ in ()).throw(RuntimeError("nvcc not found")))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(qk, "_entry", _real_entry)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        qk.eval_fold(prog, *args)
+
+
+_real_entry = qk._entry

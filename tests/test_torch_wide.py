@@ -31,8 +31,9 @@ from tpu_stark.commit.pcs import TwoAdicFriPcs as JPcs
 from tpu_stark.fri.config import create_test_fri_params as j_test_fri
 from tpu_stark.ntt.dft import Dft as JDft
 from tpu_stark.prover import wide as jwide
-from tpu_stark_torch.air import keccak_air
+from tpu_stark_torch.air import keccak_air, quotient_kernel
 from tpu_stark_torch.air.air import BaseAir, get_symbolic_info
+from tpu_stark_torch.air.builders import PartitionBuilder
 from tpu_stark_torch.commit.merkle import MerkleTreeMmcs
 from tpu_stark_torch.commit.pcs import TwoAdicFriPcs
 from tpu_stark_torch.commit.poseidon2_mmcs import Poseidon2Mmcs
@@ -97,7 +98,7 @@ def test_partitions_match_jax():
 
 def test_partition_counts_cover_all_constraints():
     air = keccak_air.KeccakAir()
-    counts = wide.partition_counts(air, 0)
+    counts = [p.count for p in quotient_kernel.programs(air, 0)]
     assert sum(counts) == get_symbolic_info(air, 0)[0]
     assert counts == jwide.partition_counts(jkeccak_air.KeccakAir(), 0)
 
@@ -110,12 +111,12 @@ def test_partition_columns_are_sufficient():
     for part in keccak_air.KeccakAir().partitions():
         local = bb.monty_ones((n, len(part.local_cols)), "cpu")
         nxt = bb.monty_ones((n, len(part.next_cols)), "cpu")
-        b = wide._PartitionBuilder(local, nxt, part.local_cols, part.next_cols, sel, [])
+        b = PartitionBuilder(local, nxt, part.local_cols, part.next_cols, sel, [])
         part.eval(b)
         assert b.constraint_count > 0
     part = keccak_air.KeccakAir().partitions()[-1]  # trans24
     short = part.local_cols[:-1]
-    b = wide._PartitionBuilder(
+    b = PartitionBuilder(
         bb.monty_ones((n, len(short)), "cpu"), bb.monty_ones((n, len(part.next_cols)), "cpu"),
         short, part.next_cols, sel, [],
     )

@@ -4,7 +4,8 @@
 The same AIR ``eval`` runs symbolically (constraint count and max degree),
 vectorized over the quotient domain on the device (prover), and at the
 out-of-domain point zeta on the host (verifier), by swapping the builder
-(see ``values.py``).  Constraints accumulate as ``acc += alpha^k * C_k`` in
+(see ``values.py``); ``TracingAirBuilder`` records it as a DAG, the source
+of the quotient kernel (``quotient_kernel.py``).  Constraints accumulate as ``acc += alpha^k * C_k`` in
 eval order, shared by prover and verifier.
 """
 
@@ -12,9 +13,9 @@ from __future__ import annotations
 
 import math
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
-from .values import SymVal
+from .values import ExprGraph, ExprVal, SymVal
 
 
 class BaseAir:
@@ -138,6 +139,44 @@ class SymbolicAirBuilder(AirBuilder):
     def _accumulate(self, x) -> None:
         deg = x.degree if isinstance(x, SymVal) else 0
         self.max_degree = max(self.max_degree, deg)
+
+
+class TracingAirBuilder(AirBuilder):
+    """Records the constraints as a DAG of ``ExprVal`` nodes over panel
+    positions: the current row's column ``c`` is the leaf ``("col", 0,
+    local[c])``, the next row's ``("col", 1, nxt[c])``; a column in neither
+    map is ``None`` in ``main_row`` and a ``KeyError`` in ``main_cols`` (as
+    in the streamed prover's sparse view).  ``roots`` lists every
+    constraint's node in eval order, vector entries in column order: the
+    order of their alpha powers."""
+
+    def __init__(self, width: int, num_public_values: int, local: Dict[int, int], nxt: Dict[int, int]):
+        self.graph = ExprGraph()
+        self._pos = [dict(local), dict(nxt)]
+        g = self.graph
+        rows = []
+        for offset, pos in enumerate(self._pos):
+            row = [None] * width
+            for c, p in pos.items():
+                row[c] = ExprVal(g, (g.node(("col", offset, int(p))),))
+            rows.append(row)
+        super().__init__(
+            main_rows=rows,
+            is_first_row=ExprVal(g, (g.node(("sel", "is_first_row")),)),
+            is_last_row=ExprVal(g, (g.node(("sel", "is_last_row")),)),
+            is_transition=ExprVal(g, (g.node(("sel", "is_transition")),)),
+            public_values=[ExprVal(g, (g.node(("pub", i)),)) for i in range(num_public_values)],
+        )
+        self.roots: List[int] = []
+
+    def main_cols(self, offset: int, indices):
+        pos, g = self._pos[offset], self.graph
+        return ExprVal(g, tuple(g.node(("col", offset, int(pos[int(c)]))) for c in indices), True)
+
+    def _accumulate(self, x) -> None:
+        if isinstance(x, int):
+            x = ExprVal(self.graph, (self.graph.const(x),))
+        self.roots.extend(x.ids)
 
 
 def get_symbolic_info(air: BaseAir, num_public_values: int):

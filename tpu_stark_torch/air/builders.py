@@ -3,7 +3,8 @@
 
 * ``QuotientBuilder`` — constraints over every point of the quotient domain
   at once as base-field device vectors, alpha-folded into an extension
-  accumulator (plain torch on the device).
+  accumulator (plain torch on the device); ``PartitionBuilder``, the same
+  over a sparse column view (one partition of a wide AIR).
 * ``VerifierBuilder`` — the same constraints at zeta on the host in
   BabyBear^4.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import List, Sequence
 
+import numpy as np
 import torch
 
 from ..fields import babybear as bb
@@ -79,6 +81,41 @@ class QuotientBuilder(AirBuilder):
             prods = ext4.mul_base(alpha_pows[None, c0 : c0 + k, :], chunk)
             acc = ext4.add(acc, bb.sum_mod(prods, axis=1))
         return acc
+
+
+class PartitionBuilder(QuotientBuilder):
+    """QuotientBuilder over a sparse column view: a partition's eval reads
+    global column indices, and only its declared columns exist (any other
+    column is ``None`` in ``main_row`` and a ``KeyError`` in ``main_cols``)."""
+
+    def __init__(self, local, nxt, local_cols, next_cols, selectors, pis):
+        self._mats = [local, nxt]
+        self._pos = [
+            {int(c): i for i, c in enumerate(local_cols)},
+            {int(c): i for i, c in enumerate(next_cols)},
+        ]
+        width = 1 + max([int(c) for c in local_cols] + [int(c) for c in next_cols])
+        rows = []
+        for mat, pos in zip(self._mats, self._pos):
+            row = [None] * width
+            for c, i in pos.items():
+                row[c] = DevVal(mat[:, i])
+            rows.append(row)
+        # QuotientBuilder.__init__ would take every column; set its state here
+        AirBuilder.__init__(
+            self,
+            main_rows=rows,
+            is_first_row=DevVal(selectors["is_first_row"]),
+            is_last_row=DevVal(selectors["is_last_row"]),
+            is_transition=DevVal(selectors["is_transition"]),
+            public_values=list(pis),
+        )
+        self._constraints = []
+
+    def main_cols(self, offset: int, indices):
+        pos, mat = self._pos[offset], self._mats[offset]
+        idx = torch.as_tensor([pos[int(c)] for c in np.asarray(indices)], device=mat.device)
+        return DevVal(mat[:, idx])
 
 
 class VerifierBuilder(AirBuilder):

@@ -1,0 +1,417 @@
+"""K7 and K8: the quotient pass on hand-written CUDA kernels.
+
+**K7** evaluates an AIR's constraints on a panel of rows and folds them with
+the powers of alpha (``eval_fold``).  Its source is generated from the
+AIR's constraint DAG: ``programs(air, num_pis)`` traces each partition of
+the constraint sequence (or the whole ``air.eval`` of an AIR without
+partitions) through ``TracingAirBuilder`` with its columns renamed to panel
+positions (``panel_cols``), and ``source`` emits, for each distinct DAG,
+one struct of straight-line row functions for the fixed kernel of
+``csrc/quotient_eval.cuh``: the DAG's nodes in creation order, each
+computed once (``add_mod``, ``sub_mod``, ``monty_mul`` of
+``csrc/babybear.cuh``), each constraint folded into the row's sums as soon
+as it exists, the constraints cut into contiguous slices, one a warp.  A
+program's kernel is keyed by the SHA-256 of its DAG, so partitions with the
+same DAG share one kernel: keccak-air's 48 partitions need 8 (the 24
+``trans``, the 10 ``bool_a``/``bool_ap``, the 5 ``theta``, the 5
+``apdef``, then ``flags``, ``bool_c_chi``, ``chi00def``, ``iota``), the
+JAX package's class programs (``tpu_stark/prover/wide.py:733``).  The
+alpha powers, the selectors and the public values are arguments.  Each DAG
+builds into a shared library of its own (``kernels.build_generated``),
+at first use.
+
+**K8** (``csrc/quotient.cu``) is the panel coset fold (``panel_fold``):
+out[i, c] = shift^i * sum_q tf[q m + i, c] * (shift^m)^q, the (n, u)
+coefficient columns folded onto the size-m coset shift * <g_m> and scaled
+for the NTT (K2) that evaluates them there.
+
+On the CPU each wrapper runs its plain version (``eval_fold_plain``,
+``panel_fold_plain``: the ``QuotientBuilder`` / ``PartitionBuilder`` path
+and the int64 fold); for a CUDA tensor it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import math
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..fields import babybear as bb
+from ..fields import extension as ext4
+from .air import BaseAir, TracingAirBuilder
+from .builders import PartitionBuilder
+from .values import DevVal
+
+HEADER = "quotient_eval.cuh"
+ROWS = 32  # output rows a block (tsq::kRows)
+MAX_PARTS = 8  # warps a block: constraint slices
+PART_CONSTRAINTS = 16  # constraints a slice at least, below MAX_PARTS slices
+SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+SELECTORS = ("is_first_row", "is_last_row", "is_transition", "inv_zeroifier")
+_OPS = {"add": "ts::add_mod", "sub": "ts::sub_mod", "mul": "ts::monty_mul"}
+
+
+def panel_cols(part) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The partition's columns (local, then the next-row ones not local)
+    and the positions of its local and next columns among them."""
+    cols = [int(c) for c in part.local_cols]
+    pos = {c: i for i, c in enumerate(cols)}
+    for c in part.next_cols:
+        if int(c) not in pos:
+            pos[int(c)] = len(cols)
+            cols.append(int(c))
+    local = np.array([pos[int(c)] for c in part.local_cols], dtype=np.int64)
+    nxt = np.array([pos[int(c)] for c in part.next_cols], dtype=np.int64)
+    return np.array(cols, dtype=np.int64), local, nxt
+
+
+@dataclasses.dataclass(frozen=True)
+class Dag:
+    """A traced constraint program: ``nodes`` (see ``values.ExprGraph``)
+    and ``roots``, each constraint's node in alpha-power order."""
+
+    nodes: Tuple[tuple, ...]
+    roots: Tuple[int, ...]
+
+    @functools.cached_property
+    def key(self) -> str:
+        return hashlib.sha256(repr((self.nodes, self.roots)).encode()).hexdigest()[:16]
+
+    @functools.cached_property
+    def _spans(self) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        out = []
+        for row in (0, 1):
+            pos = [n[2] for n in self.nodes if n[0] == "col" and n[1] == row]
+            out.append((min(pos), max(pos) + 1) if pos else (0, 0))
+        return tuple(out)
+
+    def span(self, row: int) -> Tuple[int, int]:
+        """[lo, hi) of the panel positions read on the current (0) or next
+        (1) row; (0, 0) when none."""
+        return self._spans[row]
+
+    @property
+    def parts(self) -> int:
+        return max(1, min(MAX_PARTS, math.ceil(len(self.roots) / PART_CONSTRAINTS)))
+
+    def smem_bytes(self) -> int:
+        def stride(w):
+            return 0 if w == 0 else w | 1
+
+        (lo0, hi0), (lo1, hi1) = self.span(0), self.span(1)
+        return 4 * (ROWS * (stride(hi0 - lo0) + stride(hi1 - lo1)) + self.parts * ROWS * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """One kernel call's constraints: a partition (or the whole AIR) over a
+    panel whose columns are the global columns ``cols``; its current row
+    reads ``local_cols`` at panel positions ``local_pos``, its next row
+    ``next_cols`` at ``next_pos``; ``offset`` is its first alpha power."""
+
+    name: str
+    eval_fn: object
+    cols: np.ndarray
+    local_cols: np.ndarray
+    next_cols: np.ndarray
+    local_pos: np.ndarray
+    next_pos: np.ndarray
+    dag: Dag
+    offset: int
+
+    @property
+    def count(self) -> int:
+        return len(self.dag.roots)
+
+
+def _closure(nodes, roots) -> set:
+    need, stack = set(), list(roots)
+    while stack:
+        i = stack.pop()
+        if i in need:
+            continue
+        need.add(i)
+        if nodes[i][0] in _OPS or nodes[i][0] == "neg":
+            stack.extend(nodes[i][1:])
+    return need
+
+
+def _trace(eval_fn, width: int, num_pis: int, local, next_, local_pos, next_pos) -> Dag:
+    """The eval's DAG, cut to the nodes its constraints reach (renumbered
+    in creation order)."""
+    b = TracingAirBuilder(
+        width, num_pis,
+        {int(c): int(p) for c, p in zip(local, local_pos)},
+        {int(c): int(p) for c, p in zip(next_, next_pos)},
+    )
+    eval_fn(b)
+    if b.constraint_count != len(b.roots):
+        raise AssertionError(f"traced {len(b.roots)} constraints, counted {b.constraint_count}")
+    nodes = b.graph.nodes
+    keep = sorted(_closure(nodes, b.roots))
+    new = {old: i for i, old in enumerate(keep)}
+    pruned = []
+    for i in keep:
+        n = nodes[i]
+        pruned.append((n[0], *(new[a] for a in n[1:])) if n[0] in _OPS or n[0] == "neg" else n)
+    return Dag(tuple(pruned), tuple(new[r] for r in b.roots))
+
+
+# the attribute of an AIR instance under which its programs are kept (num_pis
+# -> programs): its ``eval`` and partitions may depend on its state, and the
+# programs go with it
+_PROGRAMS_ATTR = "_quotient_programs"
+
+
+def programs(air: BaseAir, num_pis: int) -> List[Program]:
+    """The AIR's K7 programs in constraint order: one a partition, or one
+    for the whole ``eval`` over every column when it has none.  Traced once
+    an AIR instance and number of public values: an AIR's constraints must
+    not change after its first quotient."""
+    cached = vars(air).setdefault(_PROGRAMS_ATTR, {})
+    if num_pis not in cached:
+        parts = air.partitions()
+        out, off = [], 0
+        width = int(air.width)
+        if parts is None:
+            cols = np.arange(width, dtype=np.int64)
+            items = [("air", air.eval, cols, cols, cols, cols, cols)]
+        else:
+            items = []
+            for part in parts:
+                cols, local_pos, next_pos = panel_cols(part)
+                items.append((part.name, part.eval, cols, part.local_cols, part.next_cols, local_pos, next_pos))
+        for name, fn, cols, local, next_, local_pos, next_pos in items:
+            dag = _trace(fn, width, num_pis, local, next_, local_pos, next_pos)
+            out.append(Program(name, fn, cols, np.asarray(local), np.asarray(next_), local_pos, next_pos, dag, off))
+            off += len(dag.roots)
+        cached[num_pis] = out
+    return cached[num_pis]
+
+
+# ---------------------------------------------------------------------------
+# code generation
+# ---------------------------------------------------------------------------
+def _part_source(dag: Dag, first: int, last: int) -> List[str]:
+    """Straight-line code of constraints [first, last): every node they need
+    in creation order, each constraint folded right after its node."""
+    nodes, roots = dag.nodes, dag.roots
+    (lo0, _), (lo1, _) = dag.span(0), dag.span(1)
+    folds: Dict[int, List[int]] = {}
+    for k in range(first, last):
+        folds.setdefault(roots[k], []).append(k)
+    lines = []
+    for i in sorted(_closure(nodes, roots[first:last])):
+        n = nodes[i]
+        if n[0] == "col":
+            expr = f"lc[{n[2] - lo0}]" if n[1] == 0 else f"nc[{n[2] - lo1}]"
+        elif n[0] == "sel":
+            expr = f"tsq::sel_at(a, {SELECTORS.index(n[1])}, t)"
+        elif n[0] == "pub":
+            expr = f"__ldg(a.pis + {n[1]})"
+        elif n[0] == "const":
+            expr = f"{bb.monty_scalar(n[1])}u"
+        elif n[0] == "neg":
+            expr = f"ts::sub_mod(0u, v{n[1]})"
+        else:
+            expr = f"{_OPS[n[0]]}(v{n[1]}, v{n[2]})"
+        lines.append(f"    const uint32_t v{i} = {expr};")
+        for k in folds.get(i, ()):
+            lines.append(f"    tsq::fold(acc, a, {k}, v{i});")
+    return lines
+
+
+def _struct_source(dag: Dag) -> str:
+    """The DAG's struct for ``tsq::phase``: spans, slice count, ``part``."""
+    key = dag.key
+    (lo0, hi0), (lo1, hi1) = dag.span(0), dag.span(1)
+    s, c = dag.parts, len(dag.roots)
+    size = math.ceil(c / s)
+    out = [
+        f"// {c} constraints over {len(dag.nodes)} nodes; current row [{lo0}, {hi0}), next row [{lo1}, {hi1})",
+        "namespace {",
+        f"struct Q_{key} {{",
+        f"  static constexpr int LO0 = {lo0}, W0 = {hi0 - lo0}, LO1 = {lo1}, W1 = {hi1 - lo1}, S = {s};",
+    ]
+    for p in range(s):
+        out.append(f"  __device__ __forceinline__ static void part{p}(const tsq::Args& a, int64_t t, const uint32_t* lc, "
+                   "const uint32_t* nc, uint64_t* acc) {")
+        out.append("    (void)t; (void)lc; (void)nc;")
+        out.extend(_part_source(dag, p * size, min(c, (p + 1) * size)))
+        out.append("  }")
+    out.append("  __device__ __forceinline__ static void part(int p, const tsq::Args& a, int64_t t, "
+               "const uint32_t* lc, const uint32_t* nc, uint64_t* acc) {")
+    out.append("    switch (p) {")
+    for p in range(s):
+        out.append(f"      case {p}: part{p}(a, t, lc, nc, acc); break;")
+    out.append("    }")
+    out.append("  }")
+    out.append("};")
+    out.append("}  // namespace")
+    out.append("#ifdef __CUDACC__")
+    out.append(f'extern "C" int ts_q_{key}(const int64_t* w, cudaStream_t stream) {{')
+    out.append(f"  return tsq::launch<Q_{key}>(w, stream);")
+    out.append("}")
+    out.append("#endif")
+    return "\n".join(out) + "\n"
+
+
+def source(dag: Dag) -> str:
+    """The CUDA source of the DAG's kernel (a pure function of the DAG)."""
+    if dag.smem_bytes() > SMEM_LIMIT:
+        raise ValueError(f"the quotient program {dag.key} needs {dag.smem_bytes()} B of shared memory a block")
+    return (f"// K7, generated by tpu_stark_torch/air/quotient_kernel.py from a constraint DAG: do not edit.\n"
+            f'#include "{HEADER}"\n\n' + _struct_source(dag))
+
+
+def distinct_dags(progs: Sequence[Program]) -> List[Dag]:
+    seen: Dict[str, Dag] = {}
+    for p in progs:
+        seen.setdefault(p.dag.key, p.dag)
+    return list(seen.values())
+
+
+_FNS: Dict[str, object] = {}
+
+
+def _entry(dag: Dag):
+    fn = _FNS.get(dag.key)
+    if fn is None:
+        lib = kernels.generated_lib(dag.key, source(dag))
+        fn = getattr(lib, f"ts_q_{dag.key}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[dag.key] = fn
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# K7: the wrapper and its plain version
+# ---------------------------------------------------------------------------
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether a wrapper given ``t`` launches its kernel (a CUDA tensor) or
+    runs its plain version (the CPU; ``meta`` for the SoL report's audit)."""
+    return t.device.type == "cuda"
+
+
+def _check_i32(name: str, t: torch.Tensor, dim: int) -> None:
+    if t.dtype != torch.int32 or t.dim() != dim:
+        raise ValueError(f"{name}: want an int32 tensor of {dim} dimensions, got {t.dtype} {tuple(t.shape)}")
+
+
+def eval_fold(prog: Program, cur: torch.Tensor, nxt: torch.Tensor, nshift: int, sels: Dict[str, torch.Tensor],
+              sel_off: int, sel_stride: int, pis: torch.Tensor, alpha: torch.Tensor, acc: torch.Tensor,
+              acc_off: int, acc_stride: int, add: bool, invz: bool) -> torch.Tensor:
+    """K7 over rows t < len(cur): the program's constraints on the current
+    row ``cur[t]`` (panel columns ``prog.cols``) and the next row
+    ``nxt[(t + nshift) % len(nxt)]``, with selector values ``sels[name][
+    sel_off + t * sel_stride]``, the public values ``pis`` (k,) and the
+    program's alpha powers ``alpha`` (C, 4), all Monty; the (4,) sum of
+    alpha^k * C_k, plus the accumulator's row when ``add``, times
+    ``inv_zeroifier`` when ``invz``, replaces row acc_off + t * acc_stride
+    of ``acc`` (N, 4), in place.  Returns ``acc``.  A CPU tensor runs
+    ``eval_fold_plain``; on the card a failed build or launch raises."""
+    if not _on_card(cur):
+        return eval_fold_plain(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc, acc_off,
+                               acc_stride, add, invz)
+    fn = _entry(prog.dag)  # builds the library (or raises) before any launch
+    rows, nrows = int(cur.shape[0]), int(nxt.shape[0])
+    for name, t, d in (("cur", cur, 2), ("nxt", nxt, 2), ("pis", pis, 1), ("alpha", alpha, 2), ("acc", acc, 2)):
+        _check_i32(name, t, d)
+    if cur.stride(1) != 1 or nxt.stride(1) != 1 or int(cur.shape[1]) < prog.dag.span(0)[1] \
+            or int(nxt.shape[1]) < prog.dag.span(1)[1]:
+        raise ValueError("eval_fold: the panels must hold the program's columns with unit column stride")
+    if not (alpha.is_contiguous() and acc.is_contiguous() and pis.is_contiguous()) \
+            or int(alpha.shape[0]) != prog.count or alpha.data_ptr() % 16 or acc.data_ptr() % 16:
+        raise ValueError("eval_fold: alpha (C, 4) and acc (N, 4) must be contiguous and 16-byte aligned")
+    if rows > nrows or not 0 <= nshift <= nrows:
+        raise ValueError(f"eval_fold: {rows} rows, {nrows} next rows, shift {nshift}")
+    if rows and acc_off + (rows - 1) * acc_stride >= int(acc.shape[0]):
+        raise ValueError("eval_fold: the accumulator rows run past acc")
+    ptrs = []
+    for name in SELECTORS:
+        s = sels[name]
+        _check_i32(name, s, 1)
+        if not s.is_contiguous() or (rows and sel_off + (rows - 1) * sel_stride >= int(s.shape[0])):
+            raise ValueError(f"eval_fold: selector {name} of {tuple(s.shape)} rows")
+        ptrs.append(s.data_ptr())
+    words = (ctypes.c_int64 * 20)(
+        cur.data_ptr(), cur.stride(0), nxt.data_ptr(), nxt.stride(0), nrows, nshift, *ptrs, sel_off, sel_stride,
+        pis.data_ptr(), alpha.data_ptr(), acc.data_ptr(), acc_off, acc_stride, int(add), int(invz), rows,
+    )
+    kernels.QUOTIENT_EVAL.launches += 1
+    kernels.check(fn(words, kernels.stream_handle(cur.device)), f"quotient eval {prog.name}")
+    return acc
+
+
+def eval_fold_plain(prog: Program, cur: torch.Tensor, nxt: torch.Tensor, nshift: int, sels: Dict[str, torch.Tensor],
+                    sel_off: int, sel_stride: int, pis: torch.Tensor, alpha: torch.Tensor, acc: torch.Tensor,
+                    acc_off: int, acc_stride: int, add: bool, invz: bool) -> torch.Tensor:
+    """``eval_fold`` in plain torch: the program's eval over a
+    ``PartitionBuilder`` and ``folded_constraints``."""
+    rows = int(cur.shape[0])
+    t = torch.arange(rows, device=cur.device)
+    nxt_rows = nxt if nshift == 0 and int(nxt.shape[0]) == rows else nxt[(t + nshift) % int(nxt.shape[0])]
+    at = sel_off + t * sel_stride
+    sel = {name: sels[name][at] for name in SELECTORS}
+    b = PartitionBuilder(cur[:, torch.as_tensor(prog.local_pos, device=cur.device)],
+                         nxt_rows[:, torch.as_tensor(prog.next_pos, device=cur.device)],
+                         prog.local_cols, prog.next_cols, sel, [DevVal(pis[i]) for i in range(int(pis.shape[0]))])
+    prog.eval_fn(b)
+    folded = b.folded_constraints(alpha)
+    idx = acc_off + t * acc_stride
+    if add:
+        folded = ext4.add(folded, acc[idx])
+    if invz:
+        folded = ext4.mul_base(folded, sel["inv_zeroifier"])
+    acc[idx] = folded
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# K8: the panel coset fold
+# ---------------------------------------------------------------------------
+def panel_fold(tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
+    """K8: the (n, u) Monty coefficient columns ``tf`` folded onto the coset
+    shift * <g_m> of size m = 2^log_m (x^m = shift^m there: coefficients
+    q m + i join i with weight (shift^m)^q) and scaled by shift^i, (m, u)
+    Monty, the NTT's input.  A CPU tensor runs ``panel_fold_plain``; on the
+    card a failed build or launch raises."""
+    if not _on_card(tf):
+        return panel_fold_plain(tf, log_m, shift)
+    so = kernels.lib()
+    _check_i32("tf", tf, 2)
+    n, u = int(tf.shape[0]), int(tf.shape[1])
+    m = 1 << log_m
+    if n % m or not tf.is_contiguous():
+        raise ValueError(f"panel_fold: a contiguous (n, u) operand with m = {m} dividing n, got {tuple(tf.shape)}")
+    out = torch.empty((m, u), dtype=torch.int32, device=tf.device)
+    if out.numel() == 0:
+        return out
+    s = shift % bb.P
+    kernels.PANEL_FOLD.launches += 1
+    kernels.check(
+        so.ts_panel_fold(tf.data_ptr(), n // m, m, u, bb.monty_scalar(s), bb.monty_scalar(pow(s, m, bb.P)),
+                         out.data_ptr(), kernels.stream_handle(tf.device)),
+        "panel fold",
+    )
+    return out
+
+
+def panel_fold_plain(tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
+    """``panel_fold`` in plain torch (int64 products)."""
+    m = 1 << log_m
+    fold = tf[:m]
+    s_m = pow(shift, m, bb.P)
+    w = s_m
+    for q in range(1, int(tf.shape[0]) // m):
+        fold = bb.add(fold, bb.mul_canonical(tf[q * m : (q + 1) * m], w))
+        w = w * s_m % bb.P
+    return bb.mul_canonical(fold, bb.powers(shift, m, tf.device)[:, None])

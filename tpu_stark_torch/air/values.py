@@ -6,12 +6,14 @@
   (the vectorized prover pass).
 * ``HostExtVal`` — BabyBear^4 Python tuples at the out-of-domain point zeta
   (the verifier pass; canonical ints).
+* ``ExprVal``    — nodes of a hash-consed constraint DAG (``ExprGraph``),
+  which ``air/quotient_kernel.py`` turns into the quotient kernel's source.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -201,3 +203,94 @@ class HostExtVal:
 
     def __neg__(self):
         return HostExtVal(tuple((-x) % bb.P for x in self.c))
+
+
+class ExprGraph:
+    """A hash-consed DAG of base-field nodes, in creation order (so every
+    node's operands come before it).  Leaves: ``("col", row, pos)`` (panel
+    position ``pos`` of the current row 0 or the next row 1), ``("sel",
+    name)``, ``("pub", i)``, ``("const", v)`` (v canonical); operations
+    ``("add" | "sub" | "mul", a, b)`` and ``("neg", a)`` on node ids.  An
+    operation of two constants is folded into a constant."""
+
+    def __init__(self):
+        self.nodes: List[tuple] = []
+        self._ids: Dict[tuple, int] = {}
+
+    def node(self, key: tuple) -> int:
+        i = self._ids.get(key)
+        if i is None:
+            i = self._ids[key] = len(self.nodes)
+            self.nodes.append(key)
+        return i
+
+    def const(self, v: int) -> int:
+        return self.node(("const", int(v) % bb.P))
+
+    def op(self, name: str, *args: int) -> int:
+        vals = [self.nodes[a] for a in args]
+        if all(v[0] == "const" for v in vals):
+            x = [v[1] for v in vals]
+            if name == "add":
+                return self.const(x[0] + x[1])
+            if name == "sub":
+                return self.const(x[0] - x[1])
+            if name == "mul":
+                return self.const(x[0] * x[1])
+            return self.const(-x[0])
+        return self.node((name, *args))
+
+
+class ExprVal:
+    """A value of the constraint DAG: a tuple of node ids, one for a scalar
+    or one per column of a vector; a scalar operand broadcasts across a
+    vector, as ``DevVal._align`` does, and an ``int`` is a constant leaf."""
+
+    def __init__(self, graph: ExprGraph, ids: Tuple[int, ...], vector: bool = False):
+        self.graph = graph
+        self.ids = tuple(ids)
+        self.vector = vector
+
+    @property
+    def count(self) -> int:
+        return len(self.ids) if self.vector else 1
+
+    def _coerce(self, other) -> "ExprVal":
+        if isinstance(other, ExprVal):
+            return other
+        if isinstance(other, int):
+            return ExprVal(self.graph, (self.graph.const(other),))
+        raise TypeError(f"cannot mix {type(other)} into ExprVal")
+
+    def _binary(self, name: str, a: "ExprVal", b: "ExprVal") -> "ExprVal":
+        x, y = a.ids, b.ids
+        if len(x) == 1 and len(y) > 1:
+            x = x * len(y)
+        elif len(y) == 1 and len(x) > 1:
+            y = y * len(x)
+        if len(x) != len(y):
+            raise ValueError(f"vector lengths {len(x)} and {len(y)} differ")
+        return ExprVal(self.graph, tuple(self.graph.op(name, i, j) for i, j in zip(x, y)), a.vector or b.vector)
+
+    def __add__(self, other):
+        return self._binary("add", self, self._coerce(other))
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary("sub", self, self._coerce(other))
+
+    def __rsub__(self, other):
+        return self._binary("sub", self._coerce(other), self)
+
+    def __mul__(self, other):
+        return self._binary("mul", self, self._coerce(other))
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return ExprVal(self.graph, tuple(self.graph.op("neg", i) for i in self.ids), self.vector)
+
+    def take(self, indices):
+        assert self.vector
+        return ExprVal(self.graph, tuple(self.ids[int(i)] for i in indices), True)

@@ -503,8 +503,8 @@ def _measure_poseidon2_sponge(n: int = 1 << 20, reps: int = 32, device=None) -> 
 
 
 def _measure_quotient(log_n: int = 18, reps: int = 8, device=None) -> Dict:
-    """The quotient pass (``prover/prove.py::_quotient_values``, plain
-    torch as on the main path) on the fib AIR at quotient-domain size
+    """The quotient pass (``prover/prove.py::_quotient_values``: K7 on the
+    card, its plain version off it) on the fib AIR at quotient-domain size
     2^(log_n+1): selectors, constraint eval, alpha folding, zeroifier
     division; two of its columns are added back (a dependent chain)."""
     from ..air.air import get_symbolic_info
@@ -527,6 +527,60 @@ def _measure_quotient(log_n: int = 18, reps: int = 8, device=None) -> Dict:
     ops = audit_ops(qfn, _meta(h, 2), _meta(3), _meta(nc, 4))
     calls_s = _timed(_chain(lambda v: bb.add(v, qfn(v, pis, apows)[:, :2])), trace_on_q, reps)
     return {"kernel": f"quotient_fib_2^{log_m}", "ops": ops, "rate": calls_s, "melems_s": calls_s * h / 1e6}
+
+
+# one keccak-air partition of each of its eight constraint DAGs (K7 kernels)
+QUOTIENT_PARTITIONS = ("flags", "bool_a0", "bool_c_chi", "theta0", "apdef0", "chi00def", "iota", "trans1")
+
+
+def _measure_quotient_partition(name: str, log_n: int = 20, reps: int = 4, device=None) -> Dict:
+    """K7 on one keccak-air partition's panel of 2^log_n rows, as the
+    streamed quotient calls it (``quotient_kernel.eval_fold``: the next
+    rows from a second panel, the fold added into the accumulator), audited
+    through its plain version; the accumulator carries from call to call (a
+    dependent chain).  HBM model: the columns the program reads of both
+    panels, its selectors, and the accumulator read and written."""
+    from ..air import quotient_kernel as qk
+    from ..air.keccak_air import KeccakAir
+
+    dev = _device(device)
+    prog = next(p for p in qk.programs(KeccakAir(), 0) if p.name == name)
+    h, u = 1 << log_n, len(prog.cols)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def rand(*shape):  # drawn on the device: the panels are GiBs
+        return torch.randint(0, bb.P, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+
+    cur, nxt = rand(h, u), rand(h, u)
+    sels = {k: rand(h) for k in qk.SELECTORS}
+    alpha = rand(prog.count, 4)
+    pis = torch.zeros((0,), dtype=torch.int32, device=dev)
+
+    def fold(c, n, a, s0, s1, s2, s3, acc):
+        sel = dict(zip(qk.SELECTORS, (s0, s1, s2, s3)))
+        return qk.eval_fold(prog, c, n, 0, sel, 0, 1, pis, a, acc, 0, 1, True, False)
+
+    ops = audit_ops(fold, _meta(h, u), _meta(h, u), _meta(prog.count, 4), *(_meta(h) for _ in range(4)),
+                    _meta(h, 4))
+    acc = rand(h, 4)
+    calls_s = _timed(_chain(lambda a: fold(cur, nxt, alpha, *sels.values(), a)), acc, reps)
+    (lo0, hi0), (lo1, hi1) = prog.dag.span(0), prog.dag.span(1)
+    used = len({n[1] for n in prog.dag.nodes if n[0] == "sel"})
+    return {
+        "kernel": f"quotient_{name}_2^{log_n}",
+        "ops": ops,
+        "rate": calls_s,
+        "melems_s": calls_s * h / 1e6,
+        "bytes_per_call": 4.0 * h * ((hi0 - lo0) + (hi1 - lo1) + used + 8),
+    }
+
+
+def run_quotient_partitions(roofs: Dict[str, float], log_n: int = 20, device=None) -> List[Dict]:
+    """K7 at one keccak-air partition of each DAG (``QUOTIENT_PARTITIONS``),
+    each scored against ``roofs`` (a report's) like ``run``'s kernels."""
+    measured = [_measure_quotient_partition(name, log_n, device=device) for name in QUOTIENT_PARTITIONS]
+    return score(roofs, dict(PROBE_SOURCES), measured)[2]
 
 
 def _measure_fri_fold(log_h: int = 22, reps: int = 16, device=None) -> Dict:

@@ -8,6 +8,12 @@ ctypes; each entry point launches on the stream it is given and returns the
 launch's ``cudaGetLastError()`` status, which ``check`` turns into an
 exception.
 
+K7's sources are generated from the AIRs' constraint DAGs
+(``air/quotient_kernel.py``): ``build_generated`` writes each text to
+``BUILD_DIR`` under the SHA-256 of the text, its headers and the flags, and
+compiles each into a shared library of its own, all at once; a library
+whose hash is built already is reused.
+
 ``KernelInfo`` records what each kernel replaces and counts its launches:
 a wrapper adds one where it launches the kernel, and nowhere else.
 """
@@ -16,18 +22,21 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu", "threefry.cu")
+SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu", "threefry.cu",
+           "quotient.cu")
 HEADERS = ("babybear.cuh",)
+GENERATED_HEADERS = ("babybear.cuh", "quotient_eval.cuh")  # what K7's generated sources include
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -89,6 +98,20 @@ THREEFRY_MONTY = KernelInfo(
     "threefry_monty", "tpu_stark_torch/csrc/threefry.cu",
     "tpu_stark/compat/device_rng.py:41",
 )
+# K7, the quotient pass's constraint evaluation and alpha fold, generated
+# per constraint DAG around csrc/quotient_eval.cuh; its JAX counterparts are
+# XLA (no Pallas kernel): the class program tpu_stark/prover/wide.py:700
+# _class_eval_fn and the dense tpu_stark/prover/prove.py:47 _quotient_fn
+QUOTIENT_EVAL = KernelInfo(
+    "quotient_eval", "tpu_stark_torch/csrc/quotient_eval.cuh",
+    "tpu_stark/prover/wide.py:700",
+)
+# K8, the streamed quotient's panel coset fold; its JAX counterpart is the
+# fold and scale of the XLA program tpu_stark/prover/wide.py:646
+PANEL_FOLD = KernelInfo(
+    "panel_fold", "tpu_stark_torch/csrc/quotient.cu",
+    "tpu_stark/prover/wide.py:646",
+)
 # the speed-of-light probes of bench/sol.py; they replace its XLA probes
 SOL_MUL = KernelInfo(
     "sol_mul_probe", "tpu_stark_torch/csrc/sol_probes.cu",
@@ -104,7 +127,7 @@ SOL_HBM = KernelInfo(
 )
 SOL_PROBES = (SOL_MUL, SOL_ALU, SOL_HBM)
 ALL = (KECCAK_SPONGE, KECCAK_TREE, KECCAK_ABSORB, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
-       KECCAK_GRIND, THREEFRY_MONTY) + SOL_PROBES
+       KECCAK_GRIND, THREEFRY_MONTY, QUOTIENT_EVAL, PANEL_FOLD) + SOL_PROBES
 
 
 def reset_launch_counts() -> None:
@@ -140,50 +163,59 @@ def up_to_date() -> bool:
     return os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= newest
 
 
-def build(force: bool = False) -> BuildResult:
-    """Compile csrc/*.cu into LIB_PATH unless an up-to-date library exists:
-    every source to an object in parallel, then one shared-library link."""
-    srcs = [os.path.join(SRC_DIR, s) for s in SOURCES]
-    if not force and up_to_date():
-        return BuildResult(LIB_PATH, 0.0, "")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _nvcc_all(jobs, what: str, timeout: int = 1200) -> Dict[str, tuple]:
+    """Run one nvcc for each job (label, arguments, output file), all
+    started together, each writing a temporary of its own that replaces
+    ``output`` when that nvcc succeeds.  Returns label -> (seconds from the
+    start to its end, nvcc's output); raises, naming every job that failed.
+    A compile still running when it returns or raises is killed, and the
+    temporaries are removed."""
     nvcc = _nvcc()
-    tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
     t0 = time.perf_counter()
-    procs = []
-    log = ""
+    procs, done, failed = [], {}, []
     try:
-        procs = [
-            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
-                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(srcs, objs)
-        ]
-        failed = []
-        for src, proc in zip(SOURCES, procs):
-            out, _ = proc.communicate(timeout=600)
-            log += f"== {src}\n{out}"
+        for label, args, out in jobs:
+            stem, ext = os.path.splitext(out)
+            tmp = f"{stem}.{os.getpid()}.tmp{ext}"
+            procs.append((label, out, tmp, subprocess.Popen(
+                [nvcc, *args, "-o", tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        for label, out, tmp, proc in procs:
+            log, _ = proc.communicate(timeout=timeout)
             if proc.returncode != 0:
-                failed.append(src)
+                failed.append(f"== {label}\n{log}")
+                continue
+            os.replace(tmp, out)
+            done[label] = (time.perf_counter() - t0, log)
         if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
-        tmp = f"{LIB_PATH}.{tag}"
-        link = subprocess.run(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", tmp, *objs],
-            capture_output=True, text=True, timeout=600,
-        )
-        log += link.stdout + link.stderr
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
-        os.replace(tmp, LIB_PATH)
+            raise RuntimeError(f"nvcc failed on {what}:\n" + "\n".join(failed))
     finally:
-        for proc in procs:
+        for _label, _out, tmp, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return done
+
+
+def build(force: bool = False) -> BuildResult:
+    """Compile csrc/*.cu into LIB_PATH unless an up-to-date library exists:
+    every source to an object in parallel, then one shared-library link."""
+    if not force and up_to_date():
+        return BuildResult(LIB_PATH, 0.0, "")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    objs = [os.path.join(BUILD_DIR, f"{s}.{os.getpid()}.o") for s in SOURCES]
+    t0 = time.perf_counter()
+    try:
+        compiled = _nvcc_all([(s, [*NVCC_FLAGS, "-c", os.path.join(SRC_DIR, s)], o) for s, o in zip(SOURCES, objs)],
+                             "the kernel sources", 600)
+        linked = _nvcc_all([("link", ["-gencode", "arch=compute_90a,code=sm_90a", "-shared", *objs], LIB_PATH)],
+                           "the link", 600)
+    finally:
         for o in objs:
             if os.path.exists(o):
                 os.remove(o)
+    log = "".join(f"== {s}\n{compiled[s][1]}" for s in SOURCES) + linked["link"][1]
     return BuildResult(LIB_PATH, time.perf_counter() - t0, log)
 
 
@@ -213,6 +245,8 @@ def lib() -> ctypes.CDLL:
             u32 = ctypes.c_uint32
             so.ts_threefry_monty.argtypes = [u32, u32, u32, u32, i64, vp, i64, i64, vp, i64, vp, vp]
             so.ts_threefry_monty.restype = i32
+            so.ts_panel_fold.argtypes = [vp, i64, i64, i64, u32, u32, vp, vp]
+            so.ts_panel_fold.restype = i32
             so.ts_sol_mul.argtypes = [vp, vp, vp, i64, i32, vp]
             so.ts_sol_mul.restype = i32
             so.ts_sol_alu.argtypes = [vp, vp, i64, i32, vp]
@@ -221,6 +255,54 @@ def lib() -> ctypes.CDLL:
             so.ts_sol_stream.restype = i32
             _lib = so
         return _lib
+
+
+def _generated_paths(key: str, text: str):
+    h = hashlib.sha256(text.encode())
+    for name in GENERATED_HEADERS:
+        with open(os.path.join(SRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = f"{key}_{h.hexdigest()[:16]}"
+    return os.path.join(BUILD_DIR, f"q_{tag}.cu"), os.path.join(BUILD_DIR, f"libts_q_{tag}.so")
+
+
+def build_generated(texts: Dict[str, str], force: bool = False) -> Dict[str, BuildResult]:
+    """Compile each generated source (key -> text) into a shared library of
+    its own unless one of the same hash exists: the texts are written to
+    BUILD_DIR and every nvcc is started together.  Returns key ->
+    BuildResult (seconds from the start of the compiles to this one's end;
+    0.0 for a reused library)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out, jobs = {}, []
+    for key, text in texts.items():
+        src, so = _generated_paths(key, text)
+        if not force and os.path.exists(so):
+            out[key] = BuildResult(so, 0.0, "")
+            continue
+        tmp_src = f"{src}.{os.getpid()}.tmp.cu"
+        with open(tmp_src, "w") as f:
+            f.write(text)
+        os.replace(tmp_src, src)
+        jobs.append((key, src, so))
+    if jobs:
+        built = _nvcc_all([(key, [*NVCC_FLAGS, "-I", SRC_DIR, "-shared", src], so) for key, src, so in jobs],
+                          "the generated quotient kernels")
+        for key, _src, so in jobs:
+            out[key] = BuildResult(so, *built[key])
+    return out
+
+
+_generated: Dict[str, ctypes.CDLL] = {}
+
+
+def generated_lib(key: str, text: str) -> ctypes.CDLL:
+    """The loaded library of a generated source (built on first call)."""
+    with _lock:
+        so = _generated.get(key)
+        if so is None:
+            so = _generated[key] = ctypes.CDLL(build_generated({key: text})[key].path)
+        return so
 
 
 def check(status: int, what: str) -> None:

@@ -24,11 +24,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..air import quotient_kernel
 from ..air.air import BaseAir, SymbolicAirBuilder, get_symbolic_info
-from ..air.builders import QuotientBuilder
-from ..air.values import DevVal
 from ..fields import babybear as bb
-from ..fields import extension as ext4
 from ..fields import ref_field as rf
 from ..fri.domains import TwoAdicCoset
 from ..matrix import log2_strict
@@ -46,26 +44,35 @@ def _quotient_values(
     main_next: Optional[torch.Tensor] = None,
     row0: int = 0,
 ) -> torch.Tensor:
-    """The quotient pass over the quotient domain (plain torch): selectors,
-    constraint eval, alpha folding, zeroifier division.  ``trace_on_q`` is
-    every row of the domain, or the rows [row0, row0 + len) with their
-    next rows ``main_next`` (a mesh rank's block, ``dist/sharded.py``)."""
+    """The quotient pass over the quotient domain: selectors, constraint
+    eval, alpha folding, zeroifier division, on K7 (``quotient_kernel.
+    eval_fold``; its plain version on the CPU), one launch for an AIR
+    without partitions, one a partition (its columns gathered) for one with
+    them.  ``trace_on_q`` is every row of the domain, whose next rows are
+    ``step`` rows on, or the rows [row0, row0 + len) with their next rows
+    ``main_next`` (a mesh rank's block, ``dist/sharded.py``)."""
     trace_domain = TwoAdicCoset(log_n, 1)
     quotient_domain = trace_domain.create_disjoint_domain(1 << log_m)
-    step = (1 << log_m) >> log_n
+    rows = int(trace_on_q.shape[0])
     if main_next is None:
-        main_next = torch.roll(trace_on_q, -step, dims=0)
-    selectors = trace_domain.selectors_on_coset_device(
-        quotient_domain, trace_on_q.device, row0, int(trace_on_q.shape[0]))
-    builder = QuotientBuilder(
-        main_local=trace_on_q,
-        main_next=main_next,
-        selectors=selectors,
-        public_values=[DevVal(pis[i]) for i in range(int(pis.shape[0]))],
-    )
-    air.eval(builder)
-    folded = builder.folded_constraints(alpha_pows)
-    return ext4.mul_base(folded, selectors["inv_zeroifier"])
+        main_next, nshift = trace_on_q, (1 << log_m) >> log_n
+    else:
+        nshift = 0
+    selectors = trace_domain.selectors_on_coset_device(quotient_domain, trace_on_q.device, row0, rows)
+    out = torch.empty((rows, 4), dtype=bb.I32, device=trace_on_q.device)
+    progs = quotient_kernel.programs(air, int(pis.shape[0]))
+    whole = air.partitions() is None
+    for i, prog in enumerate(progs):
+        if whole:
+            cur, nxt = trace_on_q, main_next
+        else:
+            cols = torch.as_tensor(prog.cols, device=trace_on_q.device)
+            cur = trace_on_q.index_select(1, cols)
+            nxt = cur if main_next is trace_on_q else main_next.index_select(1, cols)
+        quotient_kernel.eval_fold(
+            prog, cur, nxt, nshift, selectors, 0, 1, pis, alpha_pows[prog.offset : prog.offset + prog.count],
+            out, 0, 1, add=i > 0, invz=i == len(progs) - 1)
+    return out
 
 
 def get_log_quotient_degree(air: BaseAir, num_public_values: int, zk: bool) -> int:

@@ -49,9 +49,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..air.air import AirBuilder, BaseAir, SymbolicAirBuilder
-from ..air.builders import QuotientBuilder
-from ..air.values import DevVal
+from ..air import quotient_kernel
+from ..air.air import BaseAir
 from ..commit.pcs import (
     PcsProverData, _block_plan, _combine_columns, _eval_at_point, _opened_sum, _over_y_minus_z,
 )
@@ -427,65 +426,6 @@ def commit_wide(pcs, domain: TwoAdicCoset, source: WideMatrixSource) -> Tuple[tu
 # ---------------------------------------------------------------------------
 # Partitioned, row-blocked quotient
 # ---------------------------------------------------------------------------
-class _PartitionBuilder(QuotientBuilder):
-    """QuotientBuilder over a sparse column view: a partition's eval reads
-    global column indices, and only its declared columns exist (any other
-    column is ``None`` in ``main_row`` and a ``KeyError`` in ``main_cols``)."""
-
-    def __init__(self, local, nxt, local_cols, next_cols, selectors, pis):
-        self._mats = [local, nxt]
-        self._pos = [
-            {int(c): i for i, c in enumerate(local_cols)},
-            {int(c): i for i, c in enumerate(next_cols)},
-        ]
-        width = 1 + max([int(c) for c in local_cols] + [int(c) for c in next_cols])
-        rows = []
-        for mat, pos in zip(self._mats, self._pos):
-            row = [None] * width
-            for c, i in pos.items():
-                row[c] = DevVal(mat[:, i])
-            rows.append(row)
-        # QuotientBuilder.__init__ would take every column; set its state here
-        AirBuilder.__init__(
-            self,
-            main_rows=rows,
-            is_first_row=DevVal(selectors["is_first_row"]),
-            is_last_row=DevVal(selectors["is_last_row"]),
-            is_transition=DevVal(selectors["is_transition"]),
-            public_values=list(pis),
-        )
-        self._constraints = []
-
-    def main_cols(self, offset: int, indices):
-        pos, mat = self._pos[offset], self._mats[offset]
-        idx = torch.as_tensor([pos[int(c)] for c in np.asarray(indices)], device=mat.device)
-        return DevVal(mat[:, idx])
-
-
-def partition_counts(air: BaseAir, num_pis: int) -> List[int]:
-    """Constraints emitted per partition (their alpha-power offsets)."""
-    counts = []
-    for part in air.partitions():
-        b = SymbolicAirBuilder(air.width, num_pis)
-        part.eval(b)
-        counts.append(b.constraint_count)
-    return counts
-
-
-def _panel_cols(part) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """The partition's columns (local, then the next-row ones not local)
-    and the positions of its local and next columns among them."""
-    cols = [int(c) for c in part.local_cols]
-    pos = {c: i for i, c in enumerate(cols)}
-    for c in part.next_cols:
-        if int(c) not in pos:
-            pos[int(c)] = len(cols)
-            cols.append(int(c))
-    local = np.array([pos[int(c)] for c in part.local_cols], dtype=np.int64)
-    nxt = np.array([pos[int(c)] for c in part.next_cols], dtype=np.int64)
-    return np.array(cols, dtype=np.int64), local, nxt
-
-
 def block_count(n: int, u: int, use_next: bool, panel_budget: int, min_block_log: int) -> int:
     """Row blocks r (a power of two, at most 32): each size-n quotient coset
     is cut into r strided sub-cosets so that the live int32 panels, (n/r, u)
@@ -502,22 +442,16 @@ def block_count(n: int, u: int, use_next: bool, panel_budget: int, min_block_log
 def _panel_on_coset(dft, tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
     """Evaluate the (n, u) coefficient columns on the size-2^log_m coset
     shift * <g_m>: x^m = shift^m there, so the n coefficients fold to m with
-    powers of shift^m, then scale by shift^i and one NTT."""
-    m = 1 << log_m
-    fold = tf[:m]
-    s_m = pow(shift, m, bb.P)
-    w = s_m
-    for q in range(1, int(tf.shape[0]) // m):
-        fold = bb.add(fold, bb.mul_canonical(tf[q * m : (q + 1) * m], w))
-        w = w * s_m % bb.P
-    return dft.dft_batch(bb.mul_canonical(fold, bb.powers(shift, m, tf.device)[:, None]))
+    powers of shift^m, then scale by shift^i (K8, ``quotient_kernel.
+    panel_fold``) and one NTT (K2)."""
+    return dft.dft_batch(quotient_kernel.panel_fold(tf, log_m, shift))
 
 
 def partition_share(air: BaseAir, mesh) -> List[int]:
     """The partitions that this rank of ``mesh`` evaluates in the streamed
     quotient: in turn, the widest panel first, each goes to the rank with
     the fewest panel columns so far (ties to the lower rank)."""
-    sizes = [len(_panel_cols(part)[0]) for part in air.partitions()]
+    sizes = [len(quotient_kernel.panel_cols(part)[0]) for part in air.partitions()]
     load = [0] * mesh.size
     mine = []
     for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
@@ -559,42 +493,37 @@ def quotient_chunks_streamed(
     qd = 1 << log_qd
     chunk_domains = trace_domain.create_disjoint_domain(n * qd).split_domains(qd)
     selectors = [trace_domain.selectors_on_coset_device(cd, dev) for cd in chunk_domains]
-    pis = [DevVal(p) for p in pis]
-    counts = partition_counts(air, len(pis))
-    offs = np.concatenate([[0], np.cumsum(counts)])
+    pis = (torch.stack([torch.as_tensor(p, device=dev).reshape(()) for p in pis]).to(torch.int32) if len(pis)
+           else torch.zeros((0,), dtype=torch.int32, device=dev))
+    progs = quotient_kernel.programs(air, int(pis.shape[0]))
     accs = [ext4.zero((n,), dev) for _ in range(qd)]
-    share = set(range(len(counts))) if mesh is None else set(partition_share(air, mesh))
-    for p_idx, part in enumerate(air.partitions()):
+    share = set(range(len(progs))) if mesh is None else set(partition_share(air, mesh))
+    for p_idx, prog in enumerate(progs):
         if p_idx not in share:
             continue
-        cols, local_pos, next_pos = _panel_cols(part)
-        local_pos = torch.as_tensor(local_pos, device=dev)
-        next_pos = torch.as_tensor(next_pos, device=dev)
-        use_next = len(part.next_cols) > 0
-        r = block_count(n, len(cols), use_next, panel_budget, min_block_log)
+        use_next = len(prog.next_cols) > 0
+        r = block_count(n, len(prog.cols), use_next, panel_budget, min_block_log)
         log_m = log_n - log2_strict(r)
-        tf = source.quotient_coeffs_cols(cols)
-        alpha_slice = alpha_pows[int(offs[p_idx]) : int(offs[p_idx + 1])]
+        tf = source.quotient_coeffs_cols(prog.cols)
+        alpha_slice = alpha_pows[prog.offset : prog.offset + prog.count]
         for j, cd in enumerate(chunk_domains):
             shifts = [cd.shift * pow(g, k, bb.P) % bb.P for k in range(r)]
-            acc = accs[j].view(1 << log_m, r, 4)
-            cur = _panel_on_coset(source.dft, tf, log_m, shifts[0])
-            # the last block's next rows are block 0's, one row on
-            wrap = torch.roll(cur[:, next_pos], -1, dims=0)
+            # row t of block k is the coset's row k + r t: its next row is
+            # block k+1's row t, or for the last block block 0's row t + 1
+            first = cur = _panel_on_coset(source.dft, tf, log_m, shifts[0])
             for k in range(r):
-                nxt = None
-                if use_next and k + 1 < r:
-                    nxt = _panel_on_coset(source.dft, tf, log_m, shifts[k + 1])
-                next_mat = wrap if nxt is None else nxt[:, next_pos]
-                sel = {name: v[k::r] for name, v in selectors[j].items()}
-                b = _PartitionBuilder(cur[:, local_pos], next_mat, part.local_cols, part.next_cols, sel, pis)
-                part.eval(b)
-                acc[:, k, :] = ext4.add(acc[:, k, :], b.folded_constraints(alpha_slice))
-                del b, next_mat, cur
-                if nxt is None and k + 1 < r:
+                nxt = _panel_on_coset(source.dft, tf, log_m, shifts[k + 1]) if use_next and k + 1 < r else None
+                if use_next:
+                    nxt_panel, nshift = (first, 1) if nxt is None else (nxt, 0)
+                else:
+                    nxt_panel, nshift, first = cur, 0, None
+                quotient_kernel.eval_fold(prog, cur, nxt_panel, nshift, selectors[j], k, r, pis, alpha_slice,
+                                          accs[j], k, r, add=True, invz=False)
+                del nxt_panel
+                if not use_next and k + 1 < r:
                     nxt = _panel_on_coset(source.dft, tf, log_m, shifts[k + 1])
                 cur = nxt
-            del wrap
+            del first, cur
         del tf
     if mesh is not None and mesh.size > 1:
         accs = list(mesh.all_reduce_mod_p(torch.stack(accs), "quotient_sums"))
