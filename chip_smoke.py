@@ -403,12 +403,14 @@ def k5_levels(h: int, w: int):
 
 # K7 (the quotient pass's generated kernels): a multiply of the DAG a
 # Montgomery product, an add, subtract or negation a modular add, and a fold
-# four products and four 64-bit adds; its bytes the columns it reads of the
-# two panels (of one panel, each word once, where the next rows are the
-# current panel's: ``one_panel``), its selectors (and inv_zeroifier with
-# invz) and the 16-byte accumulator row written (and read with add)
+# four 64-bit multiply-adds of raw products (2 each) and a quarter of the
+# four settles that follow every fourth fold (2 each); its bytes the
+# columns it reads of the two panels (of one panel, each word once, where
+# the next rows are the current panel's: ``one_panel``), its selectors (and
+# inv_zeroifier with invz) and the 16-byte accumulator row written (and
+# read with add)
 MOD_ADD_OPS = 2
-QUOTIENT_FOLD_OPS = 4 * (MONTY_MUL_OPS + 2)
+QUOTIENT_FOLD_OPS = 4 * 2 + 2
 
 
 def same_panel(cur, nxt) -> bool:

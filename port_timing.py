@@ -9,7 +9,7 @@
     python3 port_timing.py p2 [--tree DIR]
     python3 port_timing.py k1 [--tree DIR]
     python3 port_timing.py k5 [--tree DIR] [--phases]
-    python3 port_timing.py k7
+    python3 port_timing.py k7 [--tree DIR] [--sass-out DIR]
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
     python3 port_timing.py wgmma
@@ -119,17 +119,26 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   inside their window, epilogue and stores).
 * ``k7``: where K7's time goes.  Builds, beside each constraint DAG of fib,
   the chain and keccak-air as the tree generates it (``base``), variants of
-  its source (``K7_VARIANTS``: the part functions out of line, the
-  constraint code replaced by one fold (staging and store left), the
-  staging skipped (compute on whatever shared memory holds)), prints each
-  kernel's ptxas registers, its SASS count and its local-memory,
-  shared-memory and global loads (``cuobjdump``), the blocks an SM holds
-  (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and each variant's
-  device time (``torch.profiler``, 10 launches; CUDA events around them
-  where the profiler returns no kernel event) beside its bound at
-  ``chip_smoke.py`` phase 24's calls (fib and the chain as the dense pass,
-  keccak-air's DAGs as a streamed last block); variants that compute the
-  same function are held to the plain version first.
+  its source (``K7_VARIANTS``: the phase functions out of line, the
+  constraint code replaced by one fold a phase (staging, ring and store
+  left: the staging-only time), the copies into the ring skipped (compute
+  on whatever shared memory holds: the evaluation-only time)), prints
+  each kernel's plan (row groups x consumer warps + producer warps, one
+  row a lane, ring depth, phases and quads a row, shared memory), its
+  ptxas registers, its SASS count and its local-memory, shared-memory and
+  global loads
+  (``cuobjdump``; ``--sass-out DIR`` also writes each DAG's listing as
+  generated to DIR/k7_<program>_<key>.sass), the blocks an SM holds (the
+  library's ``init``: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+  and each variant's device time (``torch.profiler``, 10 launches; CUDA
+  events around them where the profiler returns no kernel event) beside its
+  bound at ``chip_smoke.py`` phase 24's calls (fib and the chain as the
+  dense pass, keccak-air's DAGs as a streamed last block); variants that
+  compute the same function are held to the plain version first.
+  ``--tree DIR`` of an older commit, whose header takes none of the
+  variants: its kernels as its generator emits them, through its own
+  wrapper, at the same shapes and inputs (parent and change in one chip
+  call).
 * ``sass``: builds the kernels of this tree (``--tree DIR``: of DIR) with
   nvcc, prints the build time, ptxas's register and spill report, and the
   SASS instruction mix of K4 (``p2_absorb_kernel``) and K3
@@ -1317,39 +1326,32 @@ PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) 
 # computes K7's function)
 K7_VARIANTS = {
     "base": ("as generated", True),
-    "noinline": ("the part functions out of line", True),
-    "nocompute": ("each part one fold of one staged word", False),
-    "nostage": ("phase 0 skipped", False),
+    "noinline": ("the phase functions out of line", True),
+    "nocompute": ("each phase one fold of one staged word (staging, ring and store left)", False),
+    "nostage": ("no copies into the ring (compute on whatever shared memory holds)", False),
 }
-K7_OCCUPANCY = """
-extern "C" int ts_occ_{key}(int* blocks) {{
-  const int bytes = tsq::Layout<Q_{key}>::kWordsTotal * 4;
-  cudaFuncSetAttribute(tsq::quotient_kernel<Q_{key}>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, tsq::quotient_kernel<Q_{key}>, Q_{key}::S * 32,
-                                                            bytes);
-}}
-"""
 
 
 def _k7_source(qk, header: str, dag, kind: str) -> str:
-    """The DAG's K7 source with ``kind``'s change, the header inlined, and an
-    occupancy query.  Raises if a change finds nothing to change."""
+    """The DAG's K7 source with ``kind``'s change and the header inlined.
+    Raises if a change finds nothing to change."""
     import re
 
     text = qk.source(dag)
     h = header.replace("#pragma once", "")
     old_text, old_h = text, h
     if kind == "noinline":
-        text = text.replace("__device__ __forceinline__ static void part", "__device__ __noinline__ static void part")
+        text = text.replace("__device__ __forceinline__ static void phase", "__device__ __noinline__ static void phase")
     elif kind == "nocompute":
-        text = re.sub(r"(static void part\d+\([^)]*\) \{\n)(.*?)(\n  \})",
-                      lambda m: m.group(1) + "    tsq::fold(acc, a, 0, lc[0] ^ nc[0]); (void)t;" + m.group(3), text,
+        text = re.sub(r"(static void phase\d+_\d+\([^)]*\) \{\n)(.*?)(\n  \})",
+                      lambda m: m.group(1) + "    (void)a; (void)t; tsq::fold(acc, al[0], lc[0]);" + m.group(3), text,
                       flags=re.S)
     elif kind == "nostage":
-        h = h.replace("  if (ph == 0) {", "  if (ph == 0) {\n    if (a.rows > 0) return;", 1)
-    if kind != "base" and (text, h) == (old_text, old_h):
+        anchor = "  uint32_t* st = smem + slot * L::kStage;\n"
+        h = h.replace(anchor, anchor + "  if (a.rows > 0) return;\n", 1)
+    if kind in ("noinline", "nocompute", "nostage") and (text, h) == (old_text, old_h):
         raise AssertionError(f"k7 variant {kind}: its change matched nothing in the generated source or header")
-    return text.replace(f'#include "{qk.HEADER}"', h) + K7_OCCUPANCY.format(key=dag.key)
+    return text.replace(f'#include "{qk.HEADER}"', h)
 
 
 def k7_timing(torch, dev, args) -> None:
@@ -1373,8 +1375,11 @@ def k7_timing(torch, dev, args) -> None:
     for air, npis in ((FibonacciAir(), 3), (poseidon2_air.Poseidon2ChainAir(), 32), (keccak_air.KeccakAir(), 0)):
         for p in qk.programs(air, npis):
             progs.setdefault(p.dag.key, (p, npis))
-    texts = {f"{kind}_{key}": _k7_source(qk, header, p.dag, kind) for kind in K7_VARIANTS
-             for key, (p, _n) in progs.items()}
+    # an older tree (``--tree``) builds its own kernel as its wrapper would, the base variant alone
+    ring = hasattr(qk, "Plan")
+    variants = K7_VARIANTS if ring else {"base": K7_VARIANTS["base"]}
+    texts = {f"{kind}_{key}": _k7_source(qk, header, p.dag, kind) if ring else qk.source(p.dag)
+             for kind in variants for key, (p, _n) in progs.items()}
     t0 = time.perf_counter()
     built = kernels.build_generated(texts)
     print(f"k7: built {len(built)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1385,18 +1390,24 @@ def k7_timing(torch, dev, args) -> None:
         return torch.randint(0, 0x78000001, shape, generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
 
     n = 1 << 20
-    for kind, (what, same) in K7_VARIANTS.items():
+    for kind, (what, same) in variants.items():
         parts = []
         for key, (prog, npis) in progs.items():
+            plan = prog.dag.plan() if ring else None
             res = built[f"{kind}_{key}"]
             lib = ctypes.CDLL(res.path)
             blocks = ctypes.c_int(0)
-            getattr(lib, f"ts_occ_{key}")(ctypes.byref(blocks))
+            if ring:
+                kernels.check(getattr(lib, f"ts_q_init_{key}")(ctypes.byref(blocks)), f"k7 {kind} init")
             fn = getattr(lib, f"ts_q_{key}")
             fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
             qk._FNS[key] = fn
             listing = subprocess.run([_cuobjdump(), "-sass", res.path], capture_output=True, text=True).stdout
             code = [c for name, c in _sass_functions(listing).items() if "quotient_kernel" in name][0]
+            if args.sass_out and kind == "base":
+                os.makedirs(args.sass_out, exist_ok=True)
+                with open(os.path.join(args.sass_out, f"k7_{prog.name}_{key}.sass"), "w") as f:
+                    f.write(listing)
             ops = [op.split(".")[0] for _a, op, _t in code]
             regs = re.findall(r"Used (\d+) registers", res.log)
             u = len(prog.cols)
@@ -1428,8 +1439,13 @@ def k7_timing(torch, dev, args) -> None:
                 ms = cs._cuda_ms(torch, lambda: qk.eval_fold(*call, acc, *tail), 10)
             bound = cs.quotient_eval_bound(prog.dag, rows, tail[2], tail[3], cs.same_panel(call[1], call[2]))[0]
             label = prog.name if prog.name != "air" else ("fib" if u == 2 else "chain")
-            parts.append(f"{label} ({rows}, {u}) {ms:.4f} ms ({100 * bound / ms:.1f} % of {bound:.4f}); "
-                         f"{regs[-1] if regs else '?'} regs, {blocks.value} blocks/SM, {len(ops)} SASS, LDL "
+            shape = (f"{plan.warps} x {plan.subs} + {plan.producers} warps, one row a lane, ring {plan.stages}, "
+                     f"{len(plan.phases)} phases of <= {plan.width} quads, "
+                     f"{prog.dag.smem_bytes(plan)} B" if ring
+                     else f"one 32-row tile a block, {prog.dag.parts} warps, {prog.dag.smem_bytes()} B")
+            parts.append(f"{label} ({rows}, {u}) {ms:.4f} ms ({100 * bound / ms:.1f} % of {bound:.4f}); {shape}; "
+                         f"{regs[-1] if regs else '?'} regs, {blocks.value if ring else '?'} blocks/SM, "
+                         f"{len(ops)} SASS, LDL "
                          f"{ops.count('LDL')} STL {ops.count('STL')} LDS {ops.count('LDS')} LDG {ops.count('LDG')}")
             del cur, sels, acc, call
         qk._FNS.clear()
@@ -1817,9 +1833,11 @@ def main() -> int:
     parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
-    parser.add_argument("--tree", help="import tpu_stark_torch from this directory (warm, profile, k2, p2, k1, k5, sass)")
+    parser.add_argument("--tree", help="import tpu_stark_torch from this directory "
+                        "(warm, profile, k2, p2, k1, k5, k7, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
+    parser.add_argument("--sass-out", help="k7: write each DAG's kernel SASS to this directory")
     parser.add_argument("--lowmem-log", type=int,
                         help="profile (fib, config2): create_config(lowmem_log=N); 0 switches the levers off")
     parser.add_argument("--pcs-from", help="take TwoAdicFriPcs.open (warm) or also time .verify (verify) "

@@ -712,6 +712,44 @@ def test_quotient_eval_equals_plain(dev, name, mode, rows):
     assert torch.equal(got, want)
 
 
+# K7's persistent grid and ring on the card: (rows, next-row shift (None:
+# the mode's), panels 16-byte aligned): a grid with fewer blocks than tiles,
+# each walking many through the ring, with a ragged last tile; the next rows
+# wrapping to row 0 inside a tile; both panels on the 16-byte copies
+QUOTIENT_RING_CASES = {
+    "walk": ((1 << 17) + 5, None, False),
+    "wrap": ((1 << 12) + 3, 1000, False),
+    "aligned": ((1 << 16) + 7, None, True),
+}
+
+
+@pytest.mark.parametrize("case", list(QUOTIENT_RING_CASES))
+@pytest.mark.parametrize("mode", list(QUOTIENT_MODES))
+@pytest.mark.parametrize("name", QUOTIENT_PROGRAMS)
+def test_quotient_eval_ring_equals_plain(dev, name, mode, case):
+    rows, shift, aligned = QUOTIENT_RING_CASES[case]
+    _, nshift, sel_off, sel_stride, acc_off, acc_stride, add, invz = QUOTIENT_MODES[mode]
+    nshift = nshift if shift is None else shift
+    prog, npis = _quotient_program(name)
+    seed = 5000 + QUOTIENT_PROGRAMS.index(name) * 100 + list(QUOTIENT_MODES).index(mode) * 10 \
+        + list(QUOTIENT_RING_CASES).index(case)
+    # aligned: a row stride of a multiple of 4 words; else an odd one, so the 4-byte copies
+    u = (len(prog.cols) + 3) // 4 * 4 + 4 if aligned else (len(prog.cols) + 3) | 1
+    cur, nxt = _monty(dev, (rows, u), seed), _monty(dev, (rows, u), seed + 1)
+    assert qk._vec(prog.dag, 0, cur) == qk._vec(prog.dag, 1, nxt) == aligned
+    sels = {k: _monty(dev, (sel_off + rows * sel_stride,), seed + 2 + i) for i, k in enumerate(qk.SELECTORS)}
+    pis, alpha = _monty(dev, (npis,), seed + 7), _monty(dev, (prog.count, 4), seed + 8)
+    acc = _monty(dev, (acc_off + rows * acc_stride, 4), seed + 9)
+    before = kernels.QUOTIENT_EVAL.launches
+    got = qk.eval_fold(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                       acc_stride, add, invz)
+    want = qk.eval_fold_plain(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc.clone(), acc_off,
+                              acc_stride, add, invz)
+    torch.cuda.synchronize()
+    assert kernels.QUOTIENT_EVAL.launches == before + 1
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("name", QUOTIENT_PROGRAMS)
 def test_quotient_eval_equals_dag_interpretation(dev, name):
     prog, npis = _quotient_program(name)

@@ -12,13 +12,14 @@ generated from the AIR's constraint DAG) and K8 (the panel coset fold) of
     one kernel (keccak-air: 8 for 48 partitions);
 (d) the generated K7 sources and ``csrc/quotient.cu`` (K8), compiled with
     g++ under a host shim (``__device__`` and ``__forceinline__`` as
-    ``inline``, ``__ldg`` a load; each launch a loop over blocks, phases and
-    threads), equal the plain versions at 2^6-2^8 rows; through the real
+    ``inline``, ``__ldg`` a load; each launch a loop over blocks, units and
+    threads), equal the plain versions at 5-1,500 rows; through the real
     wrappers, the dense and streamed quotient passes and whole proves give
     the plain versions' values and the JAX fixtures' bytes.
 """
 
 import ctypes
+import functools
 import gc
 import hashlib
 import json
@@ -71,8 +72,10 @@ def _monty(rng, shape):
     return rng.integers(0, bb.P, size=shape, dtype=np.int64).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _program(name):
-    """The program of an AIR without partitions, or of a keccak-air partition."""
+    """The program of an AIR without partitions, or of a keccak-air partition
+    (traced once a name: tracing keccak-air's 48 partitions takes a while)."""
     if name in AIRS:
         cls, npis = AIRS[name]
         return qk.programs(cls(), npis)[0], npis
@@ -179,7 +182,7 @@ def test_generated_source_is_deterministic_and_shared():
     assert sum(p.count for p in progs) == 7241
     fib = qk.programs(FibonacciAir(), 3)
     assert len(fib) == 1 and fib[0].dag.span(0) == fib[0].dag.span(1) == (0, 2)
-    assert "tsq::fold(acc, a, 4," in qk.source(fib[0].dag)
+    assert "tsq::fold(acc, al[4], v" in qk.source(fib[0].dag)
 
 
 def test_trace_prunes_unread_columns():
@@ -290,16 +293,50 @@ template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
 """
 
+# the grid of a host launch: ``ts_q_grid`` blocks, or one a tile when 0
+K7_HOST = """
+#include <cstdint>
+#include <vector>
+static int64_t grid_blocks = 0;
+extern "C" void ts_q_grid(int64_t blocks) { grid_blocks = blocks; }
+"""
+
+# a launch: every block of the grid through the kernel's device functions,
+# thread by thread, one shared buffer for them all (a block finds the last
+# one's words); the producers run as far ahead as the ring lets them (every
+# slot filled, a slot refilled as soon as its unit is evaluated), so a unit
+# staged into the wrong slot clobbers one still to be evaluated
 K7_LAUNCH = """
 extern "C" int ts_q_{key}(const int64_t* w, void*) {{
+  using D = Q_{key};
   const tsq::Args a = tsq::unpack(w);
-  std::vector<uint32_t> smem(tsq::Layout<Q_{key}>::kWordsTotal);
-  const int nt = Q_{key}::S * 32;
-  for (int64_t b = 0; b * tsq::kRows < a.rows; ++b)
-    for (int ph = 0; ph < 3; ++ph)
-      for (int tid = 0; tid < nt; ++tid) tsq::phase<Q_{key}>(a, smem.data(), b, tid, nt, ph);
+  if (a.rows <= 0) return 0;
+  std::vector<uint32_t> smem(tsq::Layout<D>::kWordsTotal);
+  const int64_t tiles = tsq::tiles_of<D>(a);
+  const int64_t nb = grid_blocks > 0 && grid_blocks < tiles ? grid_blocks : tiles;
+  const int consumers = tsq::Layout<D>::kConsumers, producers = D::NP * 32;
+  std::vector<tsq::Acc> acc(consumers);
+  for (int64_t b = 0; b < nb; ++b) {{
+    for (int tid = 0; tid < consumers + producers; ++tid) tsq::stage_consts<D>(a, smem.data(), tid, consumers + producers);
+    const int64_t units = tsq::units_of<D>(tiles, b, nb);
+    auto stage = [&](int64_t u) {{
+      for (int lane = 0; lane < producers; ++lane)
+        tsq::stage_unit<D>(a, smem.data(), tsq::unit_t0<D>(b, nb, u), int(u % D::G), int(u % D::NS), lane, producers);
+    }};
+    for (int64_t u = 0; u < units && u < D::NS; ++u) stage(u);
+    for (int64_t u = 0; u < units; ++u) {{
+      const int64_t t0 = tsq::unit_t0<D>(b, nb, u);
+      const int buf = int(u / D::G) & 1;
+      for (int tid = 0; tid < consumers; ++tid)
+        tsq::eval_unit<D>(a, smem.data(), t0, int(u % D::G), int(u % D::NS), tid, acc[tid], buf);
+      if (u % D::G == D::G - 1)
+        for (int tid = 0; tid < consumers; ++tid) tsq::store_row<D>(a, smem.data(), t0, tid, acc[tid], buf);
+      if (u + D::NS < units) stage(u + D::NS);
+    }}
+  }}
   return 0;
 }}
+extern "C" int64_t ts_q_smem_{key}() {{ return tsq::Layout<Q_{key}>::kBytes; }}
 """
 
 K8_LAUNCH = """
@@ -330,26 +367,32 @@ def host_libs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("quotient_host")
     (tmp / "shim").mkdir()
     (tmp / "shim" / "cuda_runtime.h").write_text(SHIM)
-    fns = {}
+    fns, grids, smem = {}, [], {}
     for name, (cls, npis) in AIRS.items():
         dags = qk.distinct_dags(qk.programs(cls(), npis))
-        text = "#include <vector>\n" + "".join(qk.source(d) + K7_LAUNCH.format(key=d.key) for d in dags)
+        text = K7_HOST + "".join(qk.source(d) + K7_LAUNCH.format(key=d.key) for d in dags)
         lib = _gxx(tmp, name.replace("-", "_"), text)
         for d in dags:
             fn = getattr(lib, f"ts_q_{d.key}")
             fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
             fns[d.key] = fn
+            smem[d.key] = getattr(lib, f"ts_q_smem_{d.key}")
+            smem[d.key].restype = ctypes.c_int64
+        lib.ts_q_grid.argtypes, lib.ts_q_grid.restype = [ctypes.c_int64], None
+        grids.append(lib.ts_q_grid)
     k8 = _gxx(tmp, "k8", K8_LAUNCH)
     vp, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
     k8.ts_panel_fold.argtypes, k8.ts_panel_fold.restype = [vp, i64, i64, i64, u32, u32, vp, vp], ctypes.c_int
-    return fns, k8
+    return fns, k8, grids, smem
 
 
 @pytest.fixture
 def emulated(host_libs, monkeypatch):
     """The wrappers take their kernel path on CPU tensors, through the host
     libraries; the plain versions refuse to run."""
-    fns, k8 = host_libs
+    fns, k8, grids, _ = host_libs
+    for grid in grids:
+        grid(0)
     monkeypatch.setattr(qk, "_on_card", lambda t: True)
     monkeypatch.setattr(qk, "_entry", lambda dag: fns[dag.key])
     monkeypatch.setattr(kernels, "lib", lambda: k8)
@@ -378,13 +421,12 @@ MODES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("name", DAG_PROGRAMS)
-def test_host_k7_equals_plain(emulated, name, mode):
-    rows, nrows, nshift, sel_off, sel_stride, acc_off, acc_stride, add, invz = MODES[mode]
+def _host_k7(emulated, name, seed, rows, nrows, nshift, sel_off, sel_stride, acc_off, acc_stride, add, invz, u=None):
+    """One K7 launch through the host library against ``eval_fold_plain``
+    on seeded random operands; returns the program."""
     prog, npis = _program(name)
-    rng = np.random.default_rng(DAG_PROGRAMS.index(name) * 10 + list(MODES).index(mode))
-    u = len(prog.cols) + 3  # wider than the program: a row stride past its columns
+    rng = np.random.default_rng(seed)
+    u = u or len(prog.cols) + 3  # wider than the program: a row stride past its columns
     cur = torch.from_numpy(_monty(rng, (rows, u)))
     nxt = torch.from_numpy(_monty(rng, (nrows, u)))
     span = sel_off + rows * sel_stride
@@ -397,6 +439,58 @@ def test_host_k7_equals_plain(emulated, name, mode):
                        acc_stride, add, invz)
     assert kernels.QUOTIENT_EVAL.launches == 1
     assert torch.equal(got, want)
+    return prog, cur, nxt
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("name", DAG_PROGRAMS)
+def test_host_k7_equals_plain(emulated, name, mode):
+    _host_k7(emulated, name, DAG_PROGRAMS.index(name) * 10 + list(MODES).index(mode), *MODES[mode])
+
+
+# the persistent grid and the ring: (rows, next rows, next-row shift (None:
+# the mode's), grid blocks (0: one a tile), panels 16-byte aligned)
+RING_CASES = {
+    "walk": (1500, 1500, None, 2, False),  # blocks walk several tiles through the ring; a ragged last tile
+    "ragged": (1100, 1100, None, 0, False),  # a ragged last tile, one block a tile
+    "short": (5, 5, None, 0, False),  # fewer rows than one tile
+    "wrap": (1200, 1200, 333, 2, False),  # the next rows wrap to row 0 inside a tile
+    "aligned": (700, 700, None, 1, True),  # both panels take the 16-byte copies
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("name", DAG_PROGRAMS)
+def test_host_k7_ring_equals_plain(emulated, host_libs, name, mode, case):
+    """The kernel's units and ring (``tsq::units_of``, ``unit_t0``, the ring
+    slots, the shares' part buffers) at grids with fewer blocks than tiles,
+    ragged and short tiles, next rows wrapping inside a tile and 16-byte
+    staging, for each DAG (one phase or many) and call mode."""
+    rows, nrows, nshift, blocks, aligned = RING_CASES[case]
+    _, _, mode_shift, sel_off, sel_stride, acc_off, acc_stride, add, invz = MODES[mode]
+    nshift = min(mode_shift, rows) if nshift is None else nshift
+    prog, _ = _program(name)
+    # aligned: a row stride of a multiple of 4 words; else an odd one, so the 4-byte copies
+    u = (len(prog.cols) + 3) // 4 * 4 + 4 if aligned else (len(prog.cols) + 3) | 1
+    for grid in host_libs[2]:
+        grid(blocks)
+    seed = 1000 + DAG_PROGRAMS.index(name) * 100 + list(MODES).index(mode) * 10 + list(RING_CASES).index(case)
+    prog, cur, nxt = _host_k7(emulated, name, seed, rows, nrows, nshift, sel_off, sel_stride, acc_off, acc_stride,
+                              add, invz, u)
+    assert qk._vec(prog.dag, 0, cur) == qk._vec(prog.dag, 1, nxt) == aligned
+    tile = qk.LANES * prog.dag.plan().warps
+    assert rows < tile if case == "short" else -(-rows // tile) > max(blocks, 1)
+
+
+@pytest.mark.parametrize("name", DAG_PROGRAMS)
+def test_host_k7_smem_bytes_match_the_layout(host_libs, name):
+    """``Dag.smem_bytes``, which ``plan`` and ``source`` hold to the block's
+    limit, is the header's count (``tsq::Layout::kBytes``: the dynamic
+    buffer and the ring's static mbarriers)."""
+    dag = _program(name)[0].dag
+    assert host_libs[3][dag.key]() == dag.smem_bytes() <= qk.SMEM_LIMIT
+    assert dag.plan().threads <= qk.MAX_THREADS
 
 
 @pytest.mark.parametrize("n,u,log_m", [(64, 3, 6), (64, 24, 4), (256, 40, 5), (128, 257, 3)])

@@ -7,10 +7,13 @@ the constraint sequence (or the whole ``air.eval`` of an AIR without
 partitions) through ``TracingAirBuilder`` with its columns renamed to panel
 positions (``panel_cols``), and ``source`` emits, for each distinct DAG,
 one struct of straight-line row functions for the fixed kernel of
-``csrc/quotient_eval.cuh``: the DAG's nodes in creation order, each
-computed once (``add_mod``, ``sub_mod``, ``monty_mul`` of
-``csrc/babybear.cuh``), each constraint folded into the row's sums as soon
-as it exists, the constraints cut into contiguous slices, one a warp.  A
+``csrc/quotient_eval.cuh`` under its ``Plan``: the constraints cut into
+phases by the 64-byte chunks of a row they read (each phase's quads staged
+by the kernel's producer warps while the phase before is evaluated), each
+phase cut into shares, one a consumer warp of a row group; a share's code
+is the DAG's nodes it needs in creation order, each computed once
+(``add_mod``, ``sub_mod``, ``monty_mul`` of ``csrc/babybear.cuh``), each
+constraint folded into the row's sums as soon as it exists.  A
 program's kernel is keyed by the SHA-256 of its DAG, so partitions with the
 same DAG share one kernel: keccak-air's 48 partitions need 8 (the 24
 ``trans``, the 10 ``bool_a``/``bool_ap``, the 5 ``theta``, the 5
@@ -37,7 +40,7 @@ import dataclasses
 import functools
 import hashlib
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -50,10 +53,49 @@ from .builders import PartitionBuilder
 from .values import DevVal
 
 HEADER = "quotient_eval.cuh"
-ROWS = 32  # output rows a block (tsq::kRows)
-MAX_PARTS = 8  # warps a block: constraint slices
-PART_CONSTRAINTS = 16  # constraints a slice at least, below MAX_PARTS slices
+LANES = 32  # threads a warp, one row each
+WARPS = (16, 8, 4)  # row groups a block, the most whose ring fits: a tile of LANES * warps rows
+CONSUMERS = 16  # consumer warps a block at least: warps * subs
+STAGES = 2  # the ring of staged units (a phase of a tile) a block
+CHUNK = 4  # quads a chunk: a phase stages whole 64-byte chunks of a row
 SMEM_LIMIT = 232448  # shared memory a block may use on the H100
+MAX_THREADS = 1024  # threads a block
+NEXT, NONE = 0x8000, 0xFFFF  # a quad table entry of the next panel; an unused slot (tsq::kNext, kNone)
+
+
+class Plan(NamedTuple):
+    """A K7 kernel's shape: row groups of LANES rows a block, ring stages,
+    the phases (each phase's constraints, in fold order, and the quads its
+    rows stage: q for the current panel's columns [4q, 4q + 4), q | NEXT for
+    the next panel's), the producer warps that stage them, and the consumer
+    warps a row group."""
+
+    warps: int
+    stages: int
+    phases: Tuple[Tuple[int, ...], ...]
+    quads: Tuple[Tuple[int, ...], ...]
+    producers: int
+    subs: int  # consumer warps a row group: each runs its share of every phase's constraints
+
+    def split(self, p: int) -> List[Tuple[int, ...]]:
+        """Phase p's constraints cut into ``subs`` contiguous shares."""
+        ks, size = self.phases[p], math.ceil(len(self.phases[p]) / self.subs)
+        return [ks[j * size:(j + 1) * size] for j in range(self.subs)]
+
+    @property
+    def threads(self) -> int:
+        return LANES * (self.warps * self.subs + self.producers)
+
+    @property
+    def width(self) -> int:
+        """Quads a staged row: the most a phase stages."""
+        return max(len(q) for q in self.quads)
+
+
+def _stride(words: int) -> int:  # tsq::stride_of
+    return 0 if words == 0 else (((words + 3) // 4) | 1) * 4
+
+
 SELECTORS = ("is_first_row", "is_last_row", "is_transition", "inv_zeroifier")
 _OPS = {"add": "ts::add_mod", "sub": "ts::sub_mod", "mul": "ts::monty_mul"}
 
@@ -97,16 +139,75 @@ class Dag:
         (1) row; (0, 0) when none."""
         return self._spans[row]
 
-    @property
-    def parts(self) -> int:
-        return max(1, min(MAX_PARTS, math.ceil(len(self.roots) / PART_CONSTRAINTS)))
+    def staged(self, row: int) -> Tuple[int, int]:
+        """The span of ``row`` widened to 16-byte bounds: what a tile
+        stages with 16-byte copies."""
+        lo, hi = self.span(row)
+        return (0, 0) if hi == lo else (lo & ~3, (hi + 3) & ~3)
 
-    def smem_bytes(self) -> int:
-        def stride(w):
-            return 0 if w == 0 else w | 1
+    def _chunk_quads(self) -> Tuple[Tuple[Tuple[int, ...], ...], Dict[int, Tuple[int, ...]]]:
+        """The chunks (c = q // CHUNK, or c | NEXT) each constraint reads, and
+        each chunk's quads (q, or q | NEXT) inside its panel's staged span."""
+        spans = [(lo // 4, hi // 4) for lo, hi in (self.staged(0), self.staged(1))]
+        per, quads = [], {}
+        for r in self.roots:
+            cs = set()
+            for i in _closure(self.nodes, [r]):
+                n = self.nodes[i]
+                if n[0] != "col":
+                    continue
+                c, tag, (lo, hi) = n[2] // 4 // CHUNK, NEXT if n[1] else 0, spans[n[1]]
+                cs.add(c | tag)
+                quads.setdefault(c | tag, tuple(q | tag for q in range(max(lo, c * CHUNK), min(hi, (c + 1) * CHUNK))))
+            per.append(tuple(sorted(cs, reverse=True)))
+        return tuple(per), quads
 
-        (lo0, hi0), (lo1, hi1) = self.span(0), self.span(1)
-        return 4 * (ROWS * (stride(hi0 - lo0) + stride(hi1 - lo1)) + self.parts * ROWS * 4)
+    def _phases(self, budget: int) -> List[Tuple[List[int], set]]:
+        """The constraints in phases of at most ``budget`` quads (more only
+        for a constraint that reads more alone), in whole chunks: ordered by
+        the chunks they read, highest first, so that constraints on the same
+        chunks meet, then cut greedily.  Returns each phase's constraints
+        and quads."""
+        per, quads = self._chunk_quads()
+        out: List[Tuple[List[int], set]] = []
+        for k in sorted(range(len(self.roots)), key=lambda k: (per[k], k)):
+            new = {q for c in per[k] for q in quads[c]}
+            if not out or len(out[-1][1] | new) > budget:
+                out.append(([], set()))
+            out[-1][0].append(k)
+            out[-1][1].update(new)
+        return out
+
+    def plan(self) -> Plan:
+        """The kernel's shape: the most row groups of LANES rows of WARPS for
+        which a phase holds every constraint's chunks (else the fewest), the
+        phases of the most quads a row whose ring of STAGES units fits a
+        block, CONSUMERS consumer warps in all and one producer warp a row
+        group."""
+        per, quads = self._chunk_quads()
+        alone = max(len({q for c in cs for q in quads[c]}) for cs in per)
+        for w in WARPS:
+            budget = max(1, (SMEM_LIMIT // 4 - 4 * len(self.roots)) // (STAGES * LANES * w * 4))
+            if budget >= alone or w == WARPS[-1]:
+                break
+        while True:
+            phases = self._phases(budget)
+            plan = Plan(w, STAGES, tuple(tuple(ks) for ks, _ in phases), tuple(tuple(sorted(qs)) for _, qs in phases),
+                        w, max(1, CONSUMERS // w))
+            if budget == 1 or self.smem_bytes(plan) <= SMEM_LIMIT:
+                return plan
+            budget -= 1
+
+    def smem_bytes(self, plan: Plan = None) -> int:
+        """Shared memory of a block: ``tsq::Layout``'s dynamic buffer (the
+        ring of staged units, the alpha powers, the phases' quad tables, the
+        shares' sums) and the ring's mbarriers, ``full`` and ``empty`` (8 B
+        each a stage, static)."""
+        plan = plan or self.plan()
+        rows = LANES * plan.warps
+        table = (len(plan.phases) * plan.width + 1) // 2
+        return 4 * (plan.stages * rows * _stride(4 * plan.width) + 4 * len(self.roots) + (table + 3) // 4 * 4
+                    + 2 * (plan.subs - 1) * rows * 4) + 2 * 8 * plan.stages
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,19 +300,28 @@ def programs(air: BaseAir, num_pis: int) -> List[Program]:
 # ---------------------------------------------------------------------------
 # code generation
 # ---------------------------------------------------------------------------
-def _part_source(dag: Dag, first: int, last: int) -> List[str]:
-    """Straight-line code of constraints [first, last): every node they need
-    in creation order, each constraint folded right after its node."""
+def _phase_source(dag: Dag, ks: Sequence[int], quads: Sequence[int], folds_before: int, total: int) -> List[str]:
+    """Straight-line code of one phase's share, constraints ``ks``, on a
+    thread's row: every node they need in creation order, each constraint
+    folded right after its node, the sums settled after every fourth of the
+    thread's ``total`` folds (``folds_before`` in the phases before this
+    one).  A column is read from the row's staged quads (slot s holds
+    ``quads[s]``), a quad at a time, at the first node that needs one of
+    its columns."""
     nodes, roots = dag.nodes, dag.roots
-    (lo0, _), (lo1, _) = dag.span(0), dag.span(1)
+    slot = {q: i for i, q in enumerate(quads)}
     folds: Dict[int, List[int]] = {}
-    for k in range(first, last):
+    for k in ks:
         folds.setdefault(roots[k], []).append(k)
-    lines = []
-    for i in sorted(_closure(nodes, roots[first:last])):
+    loaded, lines, n_folds = set(), [], folds_before
+    for i in sorted(_closure(nodes, [roots[k] for k in ks])):
         n = nodes[i]
         if n[0] == "col":
-            expr = f"lc[{n[2] - lo0}]" if n[1] == 0 else f"nc[{n[2] - lo1}]"
+            sl = slot[n[2] // 4 | (NEXT if n[1] else 0)]
+            if sl not in loaded:
+                loaded.add(sl)
+                lines.append(f"    const uint4 q{sl} = tsq::quad(lc, {sl});")
+            expr = f"q{sl}.{'xyzw'[n[2] % 4]}"
         elif n[0] == "sel":
             expr = f"tsq::sel_at(a, {SELECTORS.index(n[1])}, t)"
         elif n[0] == "pub":
@@ -224,38 +334,52 @@ def _part_source(dag: Dag, first: int, last: int) -> List[str]:
             expr = f"{_OPS[n[0]]}(v{n[1]}, v{n[2]})"
         lines.append(f"    const uint32_t v{i} = {expr};")
         for k in folds.get(i, ()):
-            lines.append(f"    tsq::fold(acc, a, {k}, v{i});")
+            lines.append(f"    tsq::fold(acc, al[{k}], v{i});")
+            n_folds += 1
+            if n_folds % 4 == 0 and n_folds < total:
+                lines.append("    tsq::settle(acc);")
     return lines
 
 
-def _struct_source(dag: Dag) -> str:
-    """The DAG's struct for ``tsq::phase``: spans, slice count, ``part``."""
+def _struct_source(dag: Dag, plan: Plan) -> str:
+    """The DAG's struct for ``tsq::quotient_kernel``: spans, shape, the
+    phases' quad tables and each share's code."""
     key = dag.key
     (lo0, hi0), (lo1, hi1) = dag.span(0), dag.span(1)
-    s, c = dag.parts, len(dag.roots)
-    size = math.ceil(c / s)
+    g, q = len(plan.phases), plan.width
+    table = [e for qs in plan.quads for e in list(qs) + [NONE] * (q - len(qs))]
+    sig = "(const tsq::Args& a, const uint32_t* lc, int64_t t, uint64_t* acc, const uint4* al)"
     out = [
-        f"// {c} constraints over {len(dag.nodes)} nodes; current row [{lo0}, {hi0}), next row [{lo1}, {hi1})",
+        f"// {len(dag.roots)} constraints over {len(dag.nodes)} nodes; current row [{lo0}, {hi0}), "
+        f"next row [{lo1}, {hi1}); {g} phases of at most {q} quads",
         "namespace {",
+        f"__device__ const uint16_t kQuads_{key}[{g * q}] = {{{', '.join(map(str, table))}}};",
         f"struct Q_{key} {{",
-        f"  static constexpr int LO0 = {lo0}, W0 = {hi0 - lo0}, LO1 = {lo1}, W1 = {hi1 - lo1}, S = {s};",
+        f"  static constexpr int lo0 = {lo0}, hi0 = {hi0}, lo1 = {lo1}, hi1 = {hi1};",
+        f"  static constexpr int NW = {plan.warps}, S = {plan.subs}, NP = {plan.producers}, NS = {plan.stages}, "
+        f"G = {g}, Q = {q}, C = {len(dag.roots)};",
+        f"  __device__ __forceinline__ static const uint16_t* quads() {{ return kQuads_{key}; }}",
     ]
-    for p in range(s):
-        out.append(f"  __device__ __forceinline__ static void part{p}(const tsq::Args& a, int64_t t, const uint32_t* lc, "
-                   "const uint32_t* nc, uint64_t* acc) {")
-        out.append("    (void)t; (void)lc; (void)nc;")
-        out.extend(_part_source(dag, p * size, min(c, (p + 1) * size)))
-        out.append("  }")
-    out.append("  __device__ __forceinline__ static void part(int p, const tsq::Args& a, int64_t t, "
-               "const uint32_t* lc, const uint32_t* nc, uint64_t* acc) {")
-    out.append("    switch (p) {")
-    for p in range(s):
-        out.append(f"      case {p}: part{p}(a, t, lc, nc, acc); break;")
+    shares = [plan.split(p) for p in range(g)]
+    for j in range(plan.subs):
+        folds, total = 0, sum(len(sh[j]) for sh in shares)
+        for p in range(g):
+            out.append(f"  __device__ __forceinline__ static void phase{p}_{j}{sig} {{")
+            out.append("    (void)a; (void)lc; (void)t; (void)acc; (void)al;")
+            out.extend(_phase_source(dag, shares[p][j], plan.quads[p], folds, total))
+            out.append("  }")
+            folds += len(shares[p][j])
+    out.append(f"  __device__ __forceinline__ static void phase(int g, int j, {sig[1:]} {{")
+    out.append("    switch (g * S + j) {")
+    for p in range(g):
+        for j in range(plan.subs):
+            out.append(f"      case {p * plan.subs + j}: phase{p}_{j}(a, lc, t, acc, al); break;")
     out.append("    }")
     out.append("  }")
     out.append("};")
     out.append("}  // namespace")
     out.append("#ifdef __CUDACC__")
+    out.append(f'extern "C" int ts_q_init_{key}(int* blocks_per_sm) {{ return tsq::init<Q_{key}>(blocks_per_sm); }}')
     out.append(f'extern "C" int ts_q_{key}(const int64_t* w, cudaStream_t stream) {{')
     out.append(f"  return tsq::launch<Q_{key}>(w, stream);")
     out.append("}")
@@ -264,11 +388,15 @@ def _struct_source(dag: Dag) -> str:
 
 
 def source(dag: Dag) -> str:
-    """The CUDA source of the DAG's kernel (a pure function of the DAG)."""
-    if dag.smem_bytes() > SMEM_LIMIT:
-        raise ValueError(f"the quotient program {dag.key} needs {dag.smem_bytes()} B of shared memory a block")
+    """The CUDA source of the DAG's kernel under ``dag.plan()`` (a pure
+    function of the DAG)."""
+    plan = dag.plan()
+    if plan.threads > MAX_THREADS or dag.smem_bytes(plan) > SMEM_LIMIT:
+        raise ValueError(f"the quotient program {dag.key} needs {dag.smem_bytes(plan)} B of shared memory a block "
+                         f"and {plan.threads} threads at {plan.warps} row groups, {plan.stages} stages and "
+                         f"{plan.width} quads a row")
     return (f"// K7, generated by tpu_stark_torch/air/quotient_kernel.py from a constraint DAG: do not edit.\n"
-            f'#include "{HEADER}"\n\n' + _struct_source(dag))
+            f'#include "{HEADER}"\n\n' + _struct_source(dag, plan))
 
 
 def distinct_dags(progs: Sequence[Program]) -> List[Dag]:
@@ -282,14 +410,26 @@ _FNS: Dict[str, object] = {}
 
 
 def _entry(dag: Dag):
+    """The DAG's launch function; at load, its library's ``init`` sets the
+    kernel's shared memory and grid once."""
     fn = _FNS.get(dag.key)
     if fn is None:
         lib = kernels.generated_lib(dag.key, source(dag))
+        init = getattr(lib, f"ts_q_init_{dag.key}")
+        init.argtypes, init.restype = [ctypes.c_void_p], ctypes.c_int
+        kernels.check(init(None), f"quotient eval init {dag.key}")
         fn = getattr(lib, f"ts_q_{dag.key}")
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FNS[dag.key] = fn
     return fn
+
+
+def _vec(dag: Dag, row: int, t: torch.Tensor) -> bool:
+    """Whether a panel takes the kernel's 16-byte copies of ``dag.staged``:
+    a 16-byte aligned base and row stride, and the widened span inside its
+    columns."""
+    return t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 and dag.staged(row)[1] <= int(t.shape[1])
 
 
 # ---------------------------------------------------------------------------
@@ -342,9 +482,10 @@ def eval_fold(prog: Program, cur: torch.Tensor, nxt: torch.Tensor, nshift: int, 
         if not s.is_contiguous() or (rows and sel_off + (rows - 1) * sel_stride >= int(s.shape[0])):
             raise ValueError(f"eval_fold: selector {name} of {tuple(s.shape)} rows")
         ptrs.append(s.data_ptr())
-    words = (ctypes.c_int64 * 20)(
+    vec = int(_vec(prog.dag, 0, cur)) | 2 * int(_vec(prog.dag, 1, nxt))
+    words = (ctypes.c_int64 * 21)(
         cur.data_ptr(), cur.stride(0), nxt.data_ptr(), nxt.stride(0), nrows, nshift, *ptrs, sel_off, sel_stride,
-        pis.data_ptr(), alpha.data_ptr(), acc.data_ptr(), acc_off, acc_stride, int(add), int(invz), rows,
+        pis.data_ptr(), alpha.data_ptr(), acc.data_ptr(), acc_off, acc_stride, int(add), int(invz), rows, vec,
     )
     kernels.QUOTIENT_EVAL.launches += 1
     kernels.check(fn(words, kernels.stream_handle(cur.device)), f"quotient eval {prog.name}")
