@@ -34,6 +34,16 @@ line each, any failure an uncaught exception and a nonzero exit:
     x 493); K8 against its plain version, exact, and timed beside its bound
     at config 4's and cell 6's panel folds ((2^20, 768), (2^21, 768),
     (2^20, 257), (2^21, 24) coefficients);
+25. (run after 24) K9, K10 and K11 (``commit/open_kernel.py``, the open
+    phase's reduced opening, out-of-domain evaluation and FRI fold) against
+    their plain versions, exact, and timed beside their bounds: K9 at config
+    2 at 2^24's 2^26 x 2 trace codeword at a point, the chain's 2^20 x 493
+    group, a rank block (2^24 rows from row0 2^24 of 2^26), cell 6's
+    (2^22, 64) streamed chunk in natural order without a point and the one
+    division of its (2^22, 4) ext sum; K10 at (2^25, 2), (2^21, 64),
+    (2^18, 493) and a rank block (2^23 rows from r0 2^23) at two points;
+    K11 at the 2^26-row top fold, the 2^25-row fold with the next height's
+    add and a rank block;
 4. fib_air zk n = 8 proofs, both layouts, byte-equal to the golden files;
 5. n = 2^14 proofs, both layouts, with the SHA-256 and length the JAX
    package produced (tests/golden/torch_fib_zk_jax_proofs.json);
@@ -174,7 +184,9 @@ line each, any failure an uncaught exception and a nonzero exit:
     bit-identical, each twin a main path of its own (launch counts reset
     just before it, read just after, its operand shapes noted); and K7
     scored the same way at one keccak-air partition of each DAG over 2^20
-    rows (``sol.run_quotient_partitions``, in the report's path);
+    rows (``sol.run_quotient_partitions``, in the report's path), K9 at a
+    point over a (2^22, 2) codeword and K11 at 2^22 rows (``sol.run_open``;
+    the report's own ``fri_fold_2^22`` is K11 too);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
     phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
@@ -197,9 +209,13 @@ line each, any failure an uncaught exception and a nonzero exit:
     whether a flat index passes 2^32 (checked past it), K7's calls by DAG,
     rows, operand widths and strides, next rows and shift, selector and
     accumulator strides, ``add`` and ``invz`` (the plain version over row
-    slices of 2^22), K8's by operand shape and coset size, on random inputs
-    of those shapes.  Every path that proves must have launched K7, and no
-    path may have called a plain quotient version.
+    slices of 2^22), K8's by operand shape and coset size, K9's by rows,
+    height, row0, row order, point, ext sum and each operand's width and
+    row stride, K10's by rows, width, row stride, points, r0 and output,
+    K11's by rows, height, row0 and add (their plain versions over row
+    slices of 2^22), on random inputs of those shapes.  Every path that
+    proves must have launched K7, K9, K10 and K11, and no path may have
+    called a plain quotient or open version.
 
 Then the nvidia-smi line, a JSON line of per-kernel results (launches
 summed over the main paths, and by path in ``launches_by_path``: the five
@@ -438,6 +454,58 @@ def panel_fold_bound(n: int, u: int, m: int):
     return _bound(4 * (n + m) * u, m * u * ((n // m - 1) * (2 * MONTY_MUL_OPS + MOD_ADD_OPS) + 2 * MONTY_MUL_OPS))
 
 
+# K9-K11 (csrc/open.cu on csrc/ext4.cuh), instruction counts read off the
+# sources: an ext add or subtract 4 modular adds, an ext product by a base
+# element 4 Montgomery products, an ext product (Karatsuba) 12 Montgomery
+# products (3 by W) and 27 modular adds, the base inverse's square-and-
+# multiply over P - 2 (31 squarings, 30 products), an ext inverse by the
+# norm 8 Frobenius products (3 conjugates of 3, 2 and 3 twists other than
+# 1), 3 ext products, the base inverse and 4 products
+EXT_ADD_OPS = 4 * MOD_ADD_OPS
+EXT_MUL_BASE_OPS = 4 * MONTY_MUL_OPS
+EXT_MUL_OPS = 12 * MONTY_MUL_OPS + 27 * MOD_ADD_OPS
+BASE_INV_OPS = 61 * MONTY_MUL_OPS
+EXT_INV_OPS = 8 * MONTY_MUL_OPS + 3 * EXT_MUL_OPS + BASE_INV_OPS + 4 * MONTY_MUL_OPS
+# K9's dividing row (a thread's R rows share one power and one inverse), the
+# work the function needs, not the kernel's recomputation: y (one product)
+# and y - z (one modular add: z's other coordinates are the same every
+# row), the running product, the back-substitution's two products, the
+# subtract of s, the quotient's product and the add
+K9_POINT_ROW_OPS = MONTY_MUL_OPS + MOD_ADD_OPS + 4 * EXT_MUL_OPS + 2 * EXT_ADD_OPS
+K9_ELEMENT_OPS = EXT_MUL_BASE_OPS + EXT_ADD_OPS
+# K11's output: the half sum and half difference (an add and a base product
+# each), 1/(2y)'s product, beta's ext product and the add (two with ``add``)
+K11_OUTPUT_OPS = 2 * (EXT_ADD_OPS + EXT_MUL_BASE_OPS) + MONTY_MUL_OPS + EXT_MUL_OPS + EXT_ADD_OPS
+
+
+def reduced_opening_bound(rows: int, log_h: int, row0: int, widths, point: bool, ext_in: bool):
+    """K9's bound: each operand word read once, the accumulator row read and
+    written, the ext sum read; every element's product and add, and per row
+    the dividing work, per thread of R rows its power of g and one
+    inverse."""
+    run = 8 if row0 % 256 == 0 else 1
+    n_bytes = 4 * rows * sum(widths) + 32 * rows + (16 * rows if ext_in else 0)
+    n_ops = rows * sum(widths) * K9_ELEMENT_OPS + rows * (EXT_ADD_OPS if ext_in else 0)
+    if point:
+        n_ops += rows * K9_POINT_ROW_OPS + -(-rows // run) * (1.5 * log_h * MONTY_MUL_OPS + EXT_INV_OPS)
+    else:
+        n_ops += rows * EXT_ADD_OPS
+    return _bound(n_bytes, n_ops)
+
+
+def eval_at_points_bound(h: int, w: int, npts: int):
+    """K10's bound: each coefficient read once and the (npts, w, 4) result
+    written; per point an element's product and add and a row's step of
+    z's power (one ext product a row, shared by the columns)."""
+    return _bound(4 * h * w + 16 * npts * w, npts * (h * w * K9_ELEMENT_OPS + h * EXT_MUL_OPS))
+
+
+def fri_fold_bound(n: int, add: bool):
+    """K11's bound: the n rows read, n / 2 written (and read with ``add``)."""
+    half = n // 2
+    return _bound(16 * n + 16 * half * (2 if add else 1), half * (K11_OUTPUT_OPS + (EXT_ADD_OPS if add else 0)))
+
+
 # phase 14's K5 leaves (n, M) and narrow-route transforms (h, w)
 K5_TIMED = ((256, 65536), (128, 131072), (64, 262147), (32, 524269), (16, 1048573))
 ROUTE_TIMED = ((1 << 16, 2), (1 << 21, 2), (1 << 22, 4), (1 << 23, 2), (1 << 20, 32))
@@ -508,7 +576,7 @@ def import_port():
     from tpu_stark_torch.compat.device_rng import DeviceRng
     from tpu_stark_torch.air.air import get_symbolic_info
     from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generate_trace_rows
-    from tpu_stark_torch.commit import lowmem, pcs
+    from tpu_stark_torch.commit import lowmem, open_kernel, pcs
     from tpu_stark_torch.compat import device_rng, native
     from tpu_stark_torch.dist import dryrun
     from tpu_stark_torch.fields import babybear as bb
@@ -554,6 +622,9 @@ _SHAPE_KERNELS = {
     "rng_sample": ("threefry_monty",),
     "quotient_eval": ("quotient_eval",),
     "panel_fold": ("panel_fold",),
+    "reduced_opening": ("reduced_opening",),
+    "eval_at_points": ("eval_at_points",),
+    "fri_fold": ("fri_fold",),
 }
 
 
@@ -583,6 +654,31 @@ def _quotient_key(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha,
             int(pis.shape[0]))
 
 
+def _opening_key(acc, mats, apows, log_h, row0=0, point=None, natural=False, ext_in=None):
+    """A K9 call's shape key: rows, height, row0, natural order, point, ext
+    sum, and each operand's width and row stride; None off the card."""
+    if not acc.is_cuda:
+        return None
+    return ("reduced_opening", int(acc.shape[0]), int(log_h), int(row0), bool(natural), point is not None,
+            ext_in is not None, tuple((int(m.shape[1]), int(m.stride(0))) for m in mats))
+
+
+def _points_key(coeffs, points, r0=0, out=None):
+    """A K10 call's shape key: rows, width, row stride, points, r0 and the
+    accumulated output's point stride (None: a new output)."""
+    if not coeffs.is_cuda:
+        return None
+    return ("eval_at_points", int(coeffs.shape[0]), int(coeffs.shape[1]), int(coeffs.stride(0)), len(list(points)),
+            int(r0), None if out is None else int(out.stride(0)))
+
+
+def _fold_key(cw, beta, log_h, row0=0, add=None):
+    """A K11 call's shape key: rows, height, row0 and the fused add."""
+    if not cw.is_cuda:
+        return None
+    return ("fri_fold", int(cw.shape[0]), int(log_h), int(row0), add is not None)
+
+
 @contextlib.contextmanager
 def _record_shapes(port, seen: dict, path: str):
     """While open, note in ``seen`` (key -> the paths that gave it) the
@@ -602,8 +698,11 @@ def _record_shapes(port, seen: dict, path: str):
     and row strides, next-row count and shift, selector and accumulator
     strides and lengths, ``add``, ``invz`` and the public values' count
     (``_quotient_key``); K8's ``panel_fold`` by its operand's shape and the
-    coset's size.  A call of either plain version notes ``plain_quotient``,
-    which no main path may give on the card."""
+    coset's size; K9's ``reduced_opening``, K10's ``eval_at_points`` and
+    K11's ``fri_fold`` by ``_opening_key``, ``_points_key`` and
+    ``_fold_key``.  A call of either plain quotient version notes
+    ``plain_quotient``, of a plain open version ``plain_open``, which no
+    main path may give on the card."""
     nk, kk, pk = port.ntt_kernel, port.keccak_kernel, port.poseidon2_kernel
 
     def rows(t):  # width, row stride, and the base's offset in words past a 16-byte boundary
@@ -637,6 +736,15 @@ def _record_shapes(port, seen: dict, path: str):
             ("plain_quotient", "eval_fold_plain") if cur.is_cuda else None),
         (port.quotient_kernel, "panel_fold_plain"): lambda tf, *a, **k: (
             ("plain_quotient", "panel_fold_plain") if tf.is_cuda else None),
+        (port.open_kernel, "reduced_opening"): _opening_key,
+        (port.open_kernel, "eval_at_points"): _points_key,
+        (port.open_kernel, "fri_fold"): _fold_key,
+        (port.open_kernel, "reduced_opening_plain"): lambda acc, *a, **k: (
+            ("plain_open", "reduced_opening_plain") if acc.is_cuda else None),
+        (port.open_kernel, "eval_at_points_plain"): lambda c, *a, **k: (
+            ("plain_open", "eval_at_points_plain") if c.is_cuda else None),
+        (port.open_kernel, "fri_fold_plain"): lambda cw, *a, **k: (
+            ("plain_open", "fri_fold_plain") if cw.is_cuda else None),
     }
     originals = {}
     for (mod, name), key in keys.items():
@@ -694,7 +802,9 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
     done = {}
     for key in sorted(seen, key=repr):
         kind, n = key[0], key[1]
-        if kind == "quotient_eval":
+        if kind in ("reduced_opening", "eval_at_points", "fri_fold"):
+            got, want = _check_open(torch, port.open_kernel, key, rand_monty)
+        elif kind == "quotient_eval":
             got, want = _check_quotient_eval(torch, qk, progs[key[1]], key, rand_monty)
         elif kind == "panel_fold":
             tf = rand_monty((n, key[2]))
@@ -790,6 +900,59 @@ def _check_quotient_eval(torch, qk, prog, key, rand_monty):
         qk.eval_fold_plain(prog, cur[r0 : r0 + PLAIN_ROWS], nxt, (nshift + r0) % nrows, sels,
                            sel_off + r0 * sel_stride, sel_stride, pis, alpha, want, acc_off + r0 * acc_stride,
                            acc_stride, add, invz)
+    return got, want
+
+
+def _rand_point(rand_monty):
+    """A random canonical ext point (any residues)."""
+    return tuple(int(v) for v in rand_monty((4,)).cpu().tolist())
+
+
+def _check_open(torch, ok, key, rand_monty):
+    """K9, K10 or K11 at a noted shape (``_opening_key``, ``_points_key``,
+    ``_fold_key``) on random operands, and its plain version over row slices
+    of PLAIN_ROWS rows (each slice's row0, r0 and accumulator rows offset to
+    its first row)."""
+    kind, n = key[0], key[1]
+    S = PLAIN_ROWS
+
+    def strided(rows, w, ld):
+        return rand_monty((max(1, rows * ld),)).as_strided((rows, w), (ld, 1))
+
+    if kind == "reduced_opening":
+        log_h, row0, natural, has_point, has_ext, ops = key[2:]
+        mats = [strided((1 << log_h) if natural else n, w, ld) for w, ld in ops]
+        apows = rand_monty((sum(w for w, _ in ops), 4))
+        point = (_rand_point(rand_monty), _rand_point(rand_monty)) if has_point else None
+        ext = rand_monty((n, 4)) if has_ext else None
+        acc = rand_monty((n, 4))
+        got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+        want = acc.clone()
+        for a in range(0, n, S):
+            ok.reduced_opening_plain(want[a : a + S], mats if natural else [m[a : a + S] for m in mats], apows, log_h,
+                                     row0 + a, point, natural, None if ext is None else ext[a : a + S])
+        return got, want
+    if kind == "eval_at_points":
+        w, ld, npts, r0, out_ld = key[2:]
+        coeffs = strided(n, w, ld)
+        zs = [_rand_point(rand_monty) for _ in range(npts)]
+        if out_ld is None:
+            got, want = ok.eval_at_points(coeffs, zs, r0), torch.zeros((npts, w, 4), dtype=torch.int32,
+                                                                        device=coeffs.device)
+        else:
+            buf = rand_monty((npts, max(w, out_ld // 4), 4))
+            want = buf.clone()[:, :w]
+            got = ok.eval_at_points(coeffs, zs, r0, buf[:, :w])
+        for a in range(0, n, S):
+            ok.eval_at_points_plain(coeffs[a : a + S], zs, r0 + a, want)
+        return got, want
+    log_h, row0, has_add = key[2:]
+    cw = rand_monty((n, 4))
+    add = rand_monty((n // 2, 4)) if has_add else None
+    beta = _rand_point(rand_monty)
+    got = ok.fri_fold(cw, beta, log_h, row0, add)
+    want = torch.cat([ok.fri_fold_plain(cw[a : a + S], beta, log_h, row0 + a,
+                                        None if add is None else add[a // 2 : (a + S) // 2]) for a in range(0, n, S)])
     return got, want
 
 
@@ -980,6 +1143,89 @@ def _phase24_quotient(torch, port, rand_monty, results, log_n: int = 20) -> str:
     shape = next(row["shape"] for row in timed if row["label"] == "keccak-air apdef0")
     results["quotient_eval"] = (err, ms, plain_ms, bound_ms, bound_by, {"shape": shape, "timed": timed})
     return "[24] K7 and K8 == plain (exact): " + "; ".join(lines)
+
+
+def _phase25_open(torch, port, rand_monty, results, log_top: int = 26) -> str:
+    """K9, K10 and K11 against their plain versions, exact, and timed beside
+    their bounds at the main paths' shapes: config 2 at 2^24 (its 2^26-row
+    trace codeword, 2 columns, and its 2^25 coefficient rows; the top fold
+    and one with the next height's add), cell 6's streamed 64-column chunk
+    (2^22 LDE rows read in natural order into the ext sum, the one division
+    on that sum, 2^21 coefficient rows at two points), the chain's group
+    (2^20 x 493, its 2^18 coefficient rows) and a rank block (config 5's
+    rank 1 of 4: row0 = r0 = a quarter of the height).  Returns the
+    phase's line."""
+    ok = port.open_kernel
+    lines, err = [], {"reduced_opening": 0, "eval_at_points": 0, "fri_fold": 0}
+    timed = {name: [] for name in err}
+
+    def row(name, label, shape, got_fn, want_fn, run, bound):
+        got, want = got_fn(), want_fn()
+        torch.cuda.synchronize()
+        e = _max_abs_err(torch, got, want)
+        if e != 0 or not torch.equal(got, want):
+            raise AssertionError(f"{name} {label}: kernel != plain (max_abs_err {e})")
+        del got, want
+        ms = _cuda_ms(torch, run, 10)
+        plain_ms = _cuda_ms(torch, want_fn, 1)
+        bound_ms, bound_by = bound
+        timed[name].append({"label": label, "shape": shape, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
+                            "bound_ms": round(bound_ms, 6), "bound_by": bound_by})
+        lines.append(f"{name} {label} {tuple(shape)}: {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                     f"({bound_by}, {100 * bound_ms / ms:.1f} %)")
+        if name not in results:
+            results[name] = (0, ms, plain_ms, bound_ms, bound_by, {"shape": shape, "timed": timed[name]})
+
+    point = (_rand_point(rand_monty), _rand_point(rand_monty))
+    # K9
+    top = 1 << log_top
+    for label, log_h, rows, row0, w, natural in (
+            ("config 2 2^24 trace codeword", log_top, top, 0, 2, False),
+            ("chain group", 20, 1 << 20, 0, 493, False),
+            ("config 5 rank block", log_top, top // 4, top // 4, 2, False)):
+        mat = rand_monty((rows, w))
+        apows, acc = rand_monty((w, 4)), rand_monty((rows, 4))
+        row("reduced_opening", label, [rows, w],
+            lambda: ok.reduced_opening(acc.clone(), [mat], apows, log_h, row0, point),
+            lambda: ok.reduced_opening_plain(acc.clone(), [mat], apows, log_h, row0, point),
+            lambda: ok.reduced_opening(acc, [mat], apows, log_h, row0, point),
+            reduced_opening_bound(rows, log_h, row0, [w], True, False))
+        del mat, acc
+    chunk, apows, acc = rand_monty((1 << 22, 64)), rand_monty((64, 4)), rand_monty((1 << 22, 4))
+    row("reduced_opening", "cell 6 chunk, natural order, no point", [1 << 22, 64],
+        lambda: ok.reduced_opening(acc.clone(), [chunk], apows, 22, 0, None, True),
+        lambda: ok.reduced_opening_plain(acc.clone(), [chunk], apows, 22, 0, None, True),
+        lambda: ok.reduced_opening(acc, [chunk], apows, 22, 0, None, True),
+        reduced_opening_bound(1 << 22, 22, 0, [64], False, False))
+    del chunk
+    ext = rand_monty((1 << 22, 4))
+    row("reduced_opening", "cell 6 division of the ext sum", [1 << 22, 0],
+        lambda: ok.reduced_opening(acc.clone(), [], apows[:0], 22, 0, point, ext_in=ext),
+        lambda: ok.reduced_opening_plain(acc.clone(), [], apows[:0], 22, 0, point, ext_in=ext),
+        lambda: ok.reduced_opening(acc, [], apows[:0], 22, 0, point, ext_in=ext),
+        reduced_opening_bound(1 << 22, 22, 0, [], True, True))
+    del ext, acc
+    # K10
+    zs = [_rand_point(rand_monty), _rand_point(rand_monty)]
+    for label, h, w, r0 in (("config 2 2^24 coefficients", 1 << 25, 2, 0), ("cell 6 chunk coefficients", 1 << 21, 64, 0),
+                            ("chain coefficients", 1 << 18, 493, 0), ("config 5 rank block", 1 << 23, 2, 1 << 23)):
+        coeffs = rand_monty((h, w))
+        row("eval_at_points", label, [h, w, 2], lambda: ok.eval_at_points(coeffs, zs, r0),
+            lambda: ok.eval_at_points_plain(coeffs, zs, r0), lambda: ok.eval_at_points(coeffs, zs, r0),
+            eval_at_points_bound(h, w, 2))
+        del coeffs
+    # K11
+    beta = _rand_point(rand_monty)
+    for label, log_h, n, row0, with_add in (("config 2 2^24 top fold", log_top, top, 0, False),
+                                            ("config 2 2^24 second fold, with the add", log_top - 1, top // 2, 0, True),
+                                            ("config 5 rank block", log_top, top // 4, top // 4, False)):
+        cw = rand_monty((n, 4))
+        add = rand_monty((n // 2, 4)) if with_add else None
+        row("fri_fold", label, [n, 4], lambda: ok.fri_fold(cw, beta, log_h, row0, add),
+            lambda: ok.fri_fold_plain(cw, beta, log_h, row0, add), lambda: ok.fri_fold(cw, beta, log_h, row0, add),
+            fri_fold_bound(n, with_add))
+        del cw, add
+    return "[25] K9, K10 and K11 == plain (exact): " + "; ".join(lines)
 
 
 def _phase14_mxu(torch, port, rand_monty, results) -> str:
@@ -1563,15 +1809,18 @@ def _phase21_lowmem(torch, port, dev, seen, smi: str, log_n: int = 24, log_top: 
     return line, launches
 
 
+OPEN_KERNEL_NAMES = ("reduced_opening", "eval_at_points", "fri_fold")  # K9, K10, K11: every prove's open phase
 SHARDED_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "keccak_grind", "threefry_monty",
-                   "quotient_eval")
+                   "quotient_eval") + OPEN_KERNEL_NAMES
 # the dry run's proves use the test FRI, whose 1-bit grind is host work
 DRYRUN_KERNELS = ("ntt_pass0", "ntt_pass", "keccak_sponge", "keccak_tree", "poseidon2_sponge", "poseidon2_absorb",
                   "threefry_monty", "quotient_eval", "panel_fold")
 # the streamed wide prove on a mesh: (d) BASELINE config 4 on the Poseidon2
 # stack, (e) the reference's stack (Keccak trees, zk)
-WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb", "quotient_eval", "panel_fold"),
-                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb", "threefry_monty", "quotient_eval", "panel_fold")}
+WIDE_KERNELS = {"d": ("ntt_pass0", "ntt_pass", "poseidon2_sponge", "poseidon2_absorb", "quotient_eval", "panel_fold")
+                + OPEN_KERNEL_NAMES,
+                "e": ("ntt_pass0", "ntt_pass", "keccak_absorb", "threefry_monty", "quotient_eval", "panel_fold")
+                + OPEN_KERNEL_NAMES}
 
 
 def _phase22_rank(mesh, path: str, log_n: int, trace_path):
@@ -1846,14 +2095,16 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
 
     def sol_run():
         report, report_lines = quiet(sol.run, False, dev)
-        return report, report_lines, sol.run_quotient_partitions(report["roofs"], device=dev)
+        return (report, report_lines, sol.run_quotient_partitions(report["roofs"], device=dev),
+                sol.run_open(report["roofs"], device=dev))
 
     t0 = time.perf_counter()
     with _record_shapes(port, seen, "sol"):
-        (report, report_lines, q_parts), launches = _drive(
+        (report, report_lines, q_parts, o_parts), launches = _drive(
             kernels, sol_run,
             kernels.SOL_PROBES + (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE,
-                                  kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL))
+                                  kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL, kernels.REDUCED_OPENING,
+                                  kernels.FRI_FOLD))
     sol_s = time.perf_counter() - t0
     roofs = report["roofs"]
     if sorted(roofs) != ["alu", "hbm", "mul"] or not all(v > 0 for v in roofs.values()):
@@ -1872,10 +2123,15 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
     if [k["kernel"] for k in q_parts] != [f"quotient_{p}_2^20" for p in sol.QUOTIENT_PARTITIONS] or not all(
             k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9 for k in q_parts):
         raise AssertionError(f"K7's SoL lines {q_parts}")
-    q_line = " | ".join(
+    if [k["kernel"] for k in o_parts] != ["reduced_opening_2^22x2", "fri_fold_2^22"] or not all(
+            k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9 for k in o_parts):
+        raise AssertionError(f"K9's and K11's SoL lines {o_parts}")
+    q_line, o_line = (" | ".join(
         f"{k['kernel']} {k['melems_s']:.1f} Mrows/s, " + (f"{k['sol_pct']:.1f} % ({k['binding']})"
                                                           if k["sol_pct"] is not None else "n/a")
-        + f", utils {json.dumps({r: round(v, 2) for r, v in k['utils'].items()})}" for k in q_parts)
+        + f", utils {json.dumps({r: round(v, 2) for r, v in k['utils'].items()})}"
+        + (f" (audit: {k['audit']})" if "audit" in k else "") for k in parts)
+        for parts in (q_parts, o_parts))
     compact = port.bench_ntt.sol_compact(report)
     probes = _sol_probe_rows(torch, port, dev, report, results)
 
@@ -1898,6 +2154,7 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
     lines = [
         f"[23] the SoL report on {smi} ({sol_s:.1f}s; launches {used}): " + " | ".join(report_lines),
         f"[23] K7 at one keccak-air partition of each DAG, 2^20 rows (sol.run_quotient_partitions): {q_line}",
+        f"[23] K9 at a point over (2^22, 2) and K11 at 2^22 rows (sol.run_open): {o_line}",
         f"[23] sol_pct_of_roof {json.dumps(compact)}",
         f"[23] probes == plain (exact): {probes}",
         "[23] bench.hash: " + " | ".join(hash_lines)
@@ -2026,6 +2283,10 @@ def main() -> int:
 
     # -- 24. K7 and K8 vs plain ------------------------------------------------
     print(_phase24_quotient(torch, port, rand_monty, results), flush=True)
+
+    # -- 25. K9, K10 and K11 vs plain -------------------------------------------
+    print(_phase25_open(torch, port, rand_monty, results), flush=True)
+    torch.cuda.empty_cache()
 
     air = FibonacciAir()
 
@@ -2383,9 +2644,15 @@ def main() -> int:
     plain_q = sorted(path for key, paths in seen.items() if key[0] == "plain_quotient" for path in paths)
     if plain_q:
         raise AssertionError(f"a plain quotient version ran on the card on the paths {plain_q}")
+    plain_o = sorted(path for key, paths in seen.items() if key[0] == "plain_open" for path in paths)
+    if plain_o:
+        raise AssertionError(f"a plain open version ran on the card on the paths {plain_o}")
     for path, launches in path_launches.items():
         if path not in ("bench-hash", "bench-narrow-ntt") and launches["quotient_eval"] <= 0:
             raise AssertionError(f"{path}: proved without launching K7")
+        unopened = [k for k in OPEN_KERNEL_NAMES if launches[k] <= 0]
+        if path not in ("bench-hash", "bench-narrow-ntt", "sol") and unopened:
+            raise AssertionError(f"{path}: proved without launching {unopened}")
     probe_names = {info.name for info in kernels.SOL_PROBES}  # held to their twins in phase 23
     for path, launches in path_launches.items():
         noted = {name for key, paths in seen.items() if path in paths for name in _SHAPE_KERNELS[key[0]]}

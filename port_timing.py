@@ -37,10 +37,13 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   rows its launch took, in buckets < 2^12, 2^12-2^16 and >= 2^16 rows;
   beside it the stream time between CUDA events around each launch, which
   also holds the host's launch path where the card waits for it), and the
-  20 ops with the most device time; K6 (the device rng's sample), K7
-  (the quotient's constraint evaluation and fold) and K8 (its panel coset
-  fold) are among the hand-written kernels (an older tree without them
-  shows 0 launches).  It also times the device rng's samples
+  20 ops with the most device time, and the device time by phase (every
+  device kernel and copy attributed to the phase whose end mark follows
+  its start; each phase's 5 costliest ops); K6 (the device rng's sample),
+  K7 (the quotient's constraint evaluation and fold), K8 (its panel coset
+  fold) and K9-K11 (the open phase's reduced opening, point evaluations
+  and FRI fold) are among the hand-written kernels (an older tree without
+  them shows 0 launches).  It also times the device rng's samples
   (every ``_sample_monty`` call: the salts, the random codewords and, in zk
   wide proves, the trace randomizer that every pass over the chunks
   regenerates; K6, or in an older tree the plain-torch Threefry) with CUDA
@@ -229,6 +232,8 @@ class _PhasePeaks(dict):
         super().__setitem__(phase, seconds)
         self.peak[phase] = self._torch.cuda.max_memory_allocated(self._dev) / 2**30
         self._torch.cuda.reset_peak_memory_stats(self._dev)
+        with self._torch.profiler.record_function(f"{PHASE_MARK}{phase}"):  # the phase's end, under a profiler
+            pass
 
     def top(self) -> str:
         phase = max(self.peak, key=self.peak.get)
@@ -276,6 +281,8 @@ KERNEL_KEYS = (
     ("K3 poseidon2_sponge", ("p2_sponge_kernel",)), ("K4 poseidon2_absorb", ("p2_absorb_kernel",)),
     ("K5 mxu_mm", ("mxu_mm_kernel",)), ("grind", ("keccak_grind",)), ("K6 threefry_monty", ("threefry_monty",)),
     ("K7 quotient_eval", ("quotient_kernel",)), ("K8 panel_fold", ("panel_fold_kernel",)),
+    ("K9 reduced_opening", ("reduced_opening_kernel",)),
+    ("K10 eval_at_points", ("eval_points_kernel", "eval_points_sum_kernel")), ("K11 fri_fold", ("fri_fold_kernel",)),
 )
 
 
@@ -365,6 +372,23 @@ class _Bounds:
             from tpu_stark_torch.air import quotient_kernel
 
             self._wrap += [(quotient_kernel, "eval_fold", quotient_eval), (quotient_kernel, "panel_fold", panel_fold)]
+        if importlib.util.find_spec("tpu_stark_torch.commit.open_kernel") is not None:  # not in older trees
+            from tpu_stark_torch.commit import open_kernel
+
+            def reduced_opening(acc, mats, apows, log_h, row0=0, point=None, natural=False, ext_in=None):
+                return "K9 reduced_opening", cs.reduced_opening_bound(
+                    int(acc.shape[0]), log_h, row0, [int(m.shape[1]) for m in mats], point is not None,
+                    ext_in is not None)[0]
+
+            def eval_at_points(coeffs, points, r0=0, out=None):
+                return "K10 eval_at_points", cs.eval_at_points_bound(int(coeffs.shape[0]), int(coeffs.shape[1]),
+                                                                     len(list(points)))[0]
+
+            def fri_fold(cw, beta, log_h, row0=0, add=None):
+                return "K11 fri_fold", cs.fri_fold_bound(int(cw.shape[0]), add is not None)[0]
+
+            self._wrap += [(open_kernel, "reduced_opening", reduced_opening),
+                           (open_kernel, "eval_at_points", eval_at_points), (open_kernel, "fri_fold", fri_fold)]
         self._orig = []
 
     def __enter__(self):
@@ -386,6 +410,30 @@ class _Bounds:
     def __exit__(self, *exc):
         for mod, name, orig in self._orig:
             setattr(mod, name, orig)
+
+
+PHASE_MARK = "phase_end:"
+
+
+def _device_by_phase(torch, prof) -> str:
+    """The profiled prove's device time by phase: every device kernel and
+    copy whose start lies between the end marks of the phase before and of
+    this one (each mark follows a device synchronize, so a phase's work ends
+    before its mark), and each phase's 5 ops with the most device time."""
+    events = list(prof.events())
+    marks = sorted((e.time_range.start, e.name[len(PHASE_MARK):]) for e in events if e.name.startswith(PHASE_MARK))
+    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    parts, lo = [], float("-inf")
+    for end, phase in marks:
+        mine = [e for e in on_dev if lo < e.time_range.start <= end]
+        by_op = {}
+        for e in mine:
+            by_op[e.name] = by_op.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+        parts.append(f"{phase} {sum(e.time_range.elapsed_us() for e in mine) / 1e6:.3f}s in {len(mine)} "
+                     f"(" + "; ".join(f"{v / 1e3:.1f} ms {k[:60]}" for k, v in top) + ")")
+        lo = end
+    return "device time by phase: " + " | ".join(parts)
 
 
 K1_BUCKETS = ((0, 1 << 12, "< 2^12"), (1 << 12, 1 << 16, "2^12-2^16"), (1 << 16, 1 << 62, ">= 2^16"))
@@ -580,6 +628,7 @@ def profile(torch, dev, args) -> None:
               f"({bounds.calls.get(name, 0)} wrapper calls); summed bound {bound:.3f} ms; "
               f"loss (time - bound) {ms - bound:.3f} ms", flush=True)
     print(rng.report(dev_s, wall), flush=True)
+    print(_device_by_phase(torch, prof), flush=True)
     k1_keys = dict(KERNEL_KEYS)["K1 keccak_sponge"]
     print(k1.report([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                      and any(key in e.name for key in k1_keys)]), flush=True)

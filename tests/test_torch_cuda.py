@@ -8,7 +8,9 @@ the NTT oracle, the prove twins and the SoL probes on the card; K7 (the
 quotient pass's constraint evaluation and fold, generated from the AIR's
 DAG) and K8 (the panel coset fold) against their plain versions and the
 DAG's numpy interpretation, and the dense and streamed quotient passes on
-the card against the CPU.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
+the card against the CPU; K9-K11 (the open phase's reduced opening, point
+evaluations and FRI fold) against their plain versions, raising where the
+build fails, and a fib zk prove that runs no plain open step.  Exact comparisons.  Every test needs a CUDA device and skips without one; this
 file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py -q
@@ -821,3 +823,119 @@ def test_streamed_quotient_on_card_equals_cpu(dev, monkeypatch):
     assert (kernels.QUOTIENT_EVAL.launches - before[0], kernels.PANEL_FOLD.launches - before[1]) == (3072, 3072)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+# ---------------------------------------------------------------------------
+# K9-K11: the open phase's PCS arithmetic
+# ---------------------------------------------------------------------------
+def _ext_point(seed):
+    rng = np.random.default_rng(seed)
+    return tuple(int(v) for v in rng.integers(0, bb.P, size=4))
+
+
+# (log_h, row0, rows, operand widths, natural, point, ext sum)
+K9_CARD = [
+    (12, 0, 4096, (2,), False, True, False),
+    (12, 0, 4096, (64,), True, True, False),
+    (11, 0, 2048, (65,), False, False, False),
+    (13, 2048, 4096, (3, 1, 493), False, True, False),
+    (13, 2048, 4096, (3, 1, 493), True, True, False),
+    (10, 96, 200, (7,), False, True, True),
+    (10, 0, 1024, (), False, True, True),
+    (8, 0, 256, (1,) * 32, False, True, False),
+    (9, 0, 512, (1,) * 33 + (2,), False, True, False),
+    (10, 256, 512, (3, 4, 1) * 24, True, True, True),
+    (9, 0, 512, (2,) * 40, False, False, False),
+]
+
+
+@pytest.mark.parametrize("case", K9_CARD, ids=[f"k9-{i}" for i in range(len(K9_CARD))])
+def test_reduced_opening_equals_plain(dev, case):
+    from tpu_stark_torch.commit import open_kernel as ok
+
+    log_h, row0, rows, widths, natural, with_point, with_ext = case
+    n_rows = (1 << log_h) if natural else rows
+    mats = [_monty(dev, (n_rows, w + k % 2), 100 + k)[:, : w] for k, w in enumerate(widths)]
+    apows = _monty(dev, (sum(widths), 4), 7)
+    point = (_ext_point(log_h), _ext_point(rows)) if with_point else None
+    ext = _monty(dev, (rows, 4), 8) if with_ext else None
+    acc = _monty(dev, (rows, 4), 9)
+    before = kernels.REDUCED_OPENING.launches
+    got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+    want = ok.reduced_opening_plain(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+    torch.cuda.synchronize()
+    assert kernels.REDUCED_OPENING.launches == before + max(1, -(-len(widths) // ok.MAX_OPS))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h,w,npts,r0", [(300, 1, 1, 0), (1 << 16, 2, 2, 0), (1 << 14, 7, 2, 37),
+                                         (1 << 12, 64, 1, 4096), (700, 65, 2, 5), (1 << 13, 493, 2, 0)])
+def test_eval_at_points_equals_plain(dev, h, w, npts, r0):
+    from tpu_stark_torch.commit import open_kernel as ok
+
+    coeffs = _monty(dev, (h, w + 1), h + w)[:, 1:]
+    zs = [_ext_point(h + p) for p in range(npts)]
+    before = kernels.EVAL_AT_POINTS.launches
+    got = ok.eval_at_points(coeffs, zs, r0)
+    want = ok.eval_at_points_plain(coeffs, zs, r0)
+    torch.cuda.synchronize()
+    assert kernels.EVAL_AT_POINTS.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("log_h,row0,rows,with_add", [(1, 0, None, False), (10, 0, None, True), (16, 0, None, False),
+                                                       (12, 64, 1024, True), (14, 4096, 8192, False)])
+def test_fri_fold_equals_plain(dev, log_h, row0, rows, with_add):
+    from tpu_stark_torch.commit import open_kernel as ok
+
+    n = rows or 1 << log_h
+    cw = _monty(dev, (n, 4), log_h)
+    add = _monty(dev, (n // 2, 4), row0 + 1) if with_add else None
+    beta = _ext_point(log_h + 1)
+    before = kernels.FRI_FOLD.launches
+    got = ok.fri_fold(cw, beta, log_h, row0, add)
+    want = ok.fri_fold_plain(cw, beta, log_h, row0, add)
+    torch.cuda.synchronize()
+    assert kernels.FRI_FOLD.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_open_wrappers_raise_when_the_build_fails(dev, monkeypatch):
+    """On a CUDA tensor a failed build raises: no wrapper falls back to its
+    plain version."""
+    from tpu_stark_torch.commit import open_kernel as ok
+
+    def broken():
+        raise RuntimeError("nvcc failed on the kernel sources")
+
+    monkeypatch.setattr(kernels, "lib", broken)
+    for name in ("reduced_opening_plain", "eval_at_points_plain", "fri_fold_plain"):
+        monkeypatch.setattr(ok, name, lambda *a, **k: pytest.fail("a plain open version ran on the card"))
+    m, acc = _monty(dev, (64, 2), 1), torch.zeros((64, 4), dtype=torch.int32, device=dev)
+    for call in (lambda: ok.reduced_opening(acc, [m], _monty(dev, (2, 4), 2), 6),
+                 lambda: ok.eval_at_points(m, [_ext_point(3)]),
+                 lambda: ok.fri_fold(acc, _ext_point(4), 6)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+
+
+def test_fib_zk_proof_on_card_runs_no_plain_open_step(dev, monkeypatch):
+    """A fib zk prove on the card launches K9, K10 and K11 and never a
+    plain open version, and gives the JAX prover's bytes."""
+    import hashlib
+
+    from tpu_stark_torch.air.fibonacci import fibonacci_value, generate_trace_rows
+    from tpu_stark_torch.commit import open_kernel as ok
+    from tpu_stark_torch.prover.config import create_config
+    from tpu_stark_torch.prover.proof import serialize_proof
+    from tpu_stark_torch.prover.prove import prove
+
+    want = json.loads((pathlib.Path(__file__).parent / "golden" / "torch_fib_zk_jax_proofs.json").read_text())
+    for name in ("reduced_opening_plain", "eval_at_points_plain", "fri_fold_plain"):
+        monkeypatch.setattr(ok, name, lambda *a, **k: pytest.fail("a plain open version ran on the card"))
+    before = {k.name: k.launches for k in kernels.OPEN_KERNELS}
+    n = 1 << 12
+    cfg = create_config(zk=True, zk_rng="smallrng", zk_layout="tpu", device=dev)
+    blob = serialize_proof(prove(cfg, FibonacciAir(), generate_trace_rows(0, 1, n), [0, 1, fibonacci_value(0, 1, n)]))
+    assert (hashlib.sha256(blob).hexdigest(), len(blob)) == (want["tpu_12"]["sha256"], want["tpu_12"]["len"])
+    assert all(k.launches > before[k.name] for k in kernels.OPEN_KERNELS)

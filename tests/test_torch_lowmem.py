@@ -218,7 +218,7 @@ class _Census:
         monkeypatch.setattr(pcs.TwoAdicFriPcs, "get_evaluations_on_domain",
                             self._reader_of(pcs.TwoAdicFriPcs.get_evaluations_on_domain, "domain"))
         monkeypatch.setattr(MerkleTreeMmcs, "open_batch_many", self._reader_of(MerkleTreeMmcs.open_batch_many, "open"))
-        monkeypatch.setattr(pcs, "_codeword_br", self._reader_of(pcs._codeword_br, "reduced group"))
+        monkeypatch.setattr(pcs, "_group_operands", self._reader_of(pcs._group_operands, "reduced group"))
 
     def _reader_of(self, fn, reader):
         calls = itertools.count()

@@ -3,7 +3,7 @@
 sponge and compress of kernel K3's plain versions, the Poseidon2 Merkle
 MMCS (roots, layers, salts, openings) and the duplex challenger's
 transcript.  Exact comparison.  Also the open phase's blocked column
-reductions of ``commit/pcs.py``: several blocks and column chunks give the
+reductions of ``commit/open_kernel.py``: several blocks and column chunks give the
 bits of one block, and the block plan bounds the intermediates at the
 Poseidon2 chain's trace size."""
 
@@ -19,7 +19,7 @@ from tpu_stark.commit import poseidon2_mmcs as jmmcs
 from tpu_stark.compat.smallrng import SmallRng as JRng
 from tpu_stark.hash import poseidon2 as jp2
 from tpu_stark_torch import kernels
-from tpu_stark_torch.commit import pcs
+from tpu_stark_torch.commit import open_kernel
 from tpu_stark_torch.commit import poseidon2_mmcs as tmmcs
 from tpu_stark_torch.commit.merkle import BatchOpening
 from tpu_stark_torch.compat.smallrng import SmallRng
@@ -436,7 +436,7 @@ def test_duplex_challenger_transcript_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# pcs: the open phase's column reductions, bounded by rows x columns
+# open_kernel: the open phase's plain column reductions, bounded by rows x columns
 # ---------------------------------------------------------------------------
 def _reductions(h, w, seed):
     rng = np.random.default_rng(seed)
@@ -444,26 +444,25 @@ def _reductions(h, w, seed):
     mat = t(rng.integers(0, bb.P, size=(h, w), dtype=np.uint32))
     apows = t(rng.integers(0, bb.P, size=(w, 4), dtype=np.uint32))
     zpow = t(rng.integers(0, bb.P, size=(h, 4), dtype=np.uint32))
-    p_z = t(rng.integers(0, bb.P, size=(w, 4), dtype=np.uint32))
-    z = t(rng.integers(0, bb.P, size=(4,), dtype=np.uint32))
-    y = t(rng.integers(0, bb.P, size=(h,), dtype=np.uint32))
+    point = tuple(tuple(int(v) for v in rng.integers(0, bb.P, size=4)) for _ in range(2))  # z, the opened sum
     return (
-        pcs._eval_at_point(mat, zpow),
-        pcs._combine_columns(mat, apows),
-        pcs._reduced_quotient(mat, apows, p_z, z, y),
+        open_kernel._eval_at_point(mat, zpow),
+        open_kernel._combine_columns(mat, apows),
+        open_kernel.reduced_opening_plain(torch.zeros((h, 4), dtype=torch.int32), [mat], apows, h.bit_length() - 1, 0,
+                                          point),
     )
 
 
 def test_blocked_column_reductions_equal_one_block(monkeypatch):
     h, w = 64, 500
-    monkeypatch.setattr(pcs, "_COL_CHUNK", 1 << 20)
-    monkeypatch.setattr(pcs, "_ELEM_BUDGET", 1 << 30)
-    assert pcs._block_plan(h, w) == (h, w)
+    monkeypatch.setattr(open_kernel, "_COL_CHUNK", 1 << 20)
+    monkeypatch.setattr(open_kernel, "_ELEM_BUDGET", 1 << 30)
+    assert open_kernel._block_plan(h, w) == (h, w)
     one = _reductions(h, w, 5)
     # 7 column chunks (the last one ragged) by 4 row blocks (the last one ragged)
-    monkeypatch.setattr(pcs, "_COL_CHUNK", 77)
-    monkeypatch.setattr(pcs, "_ELEM_BUDGET", 4 * 77 * 17)
-    assert pcs._block_plan(h, w) == (17, 77)
+    monkeypatch.setattr(open_kernel, "_COL_CHUNK", 77)
+    monkeypatch.setattr(open_kernel, "_ELEM_BUDGET", 4 * 77 * 17)
+    assert open_kernel._block_plan(h, w) == (17, 77)
     many = _reductions(h, w, 5)
     for a, b in zip(one, many):
         assert torch.equal(a, b)
@@ -480,7 +479,7 @@ def test_block_plan_bounds_intermediates_at_chain_size():
     (rows, cols, 4) int64 intermediate stays far below the card's memory
     (one (2^20, 493, 4) int64 block would be 16.5 GB)."""
     for h, w in [(1 << 20, 493), (1 << 18, 493), (1 << 23, 2), (1 << 20, 8)]:
-        rows, cols = pcs._block_plan(h, w)
+        rows, cols = open_kernel._block_plan(h, w)
         assert rows * cols * 4 * 8 < 2 << 30
         assert 1 <= rows <= h and 1 <= cols <= w
-    assert pcs._block_plan(1 << 20, 493)[1] < 493  # the columns really chunk
+    assert open_kernel._block_plan(1 << 20, 493)[1] < 493  # the columns really chunk

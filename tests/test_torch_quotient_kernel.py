@@ -24,7 +24,6 @@ import gc
 import hashlib
 import json
 import pathlib
-import subprocess
 import weakref
 
 import jax.numpy as jnp
@@ -32,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_host import gxx, shim_dir
 from quotient_dag import interpret
 from tpu_stark.air import builders as jbuilders
 from tpu_stark.air import fibonacci as jfib
@@ -53,7 +53,6 @@ from tpu_stark_torch.prover.proof import serialize_proof
 from tpu_stark_torch.prover.prove import _quotient_values, prove
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
-CSRC = pathlib.Path(qk.__file__).parent.parent / "csrc"
 AIRS = {"fib": (FibonacciAir, 3), "chain": (poseidon2_air.Poseidon2ChainAir, 32), "keccak-air": (keccak_air.KeccakAir, 0)}
 PARTS = [p.name for p in keccak_air.KeccakAir().partitions()]
 
@@ -281,18 +280,6 @@ def test_nvcc_builds_start_together_and_clean_up(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 # (d) the kernels' sources on the host
 # ---------------------------------------------------------------------------
-SHIM = """#pragma once
-#include <cstdint>
-#define __device__
-#define __host__
-#define __global__
-#define __forceinline__ inline
-struct uint4 { uint32_t x, y, z, w; };
-typedef void* cudaStream_t;
-template <class T> inline T __ldg(const T* p) { return *p; }
-inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
-"""
-
 # the grid of a host launch: ``ts_q_grid`` blocks, or one a tile when 0
 K7_HOST = """
 #include <cstdint>
@@ -350,28 +337,17 @@ extern "C" int ts_panel_fold(const uint32_t* tf, int64_t npan, int64_t m, int64_
 """
 
 
-def _gxx(tmp, name, text):
-    src = tmp / f"{name}.cpp"
-    src.write_text(text)
-    so = tmp / f"lib{name}.so"
-    subprocess.run(["g++", "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{tmp / 'shim'}", f"-I{CSRC}", "-o", str(so),
-                    str(src)], check=True, capture_output=True, text=True)
-    return ctypes.CDLL(str(so))
-
-
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     """The K7 sources of fib, the chain and keccak-air and K8's source as host
     libraries with the card's entry points (a launch runs every block's
     phases thread by thread)."""
-    tmp = tmp_path_factory.mktemp("quotient_host")
-    (tmp / "shim").mkdir()
-    (tmp / "shim" / "cuda_runtime.h").write_text(SHIM)
+    tmp = shim_dir(tmp_path_factory.mktemp("quotient_host"))
     fns, grids, smem = {}, [], {}
     for name, (cls, npis) in AIRS.items():
         dags = qk.distinct_dags(qk.programs(cls(), npis))
         text = K7_HOST + "".join(qk.source(d) + K7_LAUNCH.format(key=d.key) for d in dags)
-        lib = _gxx(tmp, name.replace("-", "_"), text)
+        lib = gxx(tmp, name.replace("-", "_"), text)
         for d in dags:
             fn = getattr(lib, f"ts_q_{d.key}")
             fn.argtypes, fn.restype = [ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int
@@ -380,7 +356,7 @@ def host_libs(tmp_path_factory):
             smem[d.key].restype = ctypes.c_int64
         lib.ts_q_grid.argtypes, lib.ts_q_grid.restype = [ctypes.c_int64], None
         grids.append(lib.ts_q_grid)
-    k8 = _gxx(tmp, "k8", K8_LAUNCH)
+    k8 = gxx(tmp, "k8", K8_LAUNCH)
     vp, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
     k8.ts_panel_fold.argtypes, k8.ts_panel_fold.restype = [vp, i64, i64, i64, u32, u32, vp, vp], ctypes.c_int
     return fns, k8, grids, smem

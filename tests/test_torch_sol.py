@@ -25,7 +25,7 @@ from tpu_stark_torch.air.air import get_symbolic_info
 from tpu_stark_torch.air.fibonacci import FibonacciAir
 from tpu_stark_torch.bench import ntt as bench_ntt
 from tpu_stark_torch.bench import sol
-from tpu_stark_torch.commit.pcs import _fold_codeword
+from tpu_stark_torch.commit import open_kernel
 from tpu_stark_torch.fields import babybear as bb
 from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel
 from tpu_stark_torch.ntt import ntt_kernel
@@ -89,7 +89,9 @@ def _twins():
         "poseidon2_compress": (poseidon2_kernel.compress_plain, ((64, 8), (64, 8))),
         "poseidon2_sponge": (poseidon2_kernel.hash_rows_plain, ((64, 6),)),
         "quotient": (q_fn, q_shapes),
-        "fri_fold": (lambda v, b: _fold_codeword(v, b, 8), ((256, 4), (4,))),
+        "fri_fold": (lambda v: open_kernel.fri_fold(v, sol.FOLD_BETA, 8), ((256, 4),)),
+        "reduced_opening": (lambda acc, m, a: open_kernel.reduced_opening(acc, [m], a, 8, 0, sol.OPENING_POINT),
+                            ((256, 4), (256, 2), (2, 4))),
         "mul_step": (bb.mul, ((64,), (64,))),
         "alu_step": (sol.mix_plain, ((64,),)),
     }
@@ -174,6 +176,21 @@ def test_small_report_structure(small_report):
     line = sol.report_json(rep)["sol_report"]
     assert json.loads(json.dumps(line))["roofs"] == rep["roofs"]
     assert all("achieved" not in k for k in line["kernels"])
+
+
+def test_run_open_scores_the_reduced_opening_and_the_fold(small_report):
+    """``run_open`` scores K9 (a reduced opening at a point over a (2^h, 2)
+    codeword, with its bytes) and K11 (the fold) against a report's roofs:
+    the CPU runs their plain twins, audited on ``meta``; each says that its
+    ops are the plain twin's, not the kernel's."""
+    got = sol.run_open(small_report["roofs"], log_h=8, device="cpu")
+    assert [k["kernel"] for k in got] == ["reduced_opening_2^8x2", "fri_fold_2^8"]
+    assert got[0]["bytes_per_call"] == 4.0 * 256 * 10
+    assert "not its headroom" in got[0]["audit"]
+    for k in got:
+        assert k["audit"].startswith("ops of the plain twin")
+        assert k["ops"]["mul"] > 0 and k["ops"]["alu"] > 0 and k["rate"] > 0
+        assert k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9
 
 
 ROOFS = {"mul": 1e9, "alu": 4e9, "hbm": 2e12}

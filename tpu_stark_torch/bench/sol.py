@@ -583,29 +583,67 @@ def run_quotient_partitions(roofs: Dict[str, float], log_n: int = 20, device=Non
     return score(roofs, dict(PROBE_SOURCES), measured)[2]
 
 
+FOLD_BETA = (3, 1, 4, 1)  # the timed fold's beta (canonical)
+
+
 def _measure_fri_fold(log_h: int = 22, reps: int = 16, device=None) -> Dict:
-    """One arity-2 FRI fold at 2^log_h extension rows
-    (``commit/pcs.py::_fold_codeword``, which builds its 1/(2y) table in
-    every call, as on the main path); the fold is concatenated with itself
-    to keep the shape."""
-    from ..commit.pcs import _fold_codeword
-    from ..fields import extension as ext4
+    """One arity-2 FRI fold at 2^log_h extension rows: K11
+    (``commit/open_kernel.py::fri_fold``) on the card, its plain twin
+    elsewhere, audited on the plain twin (which builds its 1/(2y) table in
+    every call); the fold is concatenated with itself to keep the shape."""
+    from ..commit import open_kernel
 
     dev = _device(device)
     h = 1 << log_h
     cw = _rand_monty(np.random.default_rng(0), (h, 4), dev)
-    beta = ext4.scalar((3, 1, 4, 1), dev)
 
-    def fold(v, b):
-        return _fold_codeword(v, b, log_h)
+    def fold(v):
+        return open_kernel.fri_fold(v, FOLD_BETA, log_h)
 
     def step(v):
-        folded = fold(v, beta)
+        folded = fold(v)
         return torch.cat([folded, folded], dim=0)
 
-    ops = audit_ops(fold, _meta(h, 4), _meta(4))
+    ops = audit_ops(fold, _meta(h, 4))
     calls_s = _timed(_chain(step), cw, reps)
-    return {"kernel": f"fri_fold_2^{log_h}", "ops": ops, "rate": calls_s, "melems_s": calls_s * h / 1e6}
+    return {"kernel": f"fri_fold_2^{log_h}", "ops": ops, "rate": calls_s, "melems_s": calls_s * h / 1e6,
+            "audit": "ops of the plain twin, which builds its 1/(2y) table in every call; K11 makes 1/(2y) "
+                     "in the kernel"}
+
+
+OPENING_POINT = ((5, 9, 2, 6), (5, 3, 5, 8))  # the timed reduced opening's point and opened sum (canonical)
+
+
+def _measure_reduced_opening(log_h: int = 22, w: int = 2, reps: int = 16, device=None) -> Dict:
+    """One group's reduced opening at a point over a (2^log_h, w) codeword
+    (config 2's trace codeword at w = 2): K9 (``commit/open_kernel.py::
+    reduced_opening``) on the card, its plain twin elsewhere, audited on the
+    plain twin (whose per-row inverse K9 does not do: see ``audit``); the
+    chain adds into one accumulator."""
+    from ..commit import open_kernel
+
+    dev = _device(device)
+    h = 1 << log_h
+    rng = np.random.default_rng(0)
+    mat, apows = _rand_monty(rng, (h, w), dev), _rand_monty(rng, (w, 4), dev)
+
+    def opening(acc, m, a):
+        return open_kernel.reduced_opening(acc, [m], a, log_h, 0, OPENING_POINT)
+
+    ops = audit_ops(opening, _meta(h, 4), _meta(h, w), _meta(w, 4))
+    calls_s = _timed(_chain(lambda acc: opening(acc, mat, apows)), _rand_monty(rng, (h, 4), dev), reps)
+    return {"kernel": f"reduced_opening_2^{log_h}x{w}", "ops": ops, "rate": calls_s, "melems_s": calls_s * h / 1e6,
+            "bytes_per_call": 4.0 * h * (w + 8),
+            "audit": "ops of the plain twin, a Fermat ext inverse a row (about 90 base products); K9 batch-inverts "
+                     "(about 4 ext products a row), so the share overstates K9's use of the roof and is not its "
+                     "headroom"}
+
+
+def run_open(roofs: Dict[str, float], log_h: int = 22, device=None) -> List[Dict]:
+    """K9 and K11 at 2^log_h rows, each scored against ``roofs`` (a
+    report's) like ``run``'s kernels."""
+    measured = [_measure_reduced_opening(log_h, device=device), _measure_fri_fold(log_h, device=device)]
+    return score(roofs, dict(PROBE_SOURCES), measured)[2]
 
 
 def _measure_bitrev(h: int = 1 << 22, w: int = 8, reps: int = 16, device=None) -> Dict:

@@ -23,9 +23,10 @@ Frame convention: every committed codeword is relabeled onto the plain
 subgroup (rows of height H live at y = g_H^bitrev(i)); out-of-domain points
 map to ``zeta / GENERATOR``.
 
-The LDEs run on kernel K2 and the trees on kernel K1 or K3; the reduced openings,
-the folds and the point evaluations are plain torch on the device (kernel
-candidates for later work).  The transcript and the verifier are host code.
+The LDEs run on kernel K2 and the trees on kernel K1 or K3; the open phase's
+arithmetic on K9-K11 (``commit/open_kernel.py``): the point evaluations
+(K10), the reduced openings (K9) and the FRI folds (K11).  The transcript
+and the verifier are host code.
 """
 
 from __future__ import annotations
@@ -44,8 +45,9 @@ from ..fri.config import FriParameters
 from ..fri.domains import ExtPoint, TwoAdicCoset
 from ..matrix import bit_reversal_perm_device, log2_strict, reverse_bits_device, reverse_matrix_index_bits
 from ..ntt.dft import Dft
-from . import lowmem
+from . import lowmem, open_kernel
 from .merkle import BatchOpening, Digest, MerkleTreeMmcs
+from .open_kernel import _bit_reverse
 
 
 # ---------------------------------------------------------------------------
@@ -81,111 +83,6 @@ class PcsProverData:
 
 OpenedValues = List[List[List[List[ExtPoint]]]]  # [round][matrix][point][column]
 
-# The column reductions of the open phase run over (rows, cols) blocks of
-# the matrix: at most _COL_CHUNK columns, and as many rows as keep one
-# (rows, cols, 4) int64 intermediate within _ELEM_BUDGET elements (256 MiB),
-# at any height and width.  Sums across blocks reduce mod p.
-_COL_CHUNK = 64
-_ELEM_BUDGET = 1 << 25
-
-
-def _block_plan(h: int, w: int) -> Tuple[int, int]:
-    """(rows, cols) per block of an (h, w) column reduction."""
-    cols = max(1, min(w, _COL_CHUNK))
-    rows = max(1, min(h, _ELEM_BUDGET // (4 * cols)))
-    return rows, cols
-
-
-# ---------------------------------------------------------------------------
-# Device helpers (plain torch)
-# ---------------------------------------------------------------------------
-def _eval_at_point(r_coeffs: torch.Tensor, zpow: torch.Tensor) -> torch.Tensor:
-    """r(z) for every column: (H, w) base coeffs x (H, 4) ext powers ->
-    (w, 4) Monty.  Products reduce mod p before the int64 row sum of a
-    block (below 2^63 for any block of fewer than 2^32 rows)."""
-    h, w = r_coeffs.shape
-    rows, cols = _block_plan(h, w)
-    out = torch.empty((w, 4), dtype=bb.I32, device=r_coeffs.device)
-    for c0 in range(0, w, cols):
-        acc = torch.zeros((min(cols, w - c0), 4), dtype=torch.int64, device=r_coeffs.device)
-        for r0 in range(0, h, rows):
-            prod = bb.mul(r_coeffs[r0 : r0 + rows, c0 : c0 + cols, None], zpow[r0 : r0 + rows, None, :])
-            acc = (acc + prod.to(torch.int64).sum(dim=0)) % bb.P
-        out[c0 : c0 + cols] = acc.to(bb.I32)
-    return out
-
-
-def _combine_columns(mat_br: torch.Tensor, apows: torch.Tensor) -> torch.Tensor:
-    """sum_col apows[col] * mat[:, col]: (H, w) x (w, 4) -> (H, 4) ext.  A
-    row block sums its column chunks' reduced values in int64 (below w * p)
-    and reduces once."""
-    h, w = mat_br.shape
-    rows, cols = _block_plan(h, w)
-    out = torch.empty((h, 4), dtype=bb.I32, device=mat_br.device)
-    for r0 in range(0, h, rows):
-        acc = torch.zeros((min(rows, h - r0), 4), dtype=torch.int64, device=mat_br.device)
-        for c0 in range(0, w, cols):
-            prod = ext4.mul_base(apows[None, c0 : c0 + cols, :], mat_br[r0 : r0 + rows, c0 : c0 + cols])
-            acc += prod.to(torch.int64).sum(dim=1)
-        out[r0 : r0 + rows] = (acc % bb.P).to(bb.I32)
-    return out
-
-
-def _opened_sum(apows: torch.Tensor, p_z: torch.Tensor) -> torch.Tensor:
-    """sum_col alpha^k y_col(z): (4,) Monty."""
-    return bb.sum_mod(ext4.mul(apows, p_z), axis=0)
-
-
-def _over_y_minus_z(combined, opened_sum, z_dev, y_br) -> torch.Tensor:
-    """(combined - opened_sum) / (y - z) over one row block; ``combined`` is
-    ``_combine_columns`` of the block's codeword rows."""
-    diff = ext4.sub(combined, opened_sum[None, :])
-    y_minus_z = ext4.sub(ext4.from_base(y_br), z_dev[None, :])
-    return ext4.mul(diff, ext4.inv(y_minus_z))
-
-
-def _reduced_quotient(mat_br, apows, p_z, z_dev, y_br) -> torch.Tensor:
-    """(sum_col alpha^k (y_col(x) - y_col(z))) / (y - z) over the codeword,
-    one row block at a time."""
-    s = _opened_sum(apows, p_z)
-    h, w = mat_br.shape
-    rows, _ = _block_plan(h, w)
-    out = torch.empty((h, 4), dtype=bb.I32, device=mat_br.device)
-    for r0 in range(0, h, rows):
-        block = _combine_columns(mat_br[r0 : r0 + rows], apows)
-        out[r0 : r0 + rows] = _over_y_minus_z(block, s, z_dev, y_br[r0 : r0 + rows])
-    return out
-
-
-def _br_powers(base: int, log_n: int, start: int, count: int, device) -> torch.Tensor:
-    """Canonical base^bitrev_n(j) for j in [start, start + count), int64:
-    count a power of two dividing start.  With j = d * count + t,
-    bitrev_n(j) = bitrev(t) * 2^k + bitrev_k(d), k = log_n - log2(count),
-    so a block is a scalar times the powers of base^(2^k) in bit-reversed
-    order."""
-    log_c = log2_strict(count)
-    k = log_n - log_c
-    scal = pow(base, _bit_reverse(start >> log_c, k), bb.P)
-    pows = bb.powers(pow(base, 1 << k, bb.P), count, device)[bit_reversal_perm_device(log_c, device)]
-    return pows * scal % bb.P
-
-
-def _plain_points_br(log_h: int, device, start: int = 0, count: Optional[int] = None) -> torch.Tensor:
-    """Monty g_H^bitrev(i) for i in [start, start + count) (all i < 2^log_h
-    by default)."""
-    count = 1 << log_h if count is None else count
-    return bb.from_u32(_br_powers(bb.two_adic_generator(log_h), log_h, start, count, device))
-
-
-def _bit_reverse(index: int, log_h: int) -> int:
-    """``index`` with its low ``log_h`` bits reversed."""
-    rev = 0
-    for _ in range(log_h):
-        rev = (rev << 1) | (index & 1)
-        index >>= 1
-    return rev
-
-
 def _plain_point_at(log_h: int, index: int) -> int:
     """g_H^bitrev(index): one point of the bit-reversed plain frame."""
     return pow(bb.two_adic_generator(log_h), _bit_reverse(index, log_h), bb.P)
@@ -199,11 +96,6 @@ def _alpha_pows_np(alpha: ExtPoint, offset: int, w: int) -> np.ndarray:
         rows.append(cur)
         cur = rf.emul(cur, alpha)
     return np.array(rows, dtype=np.int64).reshape(w, 4)
-
-
-def _alpha_pows_dev(alpha: ExtPoint, offset: int, w: int, device) -> torch.Tensor:
-    """(w, 4) Monty [alpha^offset, ..., alpha^(offset+w-1)]."""
-    return bb.to_tensor(bb.np_to_monty(_alpha_pows_np(alpha, offset, w)), device)
 
 
 def _dot_ext(apows: np.ndarray, vals: np.ndarray) -> ExtPoint:
@@ -226,27 +118,6 @@ def _dot_ext(apows: np.ndarray, vals: np.ndarray) -> ExtPoint:
             m(0, 3) + m(1, 2) + m(2, 1) + m(3, 0),
         ], axis=1) % p
     return tuple(int(c) for c in terms.sum(axis=0) % p)
-
-
-def _fold_inv2y(log_h: int, device, start: int = 0, count: Optional[int] = None) -> torch.Tensor:
-    """Canonical 1/(2*y_j), y_j = g_lh^bitrev_{lh-1}(j), for j in [start,
-    start + count) (all j < 2^(lh-1) by default): 1/y = (g^-1)^e, so the
-    table is a gathered power table."""
-    g_inv = pow(bb.two_adic_generator(log_h), bb.P - 2, bb.P)
-    count = 1 << (log_h - 1) if count is None else count
-    return _br_powers(g_inv, log_h - 1, start, count, device) * ((bb.P + 1) // 2) % bb.P
-
-
-def _fold_codeword(cw: torch.Tensor, beta_dev: torch.Tensor, log_h: int, row0: int = 0) -> torch.Tensor:
-    """One arity-2 FRI fold in the bit-reversed plain frame:
-    (e + o)/2 + beta * (e - o)/(2y); (H, 4) -> (H/2, 4).  ``cw`` may be the
-    rows [row0, row0 + len) of the height-2^log_h codeword (fold pairs are
-    adjacent rows)."""
-    e, o = cw[0::2], cw[1::2]
-    half_sum = bb.mul_canonical(ext4.add(e, o), (bb.P + 1) // 2)
-    inv2y = _fold_inv2y(log_h, cw.device, row0 >> 1, int(cw.shape[0]) >> 1)
-    half_diff = bb.mul_canonical(ext4.sub(e, o), inv2y[:, None])
-    return ext4.add(half_sum, ext4.mul(beta_dev[None, :], half_diff))
 
 
 class _LazyLde:
@@ -279,12 +150,14 @@ class _LazyLde:
         return self.codeword([self])[::stride].contiguous()
 
 
-def _codeword_br(mats: Sequence) -> torch.Tensor:
-    """The bit-reversed codewords of one height's matrices side by side: the
-    committed ones as they are, released ones recomputed together."""
+def _group_operands(mats: Sequence) -> Tuple[List[torch.Tensor], bool]:
+    """K9's operands for one height's group of matrices and whether they
+    are read in natural row order: the committed (bit-reversed) codewords
+    as they are, side by side; released ones recomputed together into one
+    natural-order codeword, which K9 reads through the bit reversal."""
     if isinstance(mats[0], _LazyLde):
-        return reverse_matrix_index_bits(_LazyLde.codeword(mats))
-    return mats[0] if len(mats) == 1 else torch.cat(list(mats), dim=1)
+        return [_LazyLde.codeword(mats)], True
+    return list(mats), False
 
 
 # ---------------------------------------------------------------------------
@@ -427,11 +300,11 @@ class TwoAdicFriPcs:
 
     def _eval_points(self, data: PcsProverData, m_idx: int, zs: Sequence[ExtPoint]) -> List[torch.Tensor]:
         """The committed polynomial m_idx at each point (plain frame): (w, 4)
-        Monty each."""
+        Monty each (K10)."""
         rc = data.r_coeffs[m_idx]
         if hasattr(rc, "eval_at_points"):  # a streamed wide matrix: one pass over its chunks
             return rc.eval_at_points(list(zs))
-        return [_eval_at_point(rc, ext4.powers_device(z, int(rc.shape[0]), self.device)) for z in zs]
+        return list(open_kernel.eval_at_points(rc, zs))
 
     def _row_range(self, log_h: int) -> Tuple[int, int]:
         """(first row, rows) of the height-2^log_h reduced openings and FRI
@@ -448,8 +321,10 @@ class TwoAdicFriPcs:
         (cw[2i], cw[2i+1]) that a fold joins."""
         return self.challenge_mmcs.commit([current.reshape(-1, 8)])
 
-    def _fold(self, current: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torch.Tensor:
-        return _fold_codeword(current, beta_dev, log_h)
+    def _fold(self, current: torch.Tensor, beta: ExtPoint, log_h: int, nxt: Optional[torch.Tensor]) -> torch.Tensor:
+        """One FRI fold of the held rows of level log_h (K11), plus ``nxt``,
+        the height-2^(log_h - 1) reduced opening's held rows, when given."""
+        return open_kernel.fri_fold(current, beta, log_h, add=nxt)
 
     def _whole(self, current: torch.Tensor, log_h: int) -> torch.Tensor:
         """The whole height-2^log_h FRI level."""
@@ -489,9 +364,10 @@ class TwoAdicFriPcs:
                 for m_idx, mat_points in enumerate(points)
             ])
         opened_values: OpenedValues = [
-            [[[tuple(int(c) for c in row) for row in bb.to_numpy(bb.to_u32(v))] for v in md] for md in rd]
+            [[[tuple(int(c) for c in row) for row in bb.np_from_monty(bb.to_numpy(v))] for v in md] for md in rd]
             for rd in opened_dev
         ]
+        del opened_dev
         for rv in opened_values:
             for mv in rv:
                 for pv in mv:
@@ -504,7 +380,7 @@ class TwoAdicFriPcs:
         # streamed wide matrix, which reduces itself chunk by chunk); alpha
         # powers run per height in job order, the verifier's alpha_ctr walk.
         jobs_by_height: Dict[int, list] = {}
-        for (data, points), r_opened in zip(rounds, opened_dev):
+        for (data, points), r_opened in zip(rounds, opened_values):
             for m_idx, mat_points in enumerate(points):
                 log_h = log2_strict(self._lde_heights(data)[m_idx])
                 mat_br = self._own_rows(data.merkle.matrices[m_idx], log_h)
@@ -518,8 +394,7 @@ class TwoAdicFriPcs:
         ro: Dict[int, torch.Tensor] = {}
         for log_h, hjobs in jobs_by_height.items():
             row0, rows = self._row_range(log_h)
-            y_br = _plain_points_br(log_h, dev, row0, rows)
-            ro[log_h] = ext4.zero((rows,), dev)
+            ro[log_h] = acc = ext4.zero((rows,), dev)
             groups: List[list] = []
             for job in hjobs:
                 streamed = hasattr(job[1], "reduced_contrib") or (
@@ -534,21 +409,22 @@ class TwoAdicFriPcs:
             for grp in groups:
                 z_y = grp[0][0]
                 w_total = sum(g[3] for g in grp)
-                apows = _alpha_pows_dev(alpha, off, w_total, dev)
-                # a group's released codewords are recomputed once, together
-                mat = grp[0][1] if hasattr(grp[0][1], "reduced_contrib") else _codeword_br([g[1] for g in grp])
-                if z_y is None:
-                    contrib = _combine_columns(mat, apows)
-                elif hasattr(mat, "reduced_contrib"):
-                    contrib = mat.reduced_contrib(apows, grp[0][2], ext4.scalar(z_y, dev), y_br)
+                apows_np = _alpha_pows_np(alpha, off, w_total)
+                apows = bb.to_tensor(bb.np_to_monty(apows_np), dev)
+                # the opened sum from the host's opened values, as the verifier forms it
+                point = None if z_y is None else (
+                    z_y, _dot_ext(apows_np, np.array([v for g in grp for v in g[2]], dtype=np.int64)))
+                if hasattr(grp[0][1], "reduced_contrib"):
+                    grp[0][1].reduced_contrib(acc, apows, point, log_h, row0)
                 else:
-                    p_z = torch.cat([g[2] for g in grp], dim=0)
-                    contrib = _reduced_quotient(mat, apows, p_z, ext4.scalar(z_y, dev), y_br)
-                del mat
-                ro[log_h] = ext4.add(ro[log_h], contrib)
+                    # a group's released codewords are recomputed once, together
+                    mats, natural = _group_operands([g[1] for g in grp])
+                    open_kernel.reduced_opening(acc, mats, apows, log_h, row0, point, natural)
+                    del mats
                 off += w_total
 
-        # 3. FRI commit phase: commit each level, sample beta, fold.
+        # 3. FRI commit phase: commit each level, sample beta, fold (adding
+        # the next height's reduced opening in the same pass).
         log_max = max(ro)
         log_min = fri.log_blowup + fri.log_final_poly_len
         commit_phase_commits: List[Digest] = []
@@ -561,14 +437,12 @@ class TwoAdicFriPcs:
             commit_phase_data.append(c_data)
             challenger.observe_commitment(c_root)
             beta = challenger.sample_ext()
-            current = self._fold(current, ext4.scalar(beta, dev), log_h)
+            current = self._fold(current, beta, log_h, ro.get(log_h - 1))
             log_h -= 1
-            if log_h in ro:
-                current = ext4.add(current, ro[log_h])
 
         # final polynomial: un-bit-reverse, idft, keep final_poly_len coeffs
         current = self._whole(current, log_h)
-        final_np = bb.to_numpy(bb.to_u32(self.dft.idft_batch(reverse_matrix_index_bits(current))))
+        final_np = bb.np_from_monty(bb.to_numpy(self.dft.idft_batch(reverse_matrix_index_bits(current))))
         n_final = 1 << fri.log_final_poly_len
         final_poly = [tuple(int(c) for c in final_np[i]) for i in range(n_final)]
         if final_np[n_final:].any():

@@ -39,9 +39,9 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from ..commit.pcs import PcsProverData, TwoAdicFriPcs, _eval_at_point, _fold_codeword
+from ..commit import open_kernel
+from ..commit.pcs import PcsProverData, TwoAdicFriPcs
 from ..fields import babybear as bb
-from ..fields import extension as ext4
 from ..fields import ref_field as rf
 from ..fri.domains import ExtPoint, TwoAdicCoset
 from ..matrix import log2_strict, reverse_bits_device, reverse_matrix_index_bits
@@ -173,14 +173,10 @@ class ShardedPcs(TwoAdicFriPcs):
         # them when it is held in rank blocks)
         if not zs or hasattr(rc, "eval_at_points") or not self._is_block(domain, rc):
             return super()._eval_points(data, m_idx, zs)
-        # the rank's coefficient rows [r0, r0 + rows) against z^(r0 + t),
-        # reduced on the rank, then summed mod p over the ranks
-        r0, rows = block(self.mesh, domain.size)
-        local = []
-        for z in zs:
-            zpow = ext4.mul(ext4.powers_device(z, rows, self.device), ext4.scalar(rf.epow(z, r0), self.device)[None, :])
-            local.append(_eval_at_point(rc, zpow))
-        return list(self.mesh.all_reduce_mod_p(torch.stack(local), "point_sums"))
+        # the rank's coefficient rows [r0, r0 + rows) against z^(r0 + t)
+        # (K10), reduced on the rank, then summed mod p over the ranks
+        r0, _rows = block(self.mesh, domain.size)
+        return list(self.mesh.all_reduce_mod_p(open_kernel.eval_at_points(rc, zs, r0), "point_sums"))
 
     def _sharded_height(self, log_h: int) -> bool:
         """Whether a height-2^log_h reduced opening or FRI level is held in
@@ -207,12 +203,15 @@ class ShardedPcs(TwoAdicFriPcs):
             return self.challenge_mmcs.commit_blocks([current.reshape(-1, 8)], [1 << (log_h - 1)])
         return super()._commit_level(current, log_h)
 
-    def _fold(self, current: torch.Tensor, beta_dev: torch.Tensor, log_h: int) -> torch.Tensor:
-        r0, _ = self._row_range(log_h)
-        folded = _fold_codeword(current, beta_dev, log_h, r0)
-        if self._sharded_height(log_h) and not self._sharded_height(log_h - 1):
-            return self.mesh.all_gather(folded, "fri_gather")
-        return folded
+    def _fold(self, current: torch.Tensor, beta, log_h: int, nxt) -> torch.Tensor:
+        """K11 on the rank's rows; where the next level is held whole, the
+        rank adds its rows of ``nxt`` (held whole) before the gather."""
+        r0, rows = self._row_range(log_h)
+        gather = self._sharded_height(log_h) and not self._sharded_height(log_h - 1)
+        if gather and nxt is not None:
+            nxt = nxt[r0 >> 1 : (r0 + rows) >> 1]
+        folded = open_kernel.fri_fold(current, beta, log_h, r0, nxt)
+        return self.mesh.all_gather(folded, "fri_gather") if gather else folded
 
     def _whole(self, current: torch.Tensor, log_h: int) -> torch.Tensor:
         if self._sharded_height(log_h):

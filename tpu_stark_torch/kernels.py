@@ -34,8 +34,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 SOURCES = ("keccak_sponge.cu", "ntt.cu", "poseidon2_sponge.cu", "mxu_ntt.cu", "sol_probes.cu", "threefry.cu",
-           "quotient.cu")
-HEADERS = ("babybear.cuh",)
+           "quotient.cu", "open.cu")
+HEADERS = ("babybear.cuh", "ext4.cuh")
 GENERATED_HEADERS = ("babybear.cuh", "quotient_eval.cuh")  # what K7's generated sources include
 LIB_PATH = os.path.join(BUILD_DIR, "libtpu_stark_torch_kernels.so")
 NVCC_FLAGS = (
@@ -112,6 +112,25 @@ PANEL_FOLD = KernelInfo(
     "panel_fold", "tpu_stark_torch/csrc/quotient.cu",
     "tpu_stark/prover/wide.py:646",
 )
+# K9-K11, the open phase's PCS arithmetic (commit/open_kernel.py); their
+# JAX counterparts are XLA (no Pallas kernel): K9 the reduced opening,
+# tpu_stark/commit/pcs.py:1005 _reduced_quotient with :976 _combine_columns
+# (streamed: tpu_stark/prover/wide.py:341 reduced_contrib), K10 the
+# out-of-domain evaluation, :227 _eval_at_point (streamed: wide.py:329), K11
+# the FRI fold, :1042 _fold_codeword (:1094 _fold_eo_jit)
+REDUCED_OPENING = KernelInfo(
+    "reduced_opening", "tpu_stark_torch/csrc/open.cu",
+    "tpu_stark/commit/pcs.py:1005",
+)
+EVAL_AT_POINTS = KernelInfo(
+    "eval_at_points", "tpu_stark_torch/csrc/open.cu",
+    "tpu_stark/commit/pcs.py:227",
+)
+FRI_FOLD = KernelInfo(
+    "fri_fold", "tpu_stark_torch/csrc/open.cu",
+    "tpu_stark/commit/pcs.py:1042",
+)
+OPEN_KERNELS = (REDUCED_OPENING, EVAL_AT_POINTS, FRI_FOLD)
 # the speed-of-light probes of bench/sol.py; they replace its XLA probes
 SOL_MUL = KernelInfo(
     "sol_mul_probe", "tpu_stark_torch/csrc/sol_probes.cu",
@@ -127,7 +146,7 @@ SOL_HBM = KernelInfo(
 )
 SOL_PROBES = (SOL_MUL, SOL_ALU, SOL_HBM)
 ALL = (KECCAK_SPONGE, KECCAK_TREE, KECCAK_ABSORB, NTT_PASS0, NTT_PASS, POSEIDON2_SPONGE, POSEIDON2_ABSORB, MXU_MM,
-       KECCAK_GRIND, THREEFRY_MONTY, QUOTIENT_EVAL, PANEL_FOLD) + SOL_PROBES
+       KECCAK_GRIND, THREEFRY_MONTY, QUOTIENT_EVAL, PANEL_FOLD) + OPEN_KERNELS + SOL_PROBES
 
 
 def reset_launch_counts() -> None:
@@ -247,6 +266,9 @@ def lib() -> ctypes.CDLL:
             so.ts_threefry_monty.restype = i32
             so.ts_panel_fold.argtypes = [vp, i64, i64, i64, u32, u32, vp, vp]
             so.ts_panel_fold.restype = i32
+            for entry in (so.ts_reduced_opening, so.ts_eval_at_points, so.ts_fri_fold):
+                entry.argtypes = [vp, vp, vp]  # the words, the u32 constants, the stream
+                entry.restype = i32
             so.ts_sol_mul.argtypes = [vp, vp, vp, i64, i32, vp]
             so.ts_sol_mul.restype = i32
             so.ts_sol_alu.argtypes = [vp, vp, i64, i32, vp]

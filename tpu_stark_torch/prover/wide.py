@@ -51,9 +51,8 @@ import torch
 
 from ..air import quotient_kernel
 from ..air.air import BaseAir
-from ..commit.pcs import (
-    PcsProverData, _block_plan, _combine_columns, _eval_at_point, _opened_sum, _over_y_minus_z,
-)
+from ..commit import open_kernel
+from ..commit.pcs import PcsProverData
 from ..commit.poseidon2_mmcs import Poseidon2Mmcs
 from ..compat.device_rng import DeviceRng, _sample_monty, fold_in
 from ..dist import ntt as dntt
@@ -198,11 +197,21 @@ class WideMatrixSource:
         """(n_committed, wc) plain-frame coefficients (the dense commit's r_small)."""
         return bb.mul_canonical(self.tf_coeffs_chunk(off, wc), self._sigma_pows[:, None])
 
-    def lde_br_chunk(self, off: int, wc: int) -> torch.Tensor:
-        """(lde_h, wc) bit-reversed committed codeword columns."""
+    def lde_chunk(self, off: int, wc: int) -> torch.Tensor:
+        """(lde_h, wc) natural-order committed codeword columns."""
         r_pad = torch.zeros((self.lde_h, wc), dtype=bb.I32, device=self.device)
         r_pad[: self.n_committed] = self.coeff_chunk(off, wc)
-        return reverse_matrix_index_bits(self.dft.dft_batch(r_pad))
+        return self.dft.dft_batch(r_pad)
+
+    def lde_br_chunk(self, off: int, wc: int) -> torch.Tensor:
+        """(lde_h, wc) bit-reversed committed codeword columns."""
+        return reverse_matrix_index_bits(self.lde_chunk(off, wc))
+
+    def _open_chunk(self, off: int, wc: int) -> Tuple[torch.Tensor, bool]:
+        """The columns [off, off + wc) of the codeword as the reduced
+        opening reads them, and whether in natural row order (K9 reads
+        through the bit reversal: no reversed copy)."""
+        return self.lde_chunk(off, wc), True
 
     # -- PCS hooks -------------------------------------------------------------
     def __getitem__(self, rows) -> torch.Tensor:
@@ -215,31 +224,32 @@ class WideMatrixSource:
 
     def eval_at_points(self, points) -> List[torch.Tensor]:
         """A (w, 4) Monty tensor per plain-frame point: every column's
-        polynomial there (the dense open's ``_eval_at_point``), in one pass
-        over the chunks, each chunk's coefficients computed once."""
-        zpows = [ext4.powers_device(z_y, self.n_committed, self.device) for z_y in points]
-        parts: List[List[torch.Tensor]] = [[] for _ in zpows]
+        polynomial there (the dense open's ``_eval_points``), in one pass
+        over the chunks, each chunk's coefficients computed once and read
+        once for all the points (K10)."""
+        out = torch.empty((len(points), self.w, 4), dtype=bb.I32, device=self.device)
         for off, wc in self.chunks():
-            coeffs = self.coeff_chunk(off, wc)
-            for part, zpow in zip(parts, zpows):
-                part.append(_eval_at_point(coeffs, zpow))
-        return [torch.cat(part, dim=0) for part in parts]
+            open_kernel.eval_at_points(self.coeff_chunk(off, wc), points, 0, out[:, off : off + wc].zero_())
+        return list(out)
 
-    def reduced_contrib(self, apows, p_z, z_dev, y_br) -> torch.Tensor:
-        """sum_col alpha^k (y_col(x) - y_col(z)) / (x - z): the column
-        combination is summed chunk by chunk, then divided by (x - z) once
-        (exact field arithmetic: the dense ``_reduced_quotient``'s bits)."""
-        combined = None
+    def reduced_contrib(self, acc, apows, point, log_h: int, row0: int) -> torch.Tensor:
+        """Add sum_col alpha^k (y_col(x) - y_col(z)) / (x - z) into ``acc``,
+        the rows this process holds (``point`` = (z, the opened sum), as for
+        ``open_kernel.reduced_opening``; None: the column sum alone).  The
+        column combination is summed chunk by chunk (K9 without a point),
+        then divided by (x - z) once (K9 on the ext sum): exact field
+        arithmetic, the dense reduced opening's bits."""
+        if point is None:
+            for off, wc in self.chunks():
+                mat, natural = self._open_chunk(off, wc)
+                open_kernel.reduced_opening(acc, [mat], apows[off : off + wc], log_h, row0, None, natural)
+            return acc
+        combined = torch.zeros_like(acc)
         for off, wc in self.chunks():
-            c = _combine_columns(self.lde_br_chunk(off, wc), apows[off : off + wc])
-            combined = c if combined is None else ext4.add(combined, c)
-        s = _opened_sum(apows, p_z)
-        h = int(combined.shape[0])  # the rows this process holds
-        rows = _block_plan(h, self.col_chunk)[0]
-        out = torch.empty((h, 4), dtype=bb.I32, device=self.device)
-        for r0 in range(0, h, rows):
-            out[r0 : r0 + rows] = _over_y_minus_z(combined[r0 : r0 + rows], s, z_dev, y_br[r0 : r0 + rows])
-        return out
+            mat, natural = self._open_chunk(off, wc)
+            open_kernel.reduced_opening(combined, [mat], apows[off : off + wc], log_h, row0, None, natural)
+            del mat
+        return open_kernel.reduced_opening(acc, [], apows[:0], log_h, row0, point, ext_in=combined)
 
 
 class ShardedWideSource(WideMatrixSource):
@@ -310,28 +320,28 @@ class ShardedWideSource(WideMatrixSource):
         pad[:live] = bb.mul_canonical(pad[:live], self._sigma_pows[self.row0 : self.row0 + live, None])
         return dntt.dft_br(self.mesh, pad, log2_strict(self.lde_h))
 
+    def _open_chunk(self, off: int, wc: int) -> Tuple[torch.Tensor, bool]:
+        return self.lde_br_chunk(off, wc), False  # the rank's block, bit-reversed
+
     def eval_at_points(self, points) -> List[torch.Tensor]:
         """A (w, 4) Monty tensor per plain-frame point: the rank sums the
         coefficient rows it draws (rows [d * m, (d + 1) * m) of q - r, and
-        of r at n + d * m) against z^i, then one all-reduce mod p sums the
-        ranks' values for every chunk and point."""
-        dev, m = self.device, self._m
+        of r at n + d * m) against z^i (K10, both ranges into one sum), then
+        one all-reduce mod p sums the ranks' values for every chunk and
+        point."""
+        m = self._m
         s = self.mesh.rank * m
         starts = [s, self.n + s] if self.zk else [s]
-        zpows = [[ext4.mul(ext4.powers_device(z, m, dev), ext4.scalar(rf.epow(z, st), dev)[None, :]) for st in starts]
-                 for z in points]
-        parts: List[List[torch.Tensor]] = [[] for _ in points]
+        local = torch.zeros((len(points), self.w, 4), dtype=bb.I32, device=self.device)
         for off, wc in self.chunks():
             q = self.dft.idft_batch(bb.from_u32(self.trace[:, off : off + wc]))[s : s + m]
             held = [q]
             if self.zk:
                 r = self._rand_rows(off // self.col_chunk, wc, s, m)
                 held = [bb.sub(q, r), r]
-            held = [bb.mul_canonical(h, self._sigma_pows[st : st + m, None]) for h, st in zip(held, starts)]
-            for part, zp in zip(parts, zpows):
-                vals = [_eval_at_point(h, zpow) for h, zpow in zip(held, zp)]
-                part.append(vals[0] if len(vals) == 1 else ext4.add(vals[0], vals[1]))
-        local = torch.stack([torch.cat(part, dim=0) for part in parts])
+            for h, st in zip(held, starts):
+                open_kernel.eval_at_points(bb.mul_canonical(h, self._sigma_pows[st : st + m, None]), points, st,
+                                           local[:, off : off + wc])
         return list(self.mesh.all_reduce_mod_p(local, "point_sums"))
 
 
