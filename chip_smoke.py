@@ -36,14 +36,16 @@ line each, any failure an uncaught exception and a nonzero exit:
     (2^20, 257), (2^21, 24) coefficients);
 25. (run after 24) K9, K10 and K11 (``commit/open_kernel.py``, the open
     phase's reduced opening, out-of-domain evaluation and FRI fold) against
-    their plain versions, exact, and timed beside their bounds: K9 at config
-    2 at 2^24's 2^26 x 2 trace codeword at a point, the chain's 2^20 x 493
-    group, a rank block (2^24 rows from row0 2^24 of 2^26), cell 6's
-    (2^22, 64) streamed chunk in natural order without a point and the one
-    division of its (2^22, 4) ext sum; K10 at (2^25, 2), (2^21, 64),
-    (2^18, 493) and a rank block (2^23 rows from r0 2^23) at two points;
-    K11 at the 2^26-row top fold, the 2^25-row fold with the next height's
-    add and a rank block;
+    their plain versions, exact, and timed beside their bounds (launches
+    queued behind a spin of the device): K9 and K10 at ``OPEN_ROWS``, config
+    2 at 2^24's 2^26 x 2 trace codeword at a point and at two points in one
+    read, the chain's 2^20 x 493 group (one and two points), a rank block
+    (2^24 rows from row0 2^24 of 2^26), cell 6's (2^22, 64) streamed chunk
+    in natural order without a point and the one division of its (2^22, 4)
+    ext sum (one and two points); K10 at (2^25, 2), (2^21, 64), (2^18, 493)
+    and a rank block (2^23 rows from r0 2^23) at two points; K11 at the
+    2^26-row top fold, the 2^25-row fold with the next height's add and a
+    rank block;
 4. fib_air zk n = 8 proofs, both layouts, byte-equal to the golden files;
 5. n = 2^14 proofs, both layouts, with the SHA-256 and length the JAX
    package produced (tests/golden/torch_fib_zk_jax_proofs.json);
@@ -184,9 +186,10 @@ line each, any failure an uncaught exception and a nonzero exit:
     bit-identical, each twin a main path of its own (launch counts reset
     just before it, read just after, its operand shapes noted); and K7
     scored the same way at one keccak-air partition of each DAG over 2^20
-    rows (``sol.run_quotient_partitions``, in the report's path), K9 at a
-    point over a (2^22, 2) codeword and K11 at 2^22 rows (``sol.run_open``;
-    the report's own ``fri_fold_2^22`` is K11 too);
+    rows (``sol.run_quotient_partitions``, in the report's path) and K11 at
+    2^22 rows (``sol.run_open``; the report's own ``fri_fold_2^22`` is K11
+    too; K9 is held to its own bound in phase 25, not to an audit of its
+    plain twin's per-row inverse);
 13. (run last) every kernel against its plain version, exact, at every
     operand shape the five warm proves (phases 6, 9, 12 and the two of 16),
     phase 17's runs, phase 20's prove, phase 21's 2^24 prove with the levers,
@@ -331,12 +334,18 @@ def _smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(torch, fn, reps: int) -> float:
-    """Mean device time of fn over reps launches (CUDA events, warmed up)."""
+def _cuda_ms(torch, fn, reps: int, queued: bool = False) -> float:
+    """Mean device time of fn over reps launches (CUDA events, warmed up).
+    ``queued``: the launches wait behind a spin of the device
+    (``torch.cuda._sleep``), so that the events time the kernels and not
+    the host's issue of them (a wrapper's Python can take longer than a
+    short kernel)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)  # ~10 ms of SM clocks: more than the host takes to queue the launches
     start.record()
     for _ in range(reps):
         fn()
@@ -478,26 +487,74 @@ K9_ELEMENT_OPS = EXT_MUL_BASE_OPS + EXT_ADD_OPS
 K11_OUTPUT_OPS = 2 * (EXT_ADD_OPS + EXT_MUL_BASE_OPS) + MONTY_MUL_OPS + EXT_MUL_OPS + EXT_ADD_OPS
 
 
-def reduced_opening_bound(rows: int, log_h: int, row0: int, widths, point: bool, ext_in: bool):
-    """K9's bound: each operand word read once, the accumulator row read and
-    written, the ext sum read; every element's product and add, and per row
-    the dividing work, per thread of R rows its power of g and one
-    inverse."""
+# PR 20's recount, the least work the functions need (csrc/open.cu since
+# PR 20): a raw 64-bit product-add (IMAD.WIDE) 2 instructions; a sum of raw
+# products settled (2) and reduced (5) once, LAZY_SUM_OPS; an element 4
+# product-adds and a quarter of the settle of 4 sums every four terms, 10 a
+# plane; a row's plane settled and reduced, LAZY_REDUCE_OPS.  K9's division
+# in the base field, a point and row (K9_DIVIDE_OPS): chi_z(y) 4
+# product-adds and one reduction; q_z(y) 2 product-adds a coefficient and
+# one reduction each, y^3's modular add; the batch inverse's 3 products;
+# q_z(y) chi_z(y)^-1 4 products; W times three of its coefficients 3
+# products; C - s; (C - s) times it 16 product-adds and the settle of 4
+# sums.  A point whose sum is scaled (a lone matrix's second point: the
+# scale is folded into its q_z) adds q_z's leading coefficient, 4
+# product-adds.  A dividing row (K9_DIVIDE_ROW_OPS): y one product, y^2 and
+# y^3 two, the points' summed products reduced once, the accumulator's add;
+# the base inverse by its addition chain (41 products) once for a thread's
+# run of 16 values.
+LAZY_PRODUCT_OPS = 2
+LAZY_SUM_OPS = LAZY_PRODUCT_OPS + MONTY_MUL_OPS
+LAZY_ELEMENT_OPS = 4 * LAZY_PRODUCT_OPS + LAZY_PRODUCT_OPS
+LAZY_REDUCE_OPS = 4 * LAZY_SUM_OPS
+K9_DIVIDE_OPS = ((4 + 8 + 16 + 4) * LAZY_PRODUCT_OPS + 5 * LAZY_SUM_OPS + MOD_ADD_OPS
+                 + (3 + 4 + 3) * MONTY_MUL_OPS + EXT_ADD_OPS)
+K9_SCALED_OPS = 4 * LAZY_PRODUCT_OPS
+K9_DIVIDE_ROW_OPS = 3 * MONTY_MUL_OPS + LAZY_REDUCE_OPS + EXT_ADD_OPS
+BASE_INV_CHAIN_OPS = 41 * MONTY_MUL_OPS
+K9_RUN_VALUES = 16
+
+
+def reduced_opening_bound(rows: int, log_h: int, row0: int, widths, npts: int, ext_in: bool, nsum: int = 1,
+                          scaled: int = 0):
+    """K9's bound over ``npts`` points in one read: each operand word read
+    once for all the points, the accumulator rows read and written (a plane
+    a sum with no point), the ext sums read; operations the lesser of two
+    counts.  PR 19's: a launch a point, every element's product and add
+    fully reduced, per dividing row the ext batch inverse's work, per thread
+    of R rows its power of g and one ext inverse.  PR 20's, the least work
+    the function needs: ``nsum`` planes of raw 64-bit sums, the division in
+    the base field, ``scaled`` points whose sum is the first's scaled."""
+    width = sum(widths)
+    n_bytes = 4 * rows * width + 32 * rows * (1 if npts else nsum) + (16 * rows * nsum if ext_in else 0)
     run = 8 if row0 % 256 == 0 else 1
-    n_bytes = 4 * rows * sum(widths) + 32 * rows + (16 * rows if ext_in else 0)
-    n_ops = rows * sum(widths) * K9_ELEMENT_OPS + rows * (EXT_ADD_OPS if ext_in else 0)
-    if point:
-        n_ops += rows * K9_POINT_ROW_OPS + -(-rows // run) * (1.5 * log_h * MONTY_MUL_OPS + EXT_INV_OPS)
+
+    def one(point: bool) -> float:
+        ops = rows * width * K9_ELEMENT_OPS + rows * (EXT_ADD_OPS if ext_in else 0)
+        if point:
+            return ops + rows * K9_POINT_ROW_OPS + -(-rows // run) * (1.5 * log_h * MONTY_MUL_OPS + EXT_INV_OPS)
+        return ops + rows * EXT_ADD_OPS
+
+    old = npts * one(True) if npts else nsum * one(False)
+    new = rows * nsum * (width * LAZY_ELEMENT_OPS + (LAZY_REDUCE_OPS if width else 0) + (EXT_ADD_OPS if ext_in else 0))
+    if npts:
+        new += (rows * (K9_DIVIDE_ROW_OPS + npts * K9_DIVIDE_OPS + scaled * K9_SCALED_OPS)
+                + -(-rows * npts // K9_RUN_VALUES) * BASE_INV_CHAIN_OPS)
     else:
-        n_ops += rows * EXT_ADD_OPS
-    return _bound(n_bytes, n_ops)
+        new += rows * nsum * EXT_ADD_OPS
+    return _bound(n_bytes, min(old, new))
 
 
 def eval_at_points_bound(h: int, w: int, npts: int):
     """K10's bound: each coefficient read once and the (npts, w, 4) result
-    written; per point an element's product and add and a row's step of
-    z's power (one ext product a row, shared by the columns)."""
-    return _bound(4 * h * w + 16 * npts * w, npts * (h * w * K9_ELEMENT_OPS + h * EXT_MUL_OPS))
+    written; operations the lesser of PR 19's count (per point an element's
+    product and add and a row's step of z's power, one ext product a row)
+    and PR 20's least work (per point an element's raw 64-bit products
+    settled every four terms, a column's reduction and its one ext product
+    by a power of z)."""
+    old = npts * (h * w * K9_ELEMENT_OPS + h * EXT_MUL_OPS)
+    new = npts * (h * w * LAZY_ELEMENT_OPS + w * (LAZY_REDUCE_OPS + EXT_MUL_OPS))
+    return _bound(4 * h * w + 16 * npts * w, min(old, new))
 
 
 def fri_fold_bound(n: int, add: bool):
@@ -580,6 +637,7 @@ def import_port():
     from tpu_stark_torch.compat import device_rng, native
     from tpu_stark_torch.dist import dryrun
     from tpu_stark_torch.fields import babybear as bb
+    from tpu_stark_torch.fields import extension as ext4
     from tpu_stark_torch.fri.config import create_benchmark_fri_params
     from tpu_stark_torch.hash import keccak_kernel, poseidon2_kernel, sponge
     from tpu_stark_torch.ntt import mxu_ntt, ntt_kernel, radix2
@@ -654,13 +712,15 @@ def _quotient_key(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha,
             int(pis.shape[0]))
 
 
-def _opening_key(acc, mats, apows, log_h, row0=0, point=None, natural=False, ext_in=None):
-    """A K9 call's shape key: rows, height, row0, natural order, point, ext
-    sum, and each operand's width and row stride; None off the card."""
+def _opening_key(acc, mats, apows, log_h, row0=0, points=(), natural=False, ext_in=None, scales=None):
+    """A K9 call's shape key: rows, height, row0, natural order, points, ext
+    sum, each operand's width and row stride, alpha planes (0: one table)
+    and scaled points; None off the card."""
     if not acc.is_cuda:
         return None
-    return ("reduced_opening", int(acc.shape[0]), int(log_h), int(row0), bool(natural), point is not None,
-            ext_in is not None, tuple((int(m.shape[1]), int(m.stride(0))) for m in mats))
+    return ("reduced_opening", int(acc.shape[0]), int(log_h), int(row0), bool(natural), len(points),
+            ext_in is not None, tuple((int(m.shape[1]), int(m.stride(0))) for m in mats),
+            int(apows.shape[0]) if apows.dim() == 3 else 0, 0 if scales is None else len(scales))
 
 
 def _points_key(coeffs, points, r0=0, out=None):
@@ -920,17 +980,20 @@ def _check_open(torch, ok, key, rand_monty):
         return rand_monty((max(1, rows * ld),)).as_strided((rows, w), (ld, 1))
 
     if kind == "reduced_opening":
-        log_h, row0, natural, has_point, has_ext, ops = key[2:]
+        log_h, row0, natural, npts, has_ext, ops, planes, nscales = key[2:]
         mats = [strided((1 << log_h) if natural else n, w, ld) for w, ld in ops]
-        apows = rand_monty((sum(w for w, _ in ops), 4))
-        point = (_rand_point(rand_monty), _rand_point(rand_monty)) if has_point else None
-        ext = rand_monty((n, 4)) if has_ext else None
+        width = sum(w for w, _ in ops)
+        apows = rand_monty((planes, width, 4) if planes else (width, 4))
+        points = [(_rand_point(rand_monty), _rand_point(rand_monty)) for _ in range(npts)]
+        scales = [_rand_point(rand_monty) for _ in range(nscales)] if nscales else None
+        ext = rand_monty((planes, n, 4) if planes else (n, 4)) if has_ext else None
         acc = rand_monty((n, 4))
-        got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+        got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, points, natural, ext, scales)
         want = acc.clone()
         for a in range(0, n, S):
             ok.reduced_opening_plain(want[a : a + S], mats if natural else [m[a : a + S] for m in mats], apows, log_h,
-                                     row0 + a, point, natural, None if ext is None else ext[a : a + S])
+                                     row0 + a, points, natural,
+                                     None if ext is None else ext[..., a : a + S, :], scales)
         return got, want
     if kind == "eval_at_points":
         w, ld, npts, r0, out_ld = key[2:]
@@ -1145,17 +1208,46 @@ def _phase24_quotient(torch, port, rand_monty, results, log_n: int = 20) -> str:
     return "[24] K7 and K8 == plain (exact): " + "; ".join(lines)
 
 
+# K9 and K10 at the main paths' shapes (phase 25; ``port_timing.py open``):
+# (kernel, label, rows (K10: h), log_h, row0 (K10: r0), width, points,
+# natural order, ext sum).  A two-point K9 row is a lone matrix (one table,
+# the second point's sum scaled by alpha^w) read once for both points.
+OPEN_ROWS = (
+    ("K9", "config 2 2^24 trace codeword", 1 << 26, 26, 0, 2, 1, False, False),
+    ("K9", "config 2 2^24 trace codeword, two points", 1 << 26, 26, 0, 2, 2, False, False),
+    ("K9", "chain group", 1 << 20, 20, 0, 493, 1, False, False),
+    ("K9", "chain group, two points", 1 << 20, 20, 0, 493, 2, False, False),
+    ("K9", "config 5 rank block", 1 << 24, 26, 1 << 24, 2, 1, False, False),
+    ("K9", "cell 6 chunk, natural order, no point", 1 << 22, 22, 0, 64, 0, True, False),
+    ("K9", "cell 6 division of the ext sum", 1 << 22, 22, 0, 0, 1, False, True),
+    ("K9", "cell 6 division of the ext sum, two points", 1 << 22, 22, 0, 0, 2, False, True),
+    ("K10", "config 2 2^24 coefficients", 1 << 25, 0, 0, 2, 2, False, False),
+    ("K10", "cell 6 chunk coefficients", 1 << 21, 0, 0, 64, 2, False, False),
+    ("K10", "chain coefficients", 1 << 18, 0, 0, 493, 2, False, False),
+    ("K10", "config 5 rank block", 1 << 23, 0, 1 << 23, 2, 2, False, False),
+)
+
+
+def open_row_bound(row):
+    """The bound of an ``OPEN_ROWS`` row."""
+    kind, _label, n, log_h, row0, w, npts, _natural, with_ext = row
+    if kind == "K9":
+        return reduced_opening_bound(n, log_h, row0, [w] if w else [], npts, with_ext, scaled=int(npts == 2))
+    return eval_at_points_bound(n, w, npts)
+
+
 def _phase25_open(torch, port, rand_monty, results, log_top: int = 26) -> str:
     """K9, K10 and K11 against their plain versions, exact, and timed beside
-    their bounds at the main paths' shapes: config 2 at 2^24 (its 2^26-row
-    trace codeword, 2 columns, and its 2^25 coefficient rows; the top fold
-    and one with the next height's add), cell 6's streamed 64-column chunk
-    (2^22 LDE rows read in natural order into the ext sum, the one division
-    on that sum, 2^21 coefficient rows at two points), the chain's group
-    (2^20 x 493, its 2^18 coefficient rows) and a rank block (config 5's
-    rank 1 of 4: row0 = r0 = a quarter of the height).  Returns the
-    phase's line."""
-    ok = port.open_kernel
+    their bounds at the main paths' shapes: K9 and K10 at ``OPEN_ROWS``
+    (config 2 at 2^24: its 2^26-row trace codeword, 2 columns, and its 2^25
+    coefficient rows; cell 6's streamed 64-column chunk: 2^22 LDE rows read
+    in natural order into the ext sum, the one division on that sum, 2^21
+    coefficient rows at two points; the chain's group, 2^20 x 493, and its
+    2^18 coefficient rows; a rank block, config 5's rank 1 of 4: row0 = r0
+    = a quarter of the height; K9 also at two points in one launch against
+    two one-point plain calls); K11 at the top fold, the next with the next
+    height's add, and a rank block.  Returns the phase's line."""
+    ok, ext4 = port.open_kernel, port.ext4
     lines, err = [], {"reduced_opening": 0, "eval_at_points": 0, "fri_fold": 0}
     timed = {name: [] for name in err}
 
@@ -1166,7 +1258,7 @@ def _phase25_open(torch, port, rand_monty, results, log_top: int = 26) -> str:
         if e != 0 or not torch.equal(got, want):
             raise AssertionError(f"{name} {label}: kernel != plain (max_abs_err {e})")
         del got, want
-        ms = _cuda_ms(torch, run, 10)
+        ms = _cuda_ms(torch, run, 10, queued=True)
         plain_ms = _cuda_ms(torch, want_fn, 1)
         bound_ms, bound_by = bound
         timed[name].append({"label": label, "shape": shape, "ms": round(ms, 6), "plain_ms": round(plain_ms, 6),
@@ -1176,46 +1268,47 @@ def _phase25_open(torch, port, rand_monty, results, log_top: int = 26) -> str:
         if name not in results:
             results[name] = (0, ms, plain_ms, bound_ms, bound_by, {"shape": shape, "timed": timed[name]})
 
-    point = (_rand_point(rand_monty), _rand_point(rand_monty))
-    # K9
-    top = 1 << log_top
-    for label, log_h, rows, row0, w, natural in (
-            ("config 2 2^24 trace codeword", log_top, top, 0, 2, False),
-            ("chain group", 20, 1 << 20, 0, 493, False),
-            ("config 5 rank block", log_top, top // 4, top // 4, 2, False)):
-        mat = rand_monty((rows, w))
-        apows, acc = rand_monty((w, 4)), rand_monty((rows, 4))
-        row("reduced_opening", label, [rows, w],
-            lambda: ok.reduced_opening(acc.clone(), [mat], apows, log_h, row0, point),
-            lambda: ok.reduced_opening_plain(acc.clone(), [mat], apows, log_h, row0, point),
-            lambda: ok.reduced_opening(acc, [mat], apows, log_h, row0, point),
-            reduced_opening_bound(rows, log_h, row0, [w], True, False))
-        del mat, acc
-    chunk, apows, acc = rand_monty((1 << 22, 64)), rand_monty((64, 4)), rand_monty((1 << 22, 4))
-    row("reduced_opening", "cell 6 chunk, natural order, no point", [1 << 22, 64],
-        lambda: ok.reduced_opening(acc.clone(), [chunk], apows, 22, 0, None, True),
-        lambda: ok.reduced_opening_plain(acc.clone(), [chunk], apows, 22, 0, None, True),
-        lambda: ok.reduced_opening(acc, [chunk], apows, 22, 0, None, True),
-        reduced_opening_bound(1 << 22, 22, 0, [64], False, False))
-    del chunk
-    ext = rand_monty((1 << 22, 4))
-    row("reduced_opening", "cell 6 division of the ext sum", [1 << 22, 0],
-        lambda: ok.reduced_opening(acc.clone(), [], apows[:0], 22, 0, point, ext_in=ext),
-        lambda: ok.reduced_opening_plain(acc.clone(), [], apows[:0], 22, 0, point, ext_in=ext),
-        lambda: ok.reduced_opening(acc, [], apows[:0], 22, 0, point, ext_in=ext),
-        reduced_opening_bound(1 << 22, 22, 0, [], True, True))
-    del ext, acc
-    # K10
-    zs = [_rand_point(rand_monty), _rand_point(rand_monty)]
-    for label, h, w, r0 in (("config 2 2^24 coefficients", 1 << 25, 2, 0), ("cell 6 chunk coefficients", 1 << 21, 64, 0),
-                            ("chain coefficients", 1 << 18, 493, 0), ("config 5 rank block", 1 << 23, 2, 1 << 23)):
-        coeffs = rand_monty((h, w))
-        row("eval_at_points", label, [h, w, 2], lambda: ok.eval_at_points(coeffs, zs, r0),
-            lambda: ok.eval_at_points_plain(coeffs, zs, r0), lambda: ok.eval_at_points(coeffs, zs, r0),
-            eval_at_points_bound(h, w, 2))
-        del coeffs
+    points = [(_rand_point(rand_monty), _rand_point(rand_monty)) for _ in range(2)]
+    scales = [(1, 0, 0, 0), _rand_point(rand_monty)]
+
+    def per_point(acc, mats, apows, log_h, row0, pts, natural, ext, scl):
+        """K9's plain version a point at a time (a scaled point on its
+        scaled alpha powers and ext sum)."""
+        want = acc.clone()
+        if not pts:
+            return ok.reduced_opening_plain(want, mats, apows, log_h, row0, (), natural, ext)
+        for p, pt in enumerate(pts):
+            c = (1, 0, 0, 0) if scl is None else scl[p]
+
+            def scaled(t):
+                return ext4.mul(t, ext4.scalar(c, t.device)[None, :])
+
+            ok.reduced_opening_plain(want, mats, scaled(apows), log_h, row0, [pt], natural,
+                                     None if ext is None else scaled(ext))
+        return want
+
+    for spec in OPEN_ROWS:
+        kind, label, n, log_h, row0, w, npts, natural, with_ext = spec
+        if kind == "K9":
+            mats = [rand_monty(((1 << log_h) if natural else n, w))] if w else []
+            apows, acc = rand_monty((w, 4)), rand_monty((n, 4))
+            ext = rand_monty((n, 4)) if with_ext else None
+            pts, scl = points[:npts], scales if npts == 2 else None
+            row("reduced_opening", label, [n, w] + ([npts] if npts == 2 else []),
+                lambda: ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, pts, natural, ext, scl),
+                lambda: per_point(acc, mats, apows, log_h, row0, pts, natural, ext, scl),
+                lambda: ok.reduced_opening(acc, mats, apows, log_h, row0, pts, natural, ext, scl),
+                open_row_bound(spec))
+            del mats, acc, ext
+        else:
+            coeffs = rand_monty((n, w))
+            zs = [z for z, _s in points[:npts]]
+            row("eval_at_points", label, [n, w, npts], lambda: ok.eval_at_points(coeffs, zs, row0),
+                lambda: ok.eval_at_points_plain(coeffs, zs, row0), lambda: ok.eval_at_points(coeffs, zs, row0),
+                open_row_bound(spec))
+            del coeffs
     # K11
-    beta = _rand_point(rand_monty)
+    beta, top = _rand_point(rand_monty), 1 << log_top
     for label, log_h, n, row0, with_add in (("config 2 2^24 top fold", log_top, top, 0, False),
                                             ("config 2 2^24 second fold, with the add", log_top - 1, top // 2, 0, True),
                                             ("config 5 rank block", log_top, top // 4, top // 4, False)):
@@ -2103,8 +2196,7 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
         (report, report_lines, q_parts, o_parts), launches = _drive(
             kernels, sol_run,
             kernels.SOL_PROBES + (kernels.NTT_PASS0, kernels.NTT_PASS, kernels.KECCAK_SPONGE,
-                                  kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL, kernels.REDUCED_OPENING,
-                                  kernels.FRI_FOLD))
+                                  kernels.POSEIDON2_SPONGE, kernels.QUOTIENT_EVAL, kernels.FRI_FOLD))
     sol_s = time.perf_counter() - t0
     roofs = report["roofs"]
     if sorted(roofs) != ["alu", "hbm", "mul"] or not all(v > 0 for v in roofs.values()):
@@ -2123,9 +2215,9 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
     if [k["kernel"] for k in q_parts] != [f"quotient_{p}_2^20" for p in sol.QUOTIENT_PARTITIONS] or not all(
             k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9 for k in q_parts):
         raise AssertionError(f"K7's SoL lines {q_parts}")
-    if [k["kernel"] for k in o_parts] != ["reduced_opening_2^22x2", "fri_fold_2^22"] or not all(
+    if [k["kernel"] for k in o_parts] != ["fri_fold_2^22"] or not all(
             k["sol_pct"] is None or 0 < k["sol_pct"] <= 100.0 + 1e-9 for k in o_parts):
-        raise AssertionError(f"K9's and K11's SoL lines {o_parts}")
+        raise AssertionError(f"K11's SoL line {o_parts}")
     q_line, o_line = (" | ".join(
         f"{k['kernel']} {k['melems_s']:.1f} Mrows/s, " + (f"{k['sol_pct']:.1f} % ({k['binding']})"
                                                           if k["sol_pct"] is not None else "n/a")
@@ -2154,7 +2246,7 @@ def _phase23_sol(torch, port, dev, seen, smi: str, results):
     lines = [
         f"[23] the SoL report on {smi} ({sol_s:.1f}s; launches {used}): " + " | ".join(report_lines),
         f"[23] K7 at one keccak-air partition of each DAG, 2^20 rows (sol.run_quotient_partitions): {q_line}",
-        f"[23] K9 at a point over (2^22, 2) and K11 at 2^22 rows (sol.run_open): {o_line}",
+        f"[23] K11 at 2^22 rows (sol.run_open; K9 is held to its own bound in phase 25): {o_line}",
         f"[23] sol_pct_of_roof {json.dumps(compact)}",
         f"[23] probes == plain (exact): {probes}",
         "[23] bench.hash: " + " | ".join(hash_lines)

@@ -10,6 +10,7 @@
     python3 port_timing.py k1 [--tree DIR]
     python3 port_timing.py k5 [--tree DIR] [--phases]
     python3 port_timing.py k7 [--tree DIR] [--sass-out DIR]
+    python3 port_timing.py open [--tree DIR]
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
     python3 port_timing.py wgmma
@@ -142,6 +143,18 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   variants: its kernels as its generator emits them, through its own
   wrapper, at the same shapes and inputs (parent and change in one chip
   call).
+* ``open``: K9 and K10 at ``chip_smoke.py`` phase 25's shapes
+  (``chip_smoke.OPEN_ROWS``: config 2 at 2^24, cell 6's chunk and
+  division, the chain, a rank block; K9 also at two points), on inputs
+  from a fixed seed: each row's time by CUDA events over 10 launches
+  queued behind a spin of the device (``chip_smoke._cuda_ms``), the host's
+  time to issue them (the wrapper's Python and the launch, no
+  synchronize), the device time of the kernels alone (``torch.profiler``,
+  the same 10 calls), the bound at that shape
+  (``chip_smoke.open_row_bound``), and the SHA-256 of the output, so that
+  two trees compare.  A tree whose K9 takes one point a launch (``--tree``
+  of an older commit) runs a two-point row as two launches, the second on
+  alpha powers scaled on the device first (not timed).
 * ``sass``: builds the kernels of this tree (``--tree DIR``: of DIR) with
   nvcc, prints the build time, ptxas's register and spill report, and the
   SASS instruction mix of K4 (``p2_absorb_kernel``) and K3
@@ -375,10 +388,13 @@ class _Bounds:
         if importlib.util.find_spec("tpu_stark_torch.commit.open_kernel") is not None:  # not in older trees
             from tpu_stark_torch.commit import open_kernel
 
-            def reduced_opening(acc, mats, apows, log_h, row0=0, point=None, natural=False, ext_in=None):
+            def reduced_opening(acc, mats, apows, log_h, row0=0, points=(), natural=False, ext_in=None, scales=None):
+                scaled = sum(tuple(c) != (1, 0, 0, 0) for c in scales or [])
+                # an older tree (--tree) passes one (z, s) pair or None
+                npts = 0 if not points else 1 if isinstance(points[0][0], int) else len(points)
                 return "K9 reduced_opening", cs.reduced_opening_bound(
-                    int(acc.shape[0]), log_h, row0, [int(m.shape[1]) for m in mats], point is not None,
-                    ext_in is not None)[0]
+                    int(acc.shape[0]), log_h, row0, [int(m.shape[1]) for m in mats], npts,
+                    ext_in is not None, int(apows.shape[0]) if apows.dim() == 3 else 1, scaled)[0]
 
             def eval_at_points(coeffs, points, r0=0, out=None):
                 return "K10 eval_at_points", cs.eval_at_points_bound(int(coeffs.shape[0]), int(coeffs.shape[1]),
@@ -419,7 +435,8 @@ def _device_by_phase(torch, prof) -> str:
     """The profiled prove's device time by phase: every device kernel and
     copy whose start lies between the end marks of the phase before and of
     this one (each mark follows a device synchronize, so a phase's work ends
-    before its mark), and each phase's 5 ops with the most device time."""
+    before its mark), each phase's 5 ops with the most device time and its
+    launches of each hand-written kernel (K1 ... K11, grind)."""
     events = list(prof.events())
     marks = sorted((e.time_range.start, e.name[len(PHASE_MARK):]) for e in events if e.name.startswith(PHASE_MARK))
     on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -430,8 +447,10 @@ def _device_by_phase(torch, prof) -> str:
         for e in mine:
             by_op[e.name] = by_op.get(e.name, 0.0) + e.time_range.elapsed_us()
         top = sorted(by_op.items(), key=lambda kv: -kv[1])[:5]
+        counts = [(label, sum(1 for e in mine if any(k in e.name for k in keys))) for label, keys in KERNEL_KEYS]
         parts.append(f"{phase} {sum(e.time_range.elapsed_us() for e in mine) / 1e6:.3f}s in {len(mine)} "
-                     f"(" + "; ".join(f"{v / 1e3:.1f} ms {k[:60]}" for k, v in top) + ")")
+                     f"(" + "; ".join(f"{v / 1e3:.1f} ms {k[:60]}" for k, v in top) + "; launches "
+                     + ", ".join(f"{k} {c}" for k, c in counts if c) + ")")
         lo = end
     return "device time by phase: " + " | ".join(parts)
 
@@ -1873,17 +1892,89 @@ def wgmma(torch, dev, args) -> None:
                   f"{macs / clocks:.0f} int8 MAC per SM per clock ({100 * macs / clocks / 4096:.0f}% of 4,096)",
                   flush=True)
 
+def open_timing(torch, dev, args) -> None:
+    """K9 and K10 at phase 25's shapes; see the module docstring."""
+    import hashlib
+    import time
+
+    from tpu_stark_torch.commit import open_kernel as ok
+    from tpu_stark_torch.fields import babybear as bb
+    from tpu_stark_torch.fields import extension as ext4
+
+    cs = _chip_smoke()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+
+    def rand(shape):
+        return torch.randint(0, bb.P, shape, generator=gen, dtype=torch.int32, device=dev)
+
+    def point():
+        return tuple(int(v) for v in rand((4,)).cpu().tolist())
+
+    one_launch = hasattr(ok, "division_poly")  # K9 takes a list of points, all in one launch
+    for spec in cs.OPEN_ROWS:
+        kind, label, n, log_h, row0, w, npts, natural, with_ext = spec
+        if kind == "K9":
+            mats = [rand(((1 << log_h) if natural else n, w))] if w else []
+            apows, acc = rand((w, 4)), rand((n, 4))
+            ext = rand((n, 4)) if with_ext else None
+            pts = [(point(), point()) for _ in range(npts)]
+            scales = [(1, 0, 0, 0), point()] if npts == 2 else None
+            if one_launch:
+                def call(acc=acc, mats=mats, apows=apows, pts=pts, ext=ext, scales=scales):
+                    return ok.reduced_opening(acc, mats, apows, log_h, row0, pts, natural, ext, scales)
+            elif npts < 2:
+                def call(acc=acc, mats=mats, apows=apows, pts=pts, ext=ext):
+                    return ok.reduced_opening(acc, mats, apows, log_h, row0, pts[0] if pts else None, natural, ext)
+            else:
+                scaled = [ext4.mul(apows, ext4.scalar(c, dev)[None, :]) for c in scales]
+                ext_s = [None if ext is None else ext4.mul(ext, ext4.scalar(c, dev)[None, :]) for c in scales]
+
+                def call(acc=acc, mats=mats, scaled=scaled, pts=pts, ext_s=ext_s):
+                    for ap, pt, ex in zip(scaled, pts, ext_s):
+                        ok.reduced_opening(acc, mats, ap, log_h, row0, pt, natural, ex)
+                    return acc
+            names = ("reduced_opening",)
+        else:
+            coeffs = rand((n, w))
+            zs = [point() for _ in range(npts)]
+
+            def call(coeffs=coeffs, zs=zs, r0=row0):
+                return ok.eval_at_points(coeffs, zs, r0)
+            names = ("eval_points",)
+        bound = cs.open_row_bound(spec)
+        out = call()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        ms = cs._cuda_ms(torch, call, 10, queued=True)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            call()
+        host_ms = (time.perf_counter() - t0) * 1e3 / 10
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA and any(k in e.name for k in names))
+        print(f"open {kind} {label} ({n}, {w}, {npts} point(s)): {ms:.4f} ms (events), host {host_ms:.4f} ms a call, "
+              f"kernels {dev_us / 1e4:.4f} ms; bound {bound[0]:.4f} ms ({bound[1]}, {100 * bound[0] / ms:.1f} %); "
+              f"output {digest}", flush=True)
+        del out
+
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "sass", "probe",
-                                         "wgmma"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "open", "sass",
+                                         "probe", "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
     parser.add_argument("--tree", help="import tpu_stark_torch from this directory "
-                        "(warm, profile, k2, p2, k1, k5, k7, sass)")
+                        "(warm, profile, k2, p2, k1, k5, k7, open, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
     parser.add_argument("--sass-out", help="k7: write each DAG's kernel SASS to this directory")
@@ -1907,7 +1998,7 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "sass": sass, "probe": probe,
+     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "open": open_timing, "sass": sass, "probe": probe,
      "wgmma": wgmma}[args.what](torch, dev, args)
     return 0
 

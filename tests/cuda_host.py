@@ -19,6 +19,7 @@ SHIM = """#pragma once
 #define __global__
 #define __forceinline__ inline
 #define __grid_constant__
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return uint4{x, y, z, w}; }
 typedef void* cudaStream_t;

@@ -833,7 +833,8 @@ def _ext_point(seed):
     return tuple(int(v) for v in rng.integers(0, bb.P, size=4))
 
 
-# (log_h, row0, rows, operand widths, natural, point, ext sum)
+# (log_h, row0, rows, operand widths, natural, points, ext sum); at two
+# points a lone operand takes one table and scales, a group a plane a point
 K9_CARD = [
     (12, 0, 4096, (2,), False, True, False),
     (12, 0, 4096, (64,), True, True, False),
@@ -846,6 +847,13 @@ K9_CARD = [
     (9, 0, 512, (1,) * 33 + (2,), False, True, False),
     (10, 256, 512, (3, 4, 1) * 24, True, True, True),
     (9, 0, 512, (2,) * 40, False, False, False),
+    (16, 0, 1 << 16, (2,), False, 2, False),
+    (16, 1 << 15, 1 << 14, (2,), False, 2, False),
+    (12, 0, 4096, (493,), False, 2, False),
+    (12, 0, 4096, (64,), True, 2, False),
+    (12, 0, 4096, (), False, 2, True),
+    (11, 96, 1000, (3, 1, 5, 2), False, 2, True),
+    (9, 0, 512, (1,) * 33 + (2,), True, 2, False),
 ]
 
 
@@ -853,23 +861,45 @@ K9_CARD = [
 def test_reduced_opening_equals_plain(dev, case):
     from tpu_stark_torch.commit import open_kernel as ok
 
-    log_h, row0, rows, widths, natural, with_point, with_ext = case
+    from tpu_stark_torch.fields import extension as ext4
+
+    log_h, row0, rows, widths, natural, npts, with_ext = case
     n_rows = (1 << log_h) if natural else rows
     mats = [_monty(dev, (n_rows, w + k % 2), 100 + k)[:, : w] for k, w in enumerate(widths)]
-    apows = _monty(dev, (sum(widths), 4), 7)
-    point = (_ext_point(log_h), _ext_point(rows)) if with_point else None
-    ext = _monty(dev, (rows, 4), 8) if with_ext else None
     acc = _monty(dev, (rows, 4), 9)
     before = kernels.REDUCED_OPENING.launches
-    got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
-    want = ok.reduced_opening_plain(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+    if npts == 2:  # one launch for both points against two one-point plain calls
+        points = [(_ext_point(log_h), _ext_point(rows)), (_ext_point(rows + 1), _ext_point(log_h + 1))]
+        if len(widths) == 1 or not widths:
+            apows = _monty(dev, (sum(widths), 4), 7)
+            ext = _monty(dev, (rows, 4), 8) if with_ext else None
+            scales = [(1, 0, 0, 0), _ext_point(5)]
+            per_point = [(ext4.mul(apows, ext4.scalar(c, dev)[None]),
+                          None if ext is None else ext4.mul(ext, ext4.scalar(c, dev)[None])) for c in scales]
+        else:
+            apows = _monty(dev, (2, sum(widths), 4), 7)
+            ext = _monty(dev, (2, rows, 4), 8) if with_ext else None
+            scales = None
+            per_point = [(apows[p], None if ext is None else ext[p]) for p in range(2)]
+        got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, points, natural, ext, scales)
+        want = acc.clone()
+        for (ap, ex), pt in zip(per_point, points):
+            ok.reduced_opening_plain(want, mats, ap, log_h, row0, [pt], natural, ex)
+    else:
+        apows = _monty(dev, (sum(widths), 4), 7)
+        points = [(_ext_point(log_h), _ext_point(rows))] if npts else []
+        ext = _monty(dev, (rows, 4), 8) if with_ext else None
+        got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, points, natural, ext)
+        want = ok.reduced_opening_plain(acc.clone(), mats, apows, log_h, row0, points, natural, ext)
     torch.cuda.synchronize()
     assert kernels.REDUCED_OPENING.launches == before + max(1, -(-len(widths) // ok.MAX_OPS))
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("h,w,npts,r0", [(300, 1, 1, 0), (1 << 16, 2, 2, 0), (1 << 14, 7, 2, 37),
-                                         (1 << 12, 64, 1, 4096), (700, 65, 2, 5), (1 << 13, 493, 2, 0)])
+                                         (1 << 12, 64, 1, 4096), (700, 65, 2, 5), (1 << 13, 493, 2, 0),
+                                         (1 << 25, 2, 2, 0), (1 << 18, 493, 2, 0), (1 << 23, 2, 2, 1 << 23),
+                                         (1 << 21, 64, 2, 0), (5000, 1, 2, 77)])
 def test_eval_at_points_equals_plain(dev, h, w, npts, r0):
     from tpu_stark_torch.commit import open_kernel as ok
 

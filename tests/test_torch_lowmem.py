@@ -275,9 +275,10 @@ def test_config2_lowmem_proofs_equal_jax_fixture(monkeypatch, log_n):
     assert census.dropped_as_configured(4, 3) == 3 + log_n + 1 - 1
     assert census.recomputes and max(census.recomputes.values()) == 1
     per_matrix = collections.Counter(mid for _reader, mid in census.recomputes)
-    # the trace: the quotient domain, two opening points, the queries; a
-    # quotient chunk and the random codewords: one group, the queries
-    assert sorted(per_matrix.values()) == [2, 2, 2, 4]
+    # the trace: the quotient domain, one group for both opening points, the
+    # queries; a quotient chunk and the random codewords: one group, the
+    # queries
+    assert sorted(per_matrix.values()) == [2, 2, 2, 3]
 
 
 def test_config2_lowmem_off_is_eager(monkeypatch):

@@ -39,11 +39,14 @@ from tpu_stark_torch.air.fibonacci import FibonacciAir, fibonacci_value, generat
 from tpu_stark_torch.air.keccak_air import KeccakAir, generate_trace
 from tpu_stark_torch.commit import open_kernel as ok
 from tpu_stark_torch.fields import babybear as bb
+from tpu_stark_torch.fields import extension as ext4
 from tpu_stark_torch.fields import ref_field as rf
 from tpu_stark_torch.prover.config import create_config
 from tpu_stark_torch.prover.proof import serialize_proof
 from tpu_stark_torch.prover.prove import prove
-from tpu_stark_torch.prover.wide import prove_wide
+from tpu_stark_torch.fri.domains import TwoAdicCoset
+from tpu_stark_torch.ntt.dft import Dft
+from tpu_stark_torch.prover.wide import WideMatrixSource, prove_wide
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 P = bb.P
@@ -117,7 +120,7 @@ def test_reduced_opening_plain_equals_jax(log_h, w):
                                        jnp.asarray(_mz(z)), jnp.asarray(_ypts(log_h))))
     want_c = _j(jpcs._combine_columns(jnp.asarray(mat), jnp.asarray(apows_m)))
     acc = _monty(rng, (h, 4))
-    got_q = ok.reduced_opening_plain(_t(acc), [_t(mat)], _t(apows_m), log_h, 0, (z, _canon(s_m)))
+    got_q = ok.reduced_opening_plain(_t(acc), [_t(mat)], _t(apows_m), log_h, 0, [(z, _canon(s_m))])
     got_c = ok.reduced_opening_plain(_t(np.zeros((h, 4), np.uint32)), [_t(mat)], _t(apows_m), log_h)
     assert np.array_equal(bb.to_numpy(got_q), (acc.astype(np.uint64) + want_q) % P)
     assert np.array_equal(bb.to_numpy(got_c), want_c)
@@ -169,7 +172,7 @@ def test_reduced_opening_plain_rows_orders_and_groups(log_h, row0, rows):
     parts = [_monty(rng, (h, w)) for w in (3, 1, 5)]
     whole = np.concatenate(parts, axis=1)
     apows = _t(_monty(rng, (9, 4)))
-    point = (_point(rng), _point(rng))
+    point = [(_point(rng), _point(rng))]
     full = ok.reduced_opening_plain(_t(np.zeros((h, 4), np.uint32)), [_t(whole)], apows, log_h, 0, point)
     sl = slice(row0, row0 + rows)
     got = ok.reduced_opening_plain(_t(np.zeros((rows, 4), np.uint32)), [_t(p[sl]) for p in parts], apows, log_h,
@@ -192,54 +195,92 @@ def test_reduced_opening_plain_rows_orders_and_groups(log_h, row0, rows):
 HOST = """
 #include <vector>
 #include "open.cu"
+// K9's blocks one after another (a grid of at most two, so that a block
+// walks several tiles), each block's threads one after another between the
+// kernel's barriers: the constants, then each item staged before the one
+// before it is summed, as the double buffer runs
+template <int R, int NS, int NP>
+static void k9_blocks(const OpeningArgs& a) {
+  std::vector<uint32_t> sm(k9_smem_words(a) + 4);
+  const int64_t tiles = k9_tiles(a), nb = tiles < 2 ? tiles : 2;
+  for (int64_t b = 0; b < nb; ++b) {
+    for (int t = 0; t < kThreads; ++t) k9_prologue(a, sm.data(), t);
+    std::vector<K9Sums<R, NS>> st(kThreads);
+    for (auto& s : st)
+      for (int r = 0; r < R; ++r)
+        for (int k = 0; k < NS; ++k) s.c[r][k] = ts::ext_zero();
+    const int64_t items = k9_items(a, b, nb);
+    int64_t s_seq = 0, c_seq = 0;
+    int s_u = 0, c_u = 0;
+    if (items > 0) {
+      for (int t = 0; t < kThreads; ++t) k9_stage(a, sm.data(), b, nb, s_seq, s_u, 0, t);
+      k9_next(a, s_seq, s_u);
+    }
+    for (int64_t j = 0; j < items; ++j) {
+      if (j + 1 < items) {
+        for (int t = 0; t < kThreads; ++t) k9_stage(a, sm.data(), b, nb, s_seq, s_u, int((j + 1) & 1), t);
+        k9_next(a, s_seq, s_u);
+      }
+      for (int t = 0; t < kThreads; ++t) k9_compute<R, NS, NP>(a, sm.data(), b, nb, c_seq, c_u, int(j & 1), t, st[t]);
+      k9_next(a, c_seq, c_u);
+    }
+  }
+}
+template <int NS, int NP>
+static void k9_rows(const OpeningArgs& a) {
+  const int rr = 1 << a.log_r;
+  if (rr == 8) { if (NS == 1) k9_blocks<8, 1, NP>(a); }
+  else if (rr == 4) k9_blocks<4, NS, NP>(a);
+  else if (rr == 2) k9_blocks<2, NS, NP>(a);
+  else k9_blocks<1, NS, NP>(a);
+}
 extern "C" int ts_reduced_opening(const int64_t* w, const uint32_t* k, void*) {
   const OpeningArgs a = unpack_opening(w, k);
   if (a.rows <= 0) return 0;
-  if (a.nops > kMaxOps) return 1;
-  const int64_t items = opening_items(a);
-  for (int64_t g = 0; g < items; ++g) {
-    if (a.log_r == 3) opening_item<8>(a, g); else opening_item<1>(a, g);
-  }
+  if (a.nops > kMaxOps || a.nunits < 1 || a.nunits > kMaxUnits || a.log_r < 0 || a.log_r > 3 || a.nsum < 1 ||
+      a.nsum > 2 || (1 << a.log_r) * a.nsum > 8 || a.npts < 0 || a.npts > 2 || (a.nsum == 2 && a.npts == 1) ||
+      (a.npts == 0 && a.log_r != 0) || a.swp % 4 || k9_smem_words(a) * 4 > 232448)
+    return 1;
+  if (a.npts == 0) { if (a.nsum == 2) k9_blocks<1, 2, 0>(a); else k9_blocks<1, 1, 0>(a); }
+  else if (a.nsum == 2) k9_rows<2, 2>(a);
+  else if (a.npts == 2) k9_rows<1, 2>(a);
+  else k9_rows<1, 1>(a);
   return 0;
 }
-// K10's blocks one after another, their threads one after another between
-// the kernel's barriers; the reduction over a tile's row lanes as sums
+// K10's warp items one after another, their lanes summed as the shuffles
+// sum them; then the second pass, a warp's lanes then their sum
+template <int NP, int CB>
+static void k10_items(const PointsArgs& a, const uint32_t* sm) {
+  for (int64_t it = 0; it < a.nrange * a.ncg; ++it) {
+    Ext sum[NP][CB];
+    for (int p = 0; p < NP; ++p)
+      for (int j = 0; j < CB; ++j) sum[p][j] = ts::ext_zero();
+    for (int lane = 0; lane < 32; ++lane) {
+      Ext v[NP][CB];
+      points_lane<NP, CB>(a, sm, it, lane, v);
+      for (int p = 0; p < NP; ++p)
+        for (int j = 0; j < CB; ++j) sum[p][j] = ts::ext_add(sum[p][j], v[p][j]);
+    }
+    for (int p = 0; p < NP; ++p)
+      for (int j = 0; j < CB; ++j) points_partial(a, it, p, j, sum[p][j]);
+  }
+}
 extern "C" int ts_eval_at_points(const int64_t* w, const uint32_t* k, void*) {
   const PointsArgs a = unpack_points(w, k);
   if (a.h <= 0 || a.w <= 0) return 0;
-  const int np = a.npts;
-  std::vector<uint32_t> pows(2 * kThreads * 4);
-  std::vector<Ext> zp(2 * kThreads), acc(2 * kThreads);
-  for (int64_t blk = 0; blk < a.nrb * a.nct; ++blk) {
-    const int64_t rb = blk / a.nct, ct = blk % a.nct;
-    const int64_t begin = rb * a.rb_rows, end = begin + a.rb_rows < a.h ? begin + a.rb_rows : a.h;
-    for (int t = 0; t < kThreads; ++t)
-      for (int p = 0; p < np; ++p) {
-        zp[2 * t + p] = point_power(a, p, begin + t);
-        acc[2 * t + p] = ts::ext_zero();
-      }
-    for (int64_t chunk = begin; chunk < end; chunk += kThreads) {
-      for (int t = 0; t < kThreads; ++t)
-        for (int p = 0; p < np; ++p) {
-          ts::ext_store(pows.data() + (p * kThreads + t) * 4, zp[2 * t + p]);
-          zp[2 * t + p] = ts::ext_mul(zp[2 * t + p], a.zstep[p]);
-        }
-      for (int t = 0; t < kThreads; ++t) {
-        if (np == 2) points_chunk<2>(a, pows.data(), chunk, end, ct, t, &acc[2 * t]);
-        else points_chunk<1>(a, pows.data(), chunk, end, ct, t, &acc[2 * t]);
-      }
-    }
-    for (int64_t tx = 0; tx < a.cw; ++tx) {
-      const int64_t col = ct * a.cw + tx;
-      if (col >= a.w) continue;
-      for (int p = 0; p < np; ++p) {
-        Ext s = ts::ext_zero();
-        for (int64_t ty = 0; ty < kThreads / a.cw; ++ty) s = ts::ext_add(s, acc[2 * (ty * a.cw + tx) + p]);
-        ts::ext_store(a.partial + ((rb * np + p) * a.w + col) * 4, s);
-      }
-    }
+  if (a.npts < 1 || a.npts > 2 || (a.cb != 1 && a.cb != 2 && a.cb != 4) || a.log_k < 0 || a.log_k > kMaxLogK ||
+      a.ncg * a.cb < a.w || (a.nrange << (5 + a.log_k)) < a.h)
+    return 1;
+  std::vector<uint32_t> sm(4 * ((2 << kMaxLogK) + 64));
+  for (int t = 0; t < kThreads; ++t) k10_prologue(a, sm.data(), t);
+  if (a.npts == 2) {
+    if (a.cb == 4) k10_items<2, 4>(a, sm.data()); else if (a.cb == 2) k10_items<2, 2>(a, sm.data());
+    else k10_items<2, 1>(a, sm.data());
+  } else {
+    if (a.cb == 4) k10_items<1, 4>(a, sm.data()); else if (a.cb == 2) k10_items<1, 2>(a, sm.data());
+    else k10_items<1, 1>(a, sm.data());
   }
-  for (int64_t g = 0; g < np * a.w * 4; ++g) {  // the warp's lanes, then their sum
+  for (int64_t g = 0; g < a.npts * a.w * 4; ++g) {
     uint32_t s = 0;
     for (int lane = 0; lane < 32; ++lane) s = ts::add_mod(s, points_sum_lane(a, g, lane));
     points_store(a, g, s);
@@ -285,6 +326,137 @@ def emulated(host_lib, monkeypatch):
     return plain
 
 
+# z in F_p^4 at random, in F_p (coefficients 1-3 zero) and in F_p^2 (the
+# elements fixed by the square of the Frobenius: coefficients 1 and 3 zero)
+DIVISION_Z = {
+    "random": lambda rng: _point(rng),
+    "base": lambda rng: (int(rng.integers(0, P)), 0, 0, 0),
+    "quadratic": lambda rng: (int(rng.integers(0, P)), 0, int(rng.integers(1, P)), 0),
+}
+
+
+@pytest.mark.parametrize("kind", list(DIVISION_Z))
+def test_division_poly_inverts_y_minus_z(kind):
+    """K9's base-field division: for y in F_p, q_z(y) / chi_z(y) is the
+    extension inverse of y - z (``ext4.inv``), and chi_z(y) = 0 only at
+    y = z, where the plain inverse gives 0 as K9 does."""
+    rng = np.random.default_rng(len(kind))
+    for _ in range(10):
+        z = DIVISION_Z[kind](rng)
+        chi, q = ok.division_poly(z)
+        ys = [int(v) for v in rng.integers(0, P, size=8)] + ([z[0]] if kind == "base" else [])
+        for y in ys:
+            chi_y = (y ** 4 + chi[3] * y ** 3 + chi[2] * y ** 2 + chi[1] * y + chi[0]) % P
+            q_y = rf.eadd(rf.eadd(rf.efrom_base(y ** 3), rf.escale(q[2], y * y)), rf.eadd(rf.escale(q[1], y), q[0]))
+            d = rf.esub(rf.efrom_base(y), z)
+            assert rf.emul(d, q_y) == rf.efrom_base(chi_y)  # (y - z) q_z(y) = chi_z(y)
+            want = bb.to_numpy(ext4.inv(_t(bb.np_to_monty(np.array([d], dtype=np.uint32)))))[0]
+            if chi_y == 0:
+                assert d == (0, 0, 0, 0) and not want.any()
+                continue
+            assert rf.escale(q_y, pow(chi_y, P - 2, P)) == rf.einv(d) == _canon(want)
+
+
+def _scaled(apows: torch.Tensor, scale) -> torch.Tensor:
+    """Every row of (n, 4) Monty ``apows`` times the canonical ``scale``."""
+    return ext4.mul(apows, ext4.scalar(scale, "cpu")[None, :])
+
+
+# (log_h, row0, rows, operand widths, natural, mode, ext sum): a lone matrix
+# (one table, the second point's sum scaled) and a group (a plane a point),
+# both row orders, row0 off a multiple of 256, the ext sum alone (the
+# streamed division) and beside columns, slabs of a wide operand, more
+# operands than a launch takes
+K9_TWO_POINT_CASES = {
+    "lone-scaled": (10, 0, 1024, (2,), False, "scaled", False),
+    "lone-scaled-natural": (10, 0, 1024, (7,), True, "scaled", False),
+    "lone-scaled-row0": (10, 96, 200, (2,), False, "scaled", False),
+    "ext-sum-alone-scaled": (9, 0, 512, (), False, "scaled", True),
+    "ext-sum-and-columns-scaled": (9, 128, 256, (3, 1), False, "scaled", True),
+    "wide-scaled": (9, 256, 256, (70,), False, "scaled", False),
+    "group-planes": (11, 512, 768, (3, 1, 5, 2), False, "planes", False),
+    "group-planes-natural-ext": (10, 100, 300, (4, 8), True, "planes", True),
+    "more-operands-planes": (7, 0, 128, (1,) * 33 + (2,), False, "planes", False),
+    "more-operands-scaled-natural-ext": (8, 0, 256, (2, 1, 4) * 23, True, "scaled", True),
+}
+
+
+def _two_point_case(case):
+    log_h, row0, rows, widths, natural, mode, with_ext = K9_TWO_POINT_CASES[case]
+    rng = np.random.default_rng(len(case) * 17 + rows)
+    n_rows = 1 << log_h if natural else rows
+    mats = []
+    for k, w in enumerate(widths):
+        m = _t(_monty(rng, (n_rows, w + 2 * (k % 2))))
+        mats.append(m[:, 1 : 1 + w] if k % 2 else m)
+    width = sum(widths)
+    points = [(_point(rng), _point(rng)), (_point(rng), _point(rng))]
+    acc = _t(_monty(rng, (rows, 4)))
+    if mode == "planes":
+        apows = _t(_monty(rng, (2, width, 4)))
+        ext = _t(_monty(rng, (2, rows, 4))) if with_ext else None
+        scales, per_point = None, [(apows[p], None if ext is None else ext[p]) for p in range(2)]
+    else:
+        apows = _t(_monty(rng, (width, 4)))
+        ext = _t(_monty(rng, (rows, 4))) if with_ext else None
+        scales = [_point(rng), _point(rng)]
+        per_point = [(_scaled(apows, c), None if ext is None else _scaled(ext, c)) for c in scales]
+    return log_h, row0, mats, natural, points, acc, apows, ext, scales, per_point
+
+
+@pytest.mark.parametrize("case", list(K9_TWO_POINT_CASES))
+def test_plain_k9_two_points_equal_two_one_point_calls(case):
+    """K9's plain version at two points (a plane a point, or one table and
+    a scale a point) equals two one-point calls."""
+    log_h, row0, mats, natural, points, acc, apows, ext, scales, per_point = _two_point_case(case)
+    want = acc.clone()
+    for (ap, ex), pt in zip(per_point, points):
+        ok.reduced_opening_plain(want, mats, ap, log_h, row0, [pt], natural, ex)
+    got = ok.reduced_opening_plain(acc.clone(), mats, apows, log_h, row0, points, natural, ext, scales)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", list(K9_TWO_POINT_CASES))
+def test_host_k9_two_points_equal_two_one_point_calls(emulated, case):
+    """K9's host build reads a group once for both points and equals two
+    one-point plain calls (the launches: one, or the operand split's)."""
+    log_h, row0, mats, natural, points, acc, apows, ext, scales, per_point = _two_point_case(case)
+    want = acc.clone()
+    for (ap, ex), pt in zip(per_point, points):
+        emulated["reduced_opening_plain"](want, mats, ap, log_h, row0, [pt], natural, ex)
+    ext_before = None if ext is None else ext.clone()
+    got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, points, natural, ext, scales)
+    assert kernels.REDUCED_OPENING.launches == max(1, -(-len(mats) // ok.MAX_OPS))
+    assert torch.equal(got, want)
+    assert ext is None or torch.equal(ext, ext_before)
+
+
+@pytest.mark.parametrize("path", ["plain", "kernel"])
+def test_streamed_reduced_contrib_two_points_equals_each_point(request, path):
+    """The streamed source at two points (its chunks summed once, one
+    division for both) equals its contributions point by point, on the
+    plain path and through K9's host build."""
+    if path == "kernel":
+        request.getfixturevalue("emulated")
+    rng = np.random.default_rng(5)
+    n, w, log_blowup = 16, 40, 2
+    src = WideMatrixSource(torch.from_numpy(rng.integers(0, 2, size=(n, w), dtype=np.uint8)), Dft(device="cpu"),
+                           log_blowup, TwoAdicCoset(4, 1), col_chunk=16)
+    log_h = 4 + log_blowup
+    apows = _t(_monty(rng, (w, 4)))
+    points = [(_point(rng), _point(rng)), (_point(rng), _point(rng))]
+    scales = [(1, 0, 0, 0), _point(rng)]
+    acc = _t(_monty(rng, (1 << log_h, 4)))
+    want = acc.clone()
+    for pt, c in zip(points, scales):
+        src.reduced_contrib(want, _scaled(apows, c), [pt], log_h, 0)
+    launches = kernels.REDUCED_OPENING.launches
+    got = src.reduced_contrib(acc.clone(), apows, points, log_h, 0, scales)
+    assert torch.equal(got, want)
+    if path == "kernel":  # three chunk sums and one division
+        assert kernels.REDUCED_OPENING.launches - launches == 4
+
+
 # (log_h, row0, rows, operand widths, natural, point, ext sum): the
 # committed order and natural order, with and without a point, an ext sum
 # alone and beside columns, a group of strided operands, operands read 16
@@ -323,12 +495,12 @@ def test_host_k9_equals_plain(emulated, case):
         m = _t(_monty(rng, (n_rows, w + 2 * (k % 2))))
         mats.append(m[:, 1 : 1 + w] if k % 2 else m)
     apows = _t(_monty(rng, (sum(widths), 4)))
-    point = (_point(rng), _point(rng)) if with_point else None
+    points = [(_point(rng), _point(rng))] if with_point else []
     ext = _t(_monty(rng, (rows, 4))) if with_ext else None
     acc = _t(_monty(rng, (rows, 4)))
     ext_before = None if ext is None else ext.clone()
-    want = emulated["reduced_opening_plain"](acc.clone(), mats, apows, log_h, row0, point, natural, ext)
-    got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, point, natural, ext)
+    want = emulated["reduced_opening_plain"](acc.clone(), mats, apows, log_h, row0, points, natural, ext)
+    got = ok.reduced_opening(acc.clone(), mats, apows, log_h, row0, points, natural, ext)
     assert kernels.REDUCED_OPENING.launches == max(1, -(-len(widths) // ok.MAX_OPS))
     assert torch.equal(got, want)
     assert ext is None or torch.equal(ext, ext_before)  # the caller's ext sum is read, never written
@@ -341,10 +513,10 @@ def test_host_k9_zero_denominator_gives_zero(emulated):
     rng = np.random.default_rng(3)
     mat, apows = _t(_monty(rng, (rows, 2))), _t(_monty(rng, (2, 4)))
     y = pow(bb.two_adic_generator(log_h), ok._bit_reverse(37, log_h), P)
-    point = ((y, 0, 0, 0), _point(rng))
+    points = [((y, 0, 0, 0), _point(rng))]
     want = emulated["reduced_opening_plain"](torch.zeros((rows, 4), dtype=torch.int32), [mat], apows, log_h, 0,
-                                             point)
-    got = ok.reduced_opening(torch.zeros((rows, 4), dtype=torch.int32), [mat], apows, log_h, 0, point)
+                                             points)
+    got = ok.reduced_opening(torch.zeros((rows, 4), dtype=torch.int32), [mat], apows, log_h, 0, points)
     assert torch.equal(got, want) and not got[37].any()
 
 
@@ -359,6 +531,11 @@ K10_CASES = {
     "one-point-tiles": (256, 40, 1, 0, False, False),
     "accumulate": (2048, 5, 2, 1 << 20, True, False),
     "short": (8, 2, 2, 0, False, False),
+    "w1-r0": (2048, 1, 2, 3, False, False),
+    "w2-r0": (4096, 2, 2, 1 << 23, False, False),
+    "w64-r0": (1024, 64, 2, 99, False, False),
+    "w493-r0": (256, 493, 2, 12345, False, False),
+    "w493-one-point": (96, 493, 1, 0, False, True),
 }
 
 
@@ -377,21 +554,32 @@ def test_host_k10_equals_plain(emulated, case):
 
 
 def test_host_launch_limits_raise(emulated):
-    """More than two points for K10, or alpha powers that do not match a K9
-    group's widths, raise on the kernel path (no caller has either)."""
+    """More than two points for K10, alpha powers that do not match a K9
+    group's widths, or a K9 scale of 0 (which the kernel cannot take into
+    q_z and s), raise on the kernel path (no caller has any of them)."""
     m = torch.zeros((8, 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="at most 2"):
         ok.eval_at_points(m, [(1, 0, 0, 0)] * 3)
     with pytest.raises(ValueError, match="apows"):
         ok.reduced_opening(torch.zeros((8, 4), dtype=torch.int32), [m] * 33, torch.zeros((32, 4), dtype=torch.int32), 3)
+    pts = [((5, 0, 0, 0), (1, 2, 3, 4))] * 2
+    with pytest.raises(ValueError, match="none may be 0"):
+        ok.reduced_opening(torch.zeros((8, 4), dtype=torch.int32), [m], torch.zeros((1, 4), dtype=torch.int32), 3,
+                           0, pts, scales=[(1, 0, 0, 0), (0, 0, 0, P)])
 
 
 def test_k10_plan_covers_the_rows():
-    for h, w in [(1, 1), (300, 1), (1 << 25, 2), (1 << 21, 64), (1 << 18, 493), (700, 65)]:
-        cw, nct, rb_rows, nrb = ok.k10_plan(h, w)
-        assert cw & (cw - 1) == 0 and cw <= 32 and nct * cw >= w > (nct - 1) * cw
-        assert rb_rows % ok.K10_THREADS == 0 and (nrb - 1) * rb_rows < h <= nrb * rb_rows
-    assert ok.k10_plan(1 << 25, 2)[3] == ok.K10_BLOCKS
+    """K10's plan covers every column with its groups of CB and every row
+    with its ranges of 32 K rows, 2^3 <= K <= 2^8, and keeps about K10_ITEMS warp
+    items where the height allows."""
+    for h, w in [(1, 1), (300, 1), (1 << 25, 2), (1 << 21, 64), (1 << 18, 493), (700, 65), (1 << 23, 2)]:
+        cb, ncg, log_k, nrange = ok.k10_plan(h, w)
+        assert cb in (1, 2, 4) and ncg * cb >= w > (ncg - 1) * cb
+        assert ok.K10_MIN_LOG_K <= log_k <= ok.K10_MAX_LOG_K
+        assert (nrange - 1) << (5 + log_k) < h <= nrange << (5 + log_k)
+        if log_k < ok.K10_MAX_LOG_K and h >= 32 * ok.K10_ITEMS:
+            assert nrange * ncg >= ok.K10_ITEMS
+    assert ok.k10_plan(1 << 25, 2) == (2, 1, 8, 4096) and ok.k10_plan(1 << 18, 493)[:3] == (4, 124, 7)
 
 
 # (log_h, row0, rows (None: the whole), add)

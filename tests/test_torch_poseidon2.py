@@ -444,7 +444,7 @@ def _reductions(h, w, seed):
     mat = t(rng.integers(0, bb.P, size=(h, w), dtype=np.uint32))
     apows = t(rng.integers(0, bb.P, size=(w, 4), dtype=np.uint32))
     zpow = t(rng.integers(0, bb.P, size=(h, 4), dtype=np.uint32))
-    point = tuple(tuple(int(v) for v in rng.integers(0, bb.P, size=4)) for _ in range(2))  # z, the opened sum
+    point = [tuple(tuple(int(v) for v in rng.integers(0, bb.P, size=4)) for _ in range(2))]  # z, the opened sum
     return (
         open_kernel._eval_at_point(mat, zpow),
         open_kernel._combine_columns(mat, apows),

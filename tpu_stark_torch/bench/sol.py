@@ -611,39 +611,12 @@ def _measure_fri_fold(log_h: int = 22, reps: int = 16, device=None) -> Dict:
                      "in the kernel"}
 
 
-OPENING_POINT = ((5, 9, 2, 6), (5, 3, 5, 8))  # the timed reduced opening's point and opened sum (canonical)
-
-
-def _measure_reduced_opening(log_h: int = 22, w: int = 2, reps: int = 16, device=None) -> Dict:
-    """One group's reduced opening at a point over a (2^log_h, w) codeword
-    (config 2's trace codeword at w = 2): K9 (``commit/open_kernel.py::
-    reduced_opening``) on the card, its plain twin elsewhere, audited on the
-    plain twin (whose per-row inverse K9 does not do: see ``audit``); the
-    chain adds into one accumulator."""
-    from ..commit import open_kernel
-
-    dev = _device(device)
-    h = 1 << log_h
-    rng = np.random.default_rng(0)
-    mat, apows = _rand_monty(rng, (h, w), dev), _rand_monty(rng, (w, 4), dev)
-
-    def opening(acc, m, a):
-        return open_kernel.reduced_opening(acc, [m], a, log_h, 0, OPENING_POINT)
-
-    ops = audit_ops(opening, _meta(h, 4), _meta(h, w), _meta(w, 4))
-    calls_s = _timed(_chain(lambda acc: opening(acc, mat, apows)), _rand_monty(rng, (h, 4), dev), reps)
-    return {"kernel": f"reduced_opening_2^{log_h}x{w}", "ops": ops, "rate": calls_s, "melems_s": calls_s * h / 1e6,
-            "bytes_per_call": 4.0 * h * (w + 8),
-            "audit": "ops of the plain twin, a Fermat ext inverse a row (about 90 base products); K9 batch-inverts "
-                     "(about 4 ext products a row), so the share overstates K9's use of the roof and is not its "
-                     "headroom"}
-
-
 def run_open(roofs: Dict[str, float], log_h: int = 22, device=None) -> List[Dict]:
-    """K9 and K11 at 2^log_h rows, each scored against ``roofs`` (a
-    report's) like ``run``'s kernels."""
-    measured = [_measure_reduced_opening(log_h, device=device), _measure_fri_fold(log_h, device=device)]
-    return score(roofs, dict(PROBE_SOURCES), measured)[2]
+    """K11 at 2^log_h rows, scored against ``roofs`` (a report's) like
+    ``run``'s kernels.  K9 is not scored here: its plain twin's audit counts
+    an ext inverse a row, which K9 does not compute, so a share on it would
+    not measure K9 (``chip_smoke.py`` holds K9 to its least-work bound)."""
+    return score(roofs, dict(PROBE_SOURCES), [_measure_fri_fold(log_h, device=device)])[2]
 
 
 def _measure_bitrev(h: int = 1 << 22, w: int = 8, reps: int = 16, device=None) -> Dict:

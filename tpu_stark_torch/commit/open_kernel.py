@@ -5,14 +5,22 @@ open phase.
 
 **K9** ``reduced_opening`` adds one group's reduced opening into a height's
 accumulator: for each row i of the height-2^log_h codeword held from
-global row ``row0``, ``acc[i] += (sum_c alpha^(off+c) m[i, c] - s) /
-(y_i - z)``, ``y_i = g_H^bitrev(row0 + i)``, or the column sum alone with no
-point (random codewords).  The group's matrices are operands side by side
-(no concatenation; a launch takes ``MAX_OPS``, and a larger group sums its
-first ones into an ext sum), read in the committed bit-reversed row order or in
-natural order (row ``bitrev(row0 + i)``: a recomputed codeword skips its
-bit reversal); an (rows, 4) ext sum may join the columns (the streamed
-source sums its chunks with the no-point mode, then divides once).
+global row ``row0``, ``acc[i] += sum_p (C_p[i] - s_p) / (y_i - z_p)`` over
+the group's points (one or two: z and g z), ``y_i = g_H^bitrev(row0 + i)``,
+``C_p = sum_c alpha_p,c m[i, c]``, or the column sum alone with no point
+(random codewords).  Each element is read once for all the points: point
+p's powers are its own plane of a (P, width, 4) table, or point p's sum is
+``scales[p]`` times the one table's (a lone matrix at z and g z:
+alpha^width; the wrapper folds the scale into q_z and s).  The group's
+matrices are operands side by side (no concatenation; a launch takes
+``MAX_OPS`` and ``MAX_SLOTS`` columns, and a larger group sums its first
+ones into an ext sum), read in the committed
+bit-reversed row order or in natural order (row ``bitrev(row0 + i)``: a
+recomputed codeword skips its bit reversal); an (rows, 4) ext sum may join
+the columns (the streamed source sums its chunks with the no-point mode,
+then divides once for all the points).  The division runs in the base
+field: ``1/(y - z) = q_z(y) / chi_z(y)`` with z's characteristic
+polynomial chi_z (``division_poly``).
 
 **K10** ``eval_at_points`` is ``sum_r c[r, col] z^(r0 + r)`` for every
 column at one or two points, in one read of the coefficients: the powers of
@@ -22,18 +30,19 @@ z are made in the kernel, never an (h, 4) table.
 ``(e + o)/2 + beta (e - o)/(2 y)``, with ``1/(2 y)`` made in the kernel and
 the next height's reduced opening optionally added.
 
-Out-of-domain points, opened sums and beta are host values (canonical
-coefficient tuples): the opened values are on the host already, and the
-opened sum is their exact host dot product with the alpha powers
+Out-of-domain points, opened sums, scales and beta are host values
+(canonical coefficient tuples): the opened values are on the host already,
+and the opened sum is their exact host dot product with the alpha powers
 (``pcs._dot_ext``, as the verifier computes it).  On the CPU (and on
 ``meta`` tensors, for the SoL report's audit) each wrapper runs its plain
-int64 torch version; a CUDA tensor launches its kernel or raises.  Every result has the plain
-version's bits.
+int64 torch version (the ext inverse, a point at a time); a CUDA tensor
+launches its kernel or raises.  Every result has the plain version's bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -46,10 +55,13 @@ from ..fri.domains import ExtPoint
 from ..matrix import bit_reversal_perm_device, log2_strict, reverse_bits_device
 
 MAX_OPS = 32  # operands of one K9 launch (csrc/open.cu kMaxOps)
-RUN = 8  # rows a K9 / K11 thread takes when row0 allows it (kTab)
-K10_THREADS = 256  # threads a K10 block, and the rows a block steps at a time
-K10_BLOCKS = 1024  # K10 blocks a launch at most, about
-K10_MIN_ROWS = 4096  # rows a K10 block at least, where the height allows
+MAX_UNITS = 64  # staged column slabs of one K9 launch (kMaxUnits)
+MAX_SLOTS = 640  # alpha slots (quad-padded columns) of a K9 launch's plane
+PIECE_COLS = 512  # a wider K9 operand is cut into column slices of this many
+K9_POINT_WORDS = 24  # a point's constants (csrc/open.cu kPointWords)
+RUN = 8  # rows a K11 thread takes when row0 allows it (kTab)
+K10_ITEMS = 4096  # K10's warp items (ranges x column groups) a launch, about, where the height allows
+K10_MIN_LOG_K, K10_MAX_LOG_K = 3, 8  # a K10 range is 32 K rows, 2^3 <= K <= 2^8 (kMaxLogK)
 
 # ---------------------------------------------------------------------------
 # Plain versions (int64 torch), row-blocked: the column reductions run over
@@ -162,27 +174,39 @@ def _fold_codeword(cw: torch.Tensor, beta_dev: torch.Tensor, log_h: int, row0: i
 
 
 def reduced_opening_plain(acc: torch.Tensor, mats: Sequence[torch.Tensor], apows: torch.Tensor, log_h: int,
-                          row0: int = 0, point: Optional[Tuple[ExtPoint, ExtPoint]] = None, natural: bool = False,
-                          ext_in: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``reduced_opening`` in plain torch, one row block at a time."""
+                          row0: int = 0, points: Sequence[Tuple[ExtPoint, ExtPoint]] = (), natural: bool = False,
+                          ext_in: Optional[torch.Tensor] = None,
+                          scales: Optional[Sequence[ExtPoint]] = None) -> torch.Tensor:
+    """``reduced_opening`` in plain torch, one row block at a time: each
+    point's column sum, then its quotient by the ext inverse of y - z."""
     rows, dev = int(acc.shape[0]), acc.device
+    planes = [apows[k] for k in range(int(apows.shape[0]))] if apows.dim() == 3 else [apows]
     width = sum(int(m.shape[1]) for m in mats)
-    blk = _block_plan(rows, max(1, width))[0]
-    if point is not None:
-        z_dev, s_dev = ext4.scalar(point[0], dev), ext4.scalar(point[1], dev)
+    blk = _block_plan(rows, max(1, width * len(planes)))[0]
+    pts = [(ext4.scalar(z, dev), ext4.scalar(s, dev)) for z, s in points]
+    scl = None if scales is None else [ext4.scalar(c, dev) for c in scales]
     for r0 in range(0, rows, blk):
         n = min(blk, rows - r0)
-        comb = ext4.zero((n,), dev) if ext_in is None else ext_in[r0 : r0 + n]
         sel = (reverse_bits_device(torch.arange(row0 + r0, row0 + r0 + n, dtype=torch.int64, device=dev), log_h)
                if natural else slice(r0, r0 + n))
-        off = 0
-        for m in mats:
-            w = int(m.shape[1])
-            comb = ext4.add(comb, _combine_columns(m[sel], apows[off : off + w]))
-            off += w
-        if point is not None:
-            comb = _over_y_minus_z(comb, s_dev, z_dev, _plain_points_br(log_h, dev, row0 + r0, n))
-        acc[r0 : r0 + n] = ext4.add(acc[r0 : r0 + n], comb)
+        combs = []
+        for k, ap in enumerate(planes):
+            comb = ext4.zero((n,), dev) if ext_in is None else (ext_in[k] if apows.dim() == 3 else ext_in)[r0 : r0 + n]
+            off = 0
+            for m in mats:
+                w = int(m.shape[1])
+                comb = ext4.add(comb, _combine_columns(m[sel], ap[off : off + w]))
+                off += w
+            combs.append(comb)
+        if not pts:
+            acc[r0 : r0 + n] = ext4.add(acc[r0 : r0 + n], combs[0])
+            continue
+        y_br = _plain_points_br(log_h, dev, row0 + r0, n)
+        for p, (z_dev, s_dev) in enumerate(pts):
+            comb = combs[p if len(planes) > 1 else 0]
+            if scl is not None:
+                comb = ext4.mul(comb, scl[p][None, :])
+            acc[r0 : r0 + n] = ext4.add(acc[r0 : r0 + n], _over_y_minus_z(comb, s_dev, z_dev, y_br))
     return acc
 
 
@@ -234,11 +258,6 @@ def _ext_monty(z: ExtPoint) -> List[int]:
     return [_monty(c) for c in z]
 
 
-def _run_table(base: int, log_n: int) -> List[int]:
-    """Monty base^bitrev_n(32 r) for r < RUN: a thread's rows 32 r apart."""
-    return [_monty(pow(base, _bit_reverse((32 * r) % (1 << log_n), log_n), bb.P)) for r in range(RUN)]
-
-
 def _log_run(first: int) -> int:
     """log2 of the rows a thread takes: RUN where ``first`` (the global
     index of the launch's first row) keeps bitrev additive over a run of
@@ -246,38 +265,136 @@ def _log_run(first: int) -> int:
     return 3 if first % (32 * RUN) == 0 else 0
 
 
+# ---------------------------------------------------------------------------
+# K9's host constants
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _gpow_table(log_h: int) -> Tuple[int, ...]:
+    """Monty g_H^(2^j), j < 32 (1 from j = log_h on)."""
+    g, out = bb.two_adic_generator(log_h), []
+    for _ in range(32):
+        out.append(_monty(g))
+        g = g * g % bb.P
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=256)
+def division_poly(z: ExtPoint) -> Tuple[Tuple[int, ...], Tuple[ExtPoint, ...]]:
+    """z's characteristic polynomial chi_z(Y) = prod_k (Y - z^(p^k)) (monic,
+    its coefficients c0..c3 in F_p: they are symmetric in the conjugates)
+    and q_z = chi_z / (Y - z) = Y^3 + q2 Y^2 + q1 Y + q0 over the
+    extension, by synthetic division; canonical.  For y in F_p, chi_z(y) is
+    the norm of y - z, so 1/(y - z) = q_z(y) / chi_z(y) where chi_z(y) != 0,
+    and chi_z(y) = 0 only at y = z."""
+    frob = pow(rf.W, (bb.P - 1) // 4, bb.P)
+    poly: List[ExtPoint] = [(1, 0, 0, 0)]  # low coefficient first
+    for k in range(4):
+        conj = tuple(c * pow(frob, (i * k) % 4, bb.P) % bb.P for i, c in enumerate(z))
+        shifted = [(0, 0, 0, 0)] + poly
+        poly = [rf.esub(shifted[i], rf.emul(poly[i], conj)) if i < len(poly) else shifted[i]
+                for i in range(len(shifted))]
+    if any(c[1:] != (0, 0, 0) for c in poly) or poly[4] != (1, 0, 0, 0):
+        raise AssertionError(f"chi_z of {z} is not a monic quartic over F_p")
+    chi = tuple(c[0] for c in poly[:4])
+    q2 = rf.eadd(rf.efrom_base(chi[3]), z)
+    q1 = rf.eadd(rf.efrom_base(chi[2]), rf.emul(z, q2))
+    q0 = rf.eadd(rf.efrom_base(chi[1]), rf.emul(z, q1))
+    if rf.eadd(rf.efrom_base(chi[0]), rf.emul(z, q0)) != (0, 0, 0, 0):
+        raise AssertionError(f"Y - {z} does not divide chi_z")
+    return chi, (q0, q1, q2)
+
+
+def _k9_plan(widths: Sequence[int], nsum: int, dividing: bool) -> Tuple[int, int, int]:
+    """K9's (log2 R, staged slab width, staged row stride) in words: a
+    dividing group of narrow rows takes R rows a thread (one base inverse
+    for R x points values), a wide one a row and slabs of 32 words; the
+    stride is 4 x odd words (conflict-free 16-byte reads)."""
+    widest = max(list(widths) + [1])
+    if dividing and widest <= 4:
+        log_r = 3 if nsum == 1 else 2
+    elif dividing and widest <= 16:
+        log_r = 1
+    else:
+        log_r = 0
+    sw = 32 if log_r == 0 else (widest + 3) & ~3
+    return log_r, sw, sw + 4 if (sw // 4) % 2 == 0 else sw
+
+
+def _k9_pieces(mats: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The operands cut into column slices of at most PIECE_COLS."""
+    return [m[:, c : c + PIECE_COLS] for m in mats for c in range(0, int(m.shape[1]), PIECE_COLS)]
+
+
+def _k9_launches(pieces: Sequence[torch.Tensor], sw: int) -> List[List[torch.Tensor]]:
+    """The pieces packed in order into launches of at most MAX_OPS operands,
+    MAX_UNITS slabs and MAX_SLOTS alpha slots (at least one launch)."""
+    out: List[List[torch.Tensor]] = [[]]
+    units = slots = 0
+    for m in pieces:
+        w = int(m.shape[1])
+        u, sl = -(-w // sw), sum(-(-min(sw, w - c) // 4) * 4 for c in range(0, w, sw))
+        if out[-1] and (len(out[-1]) == MAX_OPS or units + u > MAX_UNITS or slots + sl > MAX_SLOTS):
+            out.append([])
+            units = slots = 0
+        out[-1].append(m)
+        units, slots = units + u, slots + sl
+    return out
+
+
 def _vec_rows(m: torch.Tensor) -> bool:
-    """Whether K9 reads ``m``'s rows 16 bytes at a time: a 16-byte aligned
+    """Whether K9 stages ``m``'s rows 16 bytes a copy: a 16-byte aligned
     base, and a width and row stride that are multiples of 4 words."""
     return m.data_ptr() % 16 == 0 and int(m.shape[1]) % 4 == 0 and m.stride(0) % 4 == 0 and int(m.shape[1]) > 0
 
 
 def reduced_opening(acc: torch.Tensor, mats: Sequence[torch.Tensor], apows: torch.Tensor, log_h: int,
-                    row0: int = 0, point: Optional[Tuple[ExtPoint, ExtPoint]] = None, natural: bool = False,
-                    ext_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    row0: int = 0, points: Sequence[Tuple[ExtPoint, ExtPoint]] = (), natural: bool = False,
+                    ext_in: Optional[torch.Tensor] = None,
+                    scales: Optional[Sequence[ExtPoint]] = None) -> torch.Tensor:
     """K9: add one group's reduced opening into ``acc`` (rows, 4) Monty, the
     rows [row0, row0 + rows) of a height-2^log_h reduced opening, in place.
 
     ``mats`` are the group's (Monty) matrices, each with unit column stride:
     the held rows in bit-reversed order, or with ``natural`` the whole
-    natural-order codeword (2^log_h rows); ``apows`` (sum of widths, 4) are
-    their columns' alpha powers, in order; a launch takes MAX_OPS
-    operands, so a larger group sums its first ones into a scratch ext sum
-    first.  ``ext_in`` (rows, 4), when given, adds to the column sum.
-    ``point`` = (z, s), canonical: the plain-frame point and the opened sum
-    sum_col alpha^k y_col(z); each row then adds
-    (sum - s) / (y - z), y = g_H^bitrev(row0 + i); without it the sum
-    alone.  Returns ``acc``.  A CPU tensor runs ``reduced_opening_plain``;
-    on the card a failed build or launch raises."""
+    natural-order codeword (2^log_h rows), read once for all the points.
+    ``points``: none (the column sum alone), or one or two (z, s): the
+    plain-frame point and its opened sum sum_col alpha^k y_col(z),
+    canonical; each row then adds sum_p (C_p - s_p) / (y - z_p), y =
+    g_H^bitrev(row0 + i).  ``apows``: (sum of widths, 4), the columns'
+    alpha powers in order, every point's (``scales[p]``, canonical and not
+    0, when given, multiplies point p's sum: a lone matrix's second point
+    takes alpha^width); or (P, sum of widths, 4), a plane a point.
+    ``ext_in`` ((rows, 4), or (P, rows, 4) with planes) joins the column
+    sums.  A
+    launch takes MAX_OPS operands and MAX_SLOTS columns, so a larger group
+    sums its first ones into a scratch ext sum first.  Returns ``acc``.  A
+    CPU tensor runs ``reduced_opening_plain``; on the card a failed build or
+    launch raises."""
     if not _on_card(acc):
-        return reduced_opening_plain(acc, mats, apows, log_h, row0, point, natural, ext_in)
+        return reduced_opening_plain(acc, mats, apows, log_h, row0, points, natural, ext_in, scales)
     so = kernels.lib()
-    rows, mats = int(acc.shape[0]), list(mats)
+    rows, mats, points = int(acc.shape[0]), list(mats), list(points)
     _ext_rows("acc", acc, rows)
-    if ext_in is not None:
-        _ext_rows("ext_in", ext_in, rows)
     width = sum(int(m.shape[1]) for m in mats)
-    _ext_rows("apows", apows, width)
+    nsum = int(apows.shape[0]) if apows.dim() == 3 else 1
+    if len(points) > 2 or (apows.dim() == 3 and (nsum != len(points) or scales is not None)):
+        raise ValueError(f"reduced_opening: {len(points)} points with alpha planes of shape {tuple(apows.shape)}"
+                         f"{' and scales' if scales is not None else ''}")
+    if scales is not None and (len(scales) != len(points) or any(not any(int(v) % bb.P for v in c)
+                                                                   for c in scales)):
+        raise ValueError(f"reduced_opening: scales {list(scales)} for {len(points)} points (none may be 0)")
+    planes = apows if apows.dim() == 3 else apows[None]
+    if planes.dtype != torch.int32 or tuple(planes.shape[1:]) != (width, 4) or (width and (
+            planes.stride(2) != 1 or (width > 1 and planes.stride(1) != 4) or planes.data_ptr() % 16
+            or planes.stride(0) % 4)):
+        raise ValueError(f"reduced_opening: apows must be int32 16-byte aligned rows of ({width}, 4) a plane, got "
+                         f"{planes.dtype} {tuple(apows.shape)} {apows.stride()}")
+    if ext_in is not None:
+        ext_planes = ext_in if ext_in.dim() == 3 else ext_in[None]
+        if int(ext_planes.shape[0]) != nsum:
+            raise ValueError(f"reduced_opening: ext_in {tuple(ext_in.shape)} for {nsum} alpha planes")
+        for k in range(nsum):
+            _ext_rows("ext_in", ext_planes[k], rows)
     if row0 < 0 or row0 + rows > 1 << log_h:
         raise ValueError(f"reduced_opening: rows [{row0}, {row0 + rows}) of a height-2^{log_h} codeword")
     for m in mats:
@@ -289,47 +406,97 @@ def reduced_opening(acc: torch.Tensor, mats: Sequence[torch.Tensor], apows: torc
                              f"order, {rows} rows held of 2^{log_h})")
     if rows == 0:
         return acc
-    if len(mats) > MAX_OPS:
-        # more operands than a launch takes: the first ones, MAX_OPS a
-        # launch, sum with no point into an (rows, 4) scratch that joins the
-        # last launch's columns as its ext sum
-        scratch = torch.zeros_like(acc) if ext_in is None else ext_in.clone()
-        while len(mats) > MAX_OPS:
-            w = sum(int(m.shape[1]) for m in mats[:MAX_OPS])
-            _opening_launch(so, scratch, mats[:MAX_OPS], apows[:w], log_h, row0, None, natural, None)
-            mats, apows = mats[MAX_OPS:], apows[w:]
+    log_r, sw, swp = _k9_plan([int(m.shape[1]) for m in mats], nsum, bool(points))
+    launches = _k9_launches(_k9_pieces(mats), sw)
+    col = 0
+    if len(launches) > 1:
+        # more than a launch takes: the first launches sum their columns with
+        # no point into a scratch ext sum, which the last one reads
+        scratch = (torch.zeros((nsum, rows, 4), dtype=torch.int32, device=acc.device) if ext_in is None
+                   else ext_planes.clone())
+        plan0 = _k9_plan([int(m.shape[1]) for m in mats], nsum, False)
+        for ops in launches[:-1]:
+            w = sum(int(m.shape[1]) for m in ops)
+            _opening_launch(so, scratch, ops, planes[:, col : col + w], log_h, row0, [], natural, None, None, plan0)
+            col += w
         ext_in = scratch
-    _opening_launch(so, acc, mats, apows, log_h, row0, point, natural, ext_in)
+    _opening_launch(so, acc, launches[-1], planes[:, col:], log_h, row0, points, natural, ext_in, scales,
+                    (log_r, sw, swp))
     return acc
 
 
-def _opening_launch(so, acc, mats, apows, log_h, row0, point, natural, ext_in) -> None:
-    """One K9 launch over at most MAX_OPS checked operands."""
-    rows = int(acc.shape[0])
-    g = bb.two_adic_generator(log_h)
-    z, s = point if point is not None else ((0, 0, 0, 0), (0, 0, 0, 0))
-    # an operand of 16-byte aligned rows whose width is a multiple of 4 is
-    # read 16 bytes at a time: its width goes in negated
-    ops = [v for m in mats for v in (m.data_ptr(), -int(m.shape[1]) if _vec_rows(m) else int(m.shape[1]),
-                                     m.stride(0))]
-    words = (ctypes.c_int64 * (10 + len(ops)))(
-        rows, row0, log_h, int(natural), int(point is not None), _log_run(row0), apows.data_ptr(),
-        0 if ext_in is None else ext_in.data_ptr(), acc.data_ptr(), len(mats), *ops)
-    consts = (ctypes.c_uint32 * 17)(_monty(g), *_ext_monty(z), *_ext_monty(s), *_run_table(g, log_h))
+def _opening_launch(so, acc, ops, planes, log_h, row0, points, natural, ext_in, scales, plan) -> None:
+    """One K9 launch: ``acc`` (rows, 4), or with no point (nsum, rows, 4)
+    planes, over at most MAX_OPS checked operands (``planes``: their
+    (nsum, width, 4) alpha powers)."""
+    log_r, sw, swp = plan
+    nsum = int(planes.shape[0])
+    rows = int(acc.shape[-2])
+    units, slot, col = [], 0, 0
+    for k, m in enumerate(ops):
+        w = int(m.shape[1])
+        for c0 in range(0, w, sw):
+            n = min(sw, w - c0)
+            units.append((k, c0, n, col + c0, slot))
+            slot += -(-n // 4) * 4
+        col += w
+    if not units:  # no columns: one empty unit ends each tile
+        units = [(0, 0, 0, 0, 0)]
+    ext_planes = None if ext_in is None else (ext_in if ext_in.dim() == 3 else ext_in[None])
+    consts = [0] * (32 + 2 * K9_POINT_WORDS)
+    consts[0:32] = _gpow_table(log_h)
+    for p, (z, s) in enumerate(points):
+        chi, q = division_poly(tuple(int(c) % bb.P for c in z))
+        # a scaled point: (c C - s) q_z / chi_z = (C - s / c) (c q_z) / chi_z
+        scale = (1, 0, 0, 0) if scales is None else tuple(int(v) % bb.P for v in scales[p])
+        q = [rf.emul(scale, v) for v in q] + [scale]
+        s = rf.emul(tuple(int(v) % bb.P for v in s), rf.einv(scale))
+        c = 32 + K9_POINT_WORDS * p
+        # c0 and q0 join raw products (2^64 times the values): a second Monty factor
+        consts[c : c + 4] = [_monty(_monty(chi[0])), *(_monty(v) for v in chi[1:])]
+        consts[c + 4 : c + 8] = [_monty(_monty(v)) for v in q[0]]
+        for k in range(1, 4):
+            consts[c + 4 * k + 4 : c + 4 * k + 8] = _ext_monty(q[k])
+        consts[c + 20 : c + 24] = _ext_monty(s)
+    ops_words = [v for m in ops for v in (m.data_ptr(), m.stride(0), int(_vec_rows(m)))]
+    unit_words = [v for u in units for v in u]
+    ext_words = (0, 0) if ext_planes is None else (ext_planes.data_ptr(), ext_planes.stride(0) if nsum > 1 else 0)
+    words = [rows, row0, log_h, int(natural), len(points), nsum, log_r, swp, len(ops), len(units), slot,
+             planes.data_ptr(), planes.stride(0) if nsum > 1 else 0, *ext_words,
+             acc.data_ptr(), acc.stride(0) if acc.dim() == 3 else 0, *ops_words, *unit_words]
     kernels.REDUCED_OPENING.launches += 1
-    kernels.check(so.ts_reduced_opening(words, consts, kernels.stream_handle(acc.device)), "reduced opening")
+    kernels.check(so.ts_reduced_opening((ctypes.c_int64 * len(words))(*words),
+                                        (ctypes.c_uint32 * len(consts))(*consts), kernels.stream_handle(acc.device)),
+                  "reduced opening")
 
 
+# ---------------------------------------------------------------------------
+# K10
+# ---------------------------------------------------------------------------
 def k10_plan(h: int, w: int) -> Tuple[int, int, int, int]:
-    """K10's (tile width cw, tiles, rows a block, row blocks) for (h, w):
-    cw the least power of two >= w up to 32; about K10_BLOCKS blocks of at
-    least K10_MIN_ROWS rows where the height allows, each a multiple of
-    K10_THREADS rows."""
-    cw = min(32, 1 << max(0, (w - 1).bit_length()))
-    nct = -(-w // cw)
-    nrb = max(1, min(-(-h // K10_MIN_ROWS), -(-K10_BLOCKS // nct)))
-    rb_rows = -(-(-(-h // nrb)) // K10_THREADS) * K10_THREADS
-    return cw, nct, rb_rows, -(-h // rb_rows)
+    """K10's (columns a lane CB, column groups, log2 K, ranges) for (h, w):
+    CB = 4 from 3 columns (else w); a range is 32 K rows, K a power of two
+    from 2^3 (a lane loads 8 rows at a time) up to 2^8, as large as keeps
+    about K10_ITEMS warp items (ranges x column groups) where the height
+    allows."""
+    cb = 4 if w >= 3 else max(1, w)
+    ncg = -(-w // cb)
+    log_k = max(K10_MIN_LOG_K, min(K10_MAX_LOG_K, (h * ncg // (32 * K10_ITEMS)).bit_length() - 1))
+    return cb, ncg, log_k, -(-h // (32 << log_k))
+
+
+@functools.lru_cache(maxsize=256)
+def _points_consts(points: Tuple[ExtPoint, ...], r0: int):
+    """K10's constants (a ctypes array) for canonical points and r0: each
+    point's Monty z^r0 and z^(2^j), j < 32."""
+    consts = [0] * 264
+    for p, z in enumerate(points):
+        consts[132 * p : 132 * p + 4] = _ext_monty(rf.epow(z, r0))
+        cur = z
+        for j in range(32):
+            consts[132 * p + 4 + 4 * j : 132 * p + 8 + 4 * j] = _ext_monty(cur)
+            cur = rf.emul(cur, cur)
+    return (ctypes.c_uint32 * 264)(*consts)
 
 
 def eval_at_points(coeffs: torch.Tensor, points: Sequence[ExtPoint], r0: int = 0,
@@ -364,18 +531,15 @@ def eval_at_points(coeffs: torch.Tensor, points: Sequence[ExtPoint], r0: int = 0
         if not accumulate:
             out.zero_()
         return out
-    cw, nct, rb_rows, nrb = k10_plan(h, w)
-    partial = torch.empty((nrb, npts, w, 4), dtype=torch.int32, device=coeffs.device)
-    consts = [0] * 24
-    for p, z in enumerate(points):
-        consts[4 * p : 4 * p + 4] = _ext_monty(z)
-        consts[8 + 4 * p : 12 + 4 * p] = _ext_monty(rf.epow(z, r0))
-        consts[16 + 4 * p : 20 + 4 * p] = _ext_monty(rf.epow(z, K10_THREADS))
-    words = (ctypes.c_int64 * 13)(coeffs.data_ptr(), h, w, coeffs.stride(0), npts, cw, nct, rb_rows, nrb,
+    cb, ncg, log_k, nrange = k10_plan(h, w)
+    align = 4 * cb if cb > 1 else 4
+    vec = int(cb > 1 and coeffs.data_ptr() % align == 0 and coeffs.stride(0) % cb == 0)
+    partial = torch.empty((npts, w, 4, nrange), dtype=torch.int32, device=coeffs.device)
+    consts = _points_consts(tuple(tuple(int(c) % bb.P for c in z) for z in points), r0)
+    words = (ctypes.c_int64 * 14)(coeffs.data_ptr(), h, w, coeffs.stride(0), npts, cb, log_k, vec, ncg, nrange,
                                   partial.data_ptr(), out.data_ptr(), out.stride(0), int(accumulate))
     kernels.EVAL_AT_POINTS.launches += 1
-    kernels.check(so.ts_eval_at_points(words, (ctypes.c_uint32 * 24)(*consts), kernels.stream_handle(coeffs.device)),
-                  "eval at points")
+    kernels.check(so.ts_eval_at_points(words, consts, kernels.stream_handle(coeffs.device)), "eval at points")
     return out
 
 

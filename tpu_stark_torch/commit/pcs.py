@@ -330,6 +330,47 @@ class TwoAdicFriPcs:
         """The whole height-2^log_h FRI level."""
         return current
 
+    def _reduce_group(self, acc: torch.Tensor, grp: list, alpha: ExtPoint, off: int, log_h: int,
+                      row0: int) -> int:
+        """Add one group's reduced opening into ``acc`` (K9, one read of its
+        matrices for all of its points); returns the next alpha offset.  The
+        group's (matrix, point) jobs take the powers from ``off`` in order:
+        matrix i at point p from off + P (w_0 + ... + w_(i-1)) + p w_i.  A
+        lone matrix passes its first point's powers and scales alpha^(p w);
+        a group of several at two points, a plane a point.  The opened sums
+        are the host's dot products with the opened values, as the verifier
+        forms them."""
+        zs = grp[0][0]
+        npts = len(zs)
+        widths = [g[3] for g in grp]
+        total = sum(widths)
+        if npts == 0 or len(grp) == 1:
+            apows_np = _alpha_pows_np(alpha, off, total)
+            apows = bb.to_tensor(bb.np_to_monty(apows_np), self.device)
+            scales = [rf.epow(alpha, p * total) for p in range(npts)] if npts > 1 else None
+            points = [(z, rf.emul(scales[p] if scales else (1, 0, 0, 0),
+                                  _dot_ext(apows_np, np.array([v for g in grp for v in g[2][p]], dtype=np.int64))))
+                      for p, z in enumerate(zs)]
+        else:
+            planes = np.zeros((npts, total, 4), dtype=np.int64)
+            col, start = 0, off
+            for w in widths:
+                for p in range(npts):
+                    planes[p, col : col + w] = _alpha_pows_np(alpha, start + p * w, w)
+                col, start = col + w, start + npts * w
+            apows = bb.to_tensor(bb.np_to_monty(planes if npts > 1 else planes[0]), self.device)
+            scales = None
+            points = [(z, _dot_ext(planes[p], np.array([v for g in grp for v in g[2][p]], dtype=np.int64)))
+                      for p, z in enumerate(zs)]
+        if hasattr(grp[0][1], "reduced_contrib"):
+            grp[0][1].reduced_contrib(acc, apows, points, log_h, row0, scales)
+        else:
+            # a group's released codewords are recomputed once, together
+            mats, natural = _group_operands([g[1] for g in grp])
+            open_kernel.reduced_opening(acc, mats, apows, log_h, row0, points, natural, scales=scales)
+            del mats
+        return off + total * max(1, npts)
+
     # -- open --------------------------------------------------------------
     def open(
         self,
@@ -375,21 +416,19 @@ class TwoAdicFriPcs:
                         challenger.observe_u32s(val)
         alpha = challenger.sample_ext()
 
-        # 2. Reduced openings per log-height.  Consecutive jobs of one height
-        # at one point merge into one call over concatenated columns (never a
-        # streamed wide matrix, which reduces itself chunk by chunk); alpha
-        # powers run per height in job order, the verifier's alpha_ctr walk.
+        # 2. Reduced openings per log-height.  Consecutive matrices of one
+        # height opened at the same points form a group that K9 reads once
+        # for all of its points (never a streamed wide matrix, which reduces
+        # itself chunk by chunk, nor released codewords beside committed
+        # ones); alpha powers run per height, per (matrix, point) in job
+        # order: the verifier's alpha_ctr walk.
         jobs_by_height: Dict[int, list] = {}
         for (data, points), r_opened in zip(rounds, opened_values):
             for m_idx, mat_points in enumerate(points):
                 log_h = log2_strict(self._lde_heights(data)[m_idx])
                 mat_br = self._own_rows(data.merkle.matrices[m_idx], log_h)
-                w = int(mat_br.shape[1])
-                hjobs = jobs_by_height.setdefault(log_h, [])
-                if not mat_points:  # random codewords: mixed in directly
-                    hjobs.append((None, mat_br, None, w))
-                for p_idx, zeta in enumerate(mat_points):
-                    hjobs.append((rf.escale(zeta, gen_inv), mat_br, r_opened[m_idx][p_idx], w))
+                zs = tuple(rf.escale(zeta, gen_inv) for zeta in mat_points)
+                jobs_by_height.setdefault(log_h, []).append((zs, mat_br, r_opened[m_idx], int(mat_br.shape[1])))
 
         ro: Dict[int, torch.Tensor] = {}
         for log_h, hjobs in jobs_by_height.items():
@@ -397,31 +436,16 @@ class TwoAdicFriPcs:
             ro[log_h] = acc = ext4.zero((rows,), dev)
             groups: List[list] = []
             for job in hjobs:
-                streamed = hasattr(job[1], "reduced_contrib") or (
-                    groups and hasattr(groups[-1][-1][1], "reduced_contrib")
-                )
-                if (groups and job[0] is not None and groups[-1][-1][0] == job[0] and not streamed
-                        and isinstance(job[1], _LazyLde) == isinstance(groups[-1][-1][1], _LazyLde)):
+                last = groups[-1][-1] if groups else None
+                if (last is not None and last[0] == job[0] and not hasattr(job[1], "reduced_contrib")
+                        and not hasattr(last[1], "reduced_contrib")
+                        and isinstance(job[1], _LazyLde) == isinstance(last[1], _LazyLde)):
                     groups[-1].append(job)
                 else:
                     groups.append([job])
             off = 0
             for grp in groups:
-                z_y = grp[0][0]
-                w_total = sum(g[3] for g in grp)
-                apows_np = _alpha_pows_np(alpha, off, w_total)
-                apows = bb.to_tensor(bb.np_to_monty(apows_np), dev)
-                # the opened sum from the host's opened values, as the verifier forms it
-                point = None if z_y is None else (
-                    z_y, _dot_ext(apows_np, np.array([v for g in grp for v in g[2]], dtype=np.int64)))
-                if hasattr(grp[0][1], "reduced_contrib"):
-                    grp[0][1].reduced_contrib(acc, apows, point, log_h, row0)
-                else:
-                    # a group's released codewords are recomputed once, together
-                    mats, natural = _group_operands([g[1] for g in grp])
-                    open_kernel.reduced_opening(acc, mats, apows, log_h, row0, point, natural)
-                    del mats
-                off += w_total
+                off = self._reduce_group(acc, grp, alpha, off, log_h, row0)
 
         # 3. FRI commit phase: commit each level, sample beta, fold (adding
         # the next height's reduced opening in the same pass).

@@ -14,14 +14,6 @@ namespace ts {
 constexpr uint32_t MONTY_ONE = 0x0ffffffeu;  // 2^32 mod P: the Montgomery form of 1
 constexpr uint32_t MONTY_W = 0x37ffffe9u;    // the Montgomery form of W = 11
 
-// the Montgomery forms of FROB^k, FROB = W^((P - 1) / 4), k = 0..3: the
-// Frobenius a -> a^(p^j) scales coefficient i by FROB^(i j mod 4)
-struct FrobTwist {
-  static __device__ __forceinline__ uint32_t at(int k) {
-    return k == 0 ? 0x0ffffffeu : k == 1 ? 0x1c38d511u : k == 2 ? 0x68000003u : 0x5bc72af0u;
-  }
-};
-
 struct Ext {
   uint32_t c[4];
 };
@@ -38,8 +30,6 @@ __device__ __forceinline__ void ext_store(uint32_t* p, const Ext& a) {
   p[2] = a.c[2];
   p[3] = a.c[3];
 }
-
-__device__ __forceinline__ bool ext_is_zero(const Ext& a) { return (a.c[0] | a.c[1] | a.c[2] | a.c[3]) == 0u; }
 
 __device__ __forceinline__ Ext ext_add(const Ext& a, const Ext& b) {
   return Ext{{add_mod(a.c[0], b.c[0]), add_mod(a.c[1], b.c[1]), add_mod(a.c[2], b.c[2]), add_mod(a.c[3], b.c[3])}};
@@ -79,12 +69,6 @@ __device__ __forceinline__ Ext ext_mul(const Ext& a, const Ext& b) {
               add_mod(add_mod(l.p2, p10), monty_mul(h.p2, MONTY_W)), p11}};
 }
 
-// a -> a^(p^j)
-__device__ __forceinline__ Ext ext_frobenius(const Ext& a, int j) {
-  return Ext{{a.c[0], monty_mul(a.c[1], FrobTwist::at(j & 3)), monty_mul(a.c[2], FrobTwist::at((2 * j) & 3)),
-              monty_mul(a.c[3], FrobTwist::at((3 * j) & 3))}};
-}
-
 // x^e of a base element by square-and-multiply (Montgomery forms throughout)
 __device__ __forceinline__ uint32_t base_pow(uint32_t x, uint64_t e) {
   uint32_t acc = MONTY_ONE;
@@ -96,26 +80,84 @@ __device__ __forceinline__ uint32_t base_pow(uint32_t x, uint64_t e) {
   return acc;
 }
 
-// x^-1 = x^(P - 2) (Fermat); 0 -> 0
-__device__ __forceinline__ uint32_t base_inv(uint32_t x) { return base_pow(x, uint64_t(P) - 2); }
-
-// a^e by square-and-multiply
-__device__ __forceinline__ Ext ext_pow(Ext a, uint64_t e) {
-  Ext acc = ext_one();
-  while (e) {
-    if (e & 1) acc = ext_mul(acc, a);
-    e >>= 1;
-    if (e) a = ext_mul(a, a);
+// x^-1 = x^(P - 2) (Fermat; 0 -> 0) by an addition chain: P - 2 = 0x77FFFFFF
+// is 111 0 111 and then eight runs of 111, so 30 squarings and 11 products
+// (41 Montgomery products, square-and-multiply's 58)
+__device__ __forceinline__ uint32_t base_inv(uint32_t x) {
+  const uint32_t x3 = monty_mul(monty_mul(x, x), x);
+  const uint32_t x7 = monty_mul(monty_mul(x3, x3), x);
+  uint32_t r = x7;
+  for (int i = 0; i < 4; ++i) r = monty_mul(r, r);
+  r = monty_mul(r, x7);
+#pragma unroll 1
+  for (int k = 0; k < 8; ++k) {
+    r = monty_mul(r, r);
+    r = monty_mul(r, r);
+    r = monty_mul(r, r);
+    r = monty_mul(r, x7);
   }
-  return acc;
+  return r;
 }
 
-// The inverse by the norm, as fields/extension.py: b = the product of the
-// three conjugates, N = (a b)[0] in F_p, a^-1 = b / N; 0 -> 0.
-__device__ __forceinline__ Ext ext_inv(const Ext& a) {
-  const Ext b = ext_mul(ext_frobenius(a, 1), ext_mul(ext_frobenius(a, 2), ext_frobenius(a, 3)));
-  const uint32_t norm = ext_mul(a, b).c[0];
-  return ext_mul_base(b, base_inv(norm));
+// Lazy sums of raw products (K7's fold, csrc/quotient_eval.cuh): a product
+// of two residues is below P^2 < 2^61.82, so four of them fit a u64; a
+// settle folds the high word back, hi * (2^32 mod P) + lo < 2^60 + 2^32, so
+// four more fit again; a settled sum is below P 2^32 and one Montgomery
+// reduction gives sum a_k b_k 2^-32 mod P: the Monty form of sum a_k b_k
+// for Monty a_k, b_k, canonical.
+constexpr uint32_t TWO32_MOD_P = 0x0ffffffeu;
+
+// acc += a * b componentwise, a an extension value, b a base value
+__device__ __forceinline__ void fold(uint64_t acc[4], const Ext& a, uint32_t b) {
+  acc[0] += uint64_t(a.c[0]) * b;
+  acc[1] += uint64_t(a.c[1]) * b;
+  acc[2] += uint64_t(a.c[2]) * b;
+  acc[3] += uint64_t(a.c[3]) * b;
+}
+
+__device__ __forceinline__ uint64_t settle1(uint64_t x) {
+  return uint64_t(uint32_t(x >> 32)) * TWO32_MOD_P + uint32_t(x);
+}
+
+__device__ __forceinline__ void settle(uint64_t acc[4]) {
+  for (int i = 0; i < 4; ++i) acc[i] = settle1(acc[i]);
+}
+
+// x * 2^-32 mod P for x < P 2^32, canonical
+__device__ __forceinline__ uint32_t monty_reduce(uint64_t x) {
+  const uint32_t m = uint32_t(x) * MU;
+  const uint32_t u = __umulhi(m, P);
+  const uint32_t hi = uint32_t(x >> 32);
+  const uint32_t r = hi - u;
+  return hi < u ? r + P : r;
+}
+
+// the settled and reduced sums, zeroed for the next four terms' run
+__device__ __forceinline__ Ext finish(uint64_t acc[4]) {
+  Ext v;
+  for (int i = 0; i < 4; ++i) {
+    v.c[i] = monty_reduce(settle1(acc[i]));
+    acc[i] = 0;
+  }
+  return v;
+}
+
+// acc += a * b, the 16 products raw: coefficient k takes sum_{i+j=k} a_i b_j
+// + sum_{i+j=k+4} a_i (W b_j), four products, so a settled acc keeps below
+// 2^64; wb = the Monty forms of W b_1, W b_2, W b_3
+__device__ __forceinline__ void ext_mul_acc(uint64_t acc[4], const Ext& a, const Ext& b, const uint32_t wb[3]) {
+  const uint64_t a0 = a.c[0], a1 = a.c[1], a2 = a.c[2], a3 = a.c[3];
+  acc[0] += a0 * b.c[0] + a1 * wb[2] + a2 * wb[1] + a3 * wb[0];
+  acc[1] += a0 * b.c[1] + a1 * b.c[0] + a2 * wb[2] + a3 * wb[1];
+  acc[2] += a0 * b.c[2] + a1 * b.c[1] + a2 * b.c[0] + a3 * wb[2];
+  acc[3] += a0 * b.c[3] + a1 * b.c[2] + a2 * b.c[1] + a3 * b.c[0];
+}
+
+// W b_1, W b_2, W b_3 for ext_mul_acc
+__device__ __forceinline__ void times_w(const Ext& b, uint32_t wb[3]) {
+  wb[0] = monty_mul(b.c[1], MONTY_W);
+  wb[1] = monty_mul(b.c[2], MONTY_W);
+  wb[2] = monty_mul(b.c[3], MONTY_W);
 }
 
 // bitrev_bits(i): the low ``bits`` bits of i reversed (bits <= 32)

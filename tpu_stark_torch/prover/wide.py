@@ -232,24 +232,26 @@ class WideMatrixSource:
             open_kernel.eval_at_points(self.coeff_chunk(off, wc), points, 0, out[:, off : off + wc].zero_())
         return list(out)
 
-    def reduced_contrib(self, acc, apows, point, log_h: int, row0: int) -> torch.Tensor:
-        """Add sum_col alpha^k (y_col(x) - y_col(z)) / (x - z) into ``acc``,
-        the rows this process holds (``point`` = (z, the opened sum), as for
-        ``open_kernel.reduced_opening``; None: the column sum alone).  The
+    def reduced_contrib(self, acc, apows, points, log_h: int, row0: int, scales=None) -> torch.Tensor:
+        """Add sum_p sum_col alpha_p^k (y_col(x) - y_col(z_p)) / (x - z_p)
+        into ``acc``, the rows this process holds (``points``, ``apows`` and
+        ``scales`` as for ``open_kernel.reduced_opening``: one table, point
+        p's sum scaled by scales[p]; no point: the column sum alone).  The
         column combination is summed chunk by chunk (K9 without a point),
-        then divided by (x - z) once (K9 on the ext sum): exact field
-        arithmetic, the dense reduced opening's bits."""
-        if point is None:
+        once for all the points, then divided by every (x - z_p) in one
+        launch (K9 on the ext sum): exact field arithmetic, the dense
+        reduced opening's bits."""
+        if not points:
             for off, wc in self.chunks():
                 mat, natural = self._open_chunk(off, wc)
-                open_kernel.reduced_opening(acc, [mat], apows[off : off + wc], log_h, row0, None, natural)
+                open_kernel.reduced_opening(acc, [mat], apows[off : off + wc], log_h, row0, (), natural)
             return acc
         combined = torch.zeros_like(acc)
         for off, wc in self.chunks():
             mat, natural = self._open_chunk(off, wc)
-            open_kernel.reduced_opening(combined, [mat], apows[off : off + wc], log_h, row0, None, natural)
+            open_kernel.reduced_opening(combined, [mat], apows[off : off + wc], log_h, row0, (), natural)
             del mat
-        return open_kernel.reduced_opening(acc, [], apows[:0], log_h, row0, point, ext_in=combined)
+        return open_kernel.reduced_opening(acc, [], apows[:0], log_h, row0, points, ext_in=combined, scales=scales)
 
 
 class ShardedWideSource(WideMatrixSource):
