@@ -10,6 +10,7 @@
     python3 port_timing.py k1 [--tree DIR]
     python3 port_timing.py k5 [--tree DIR] [--phases]
     python3 port_timing.py k7 [--tree DIR] [--sass-out DIR]
+    python3 port_timing.py k8 [--tree DIR]
     python3 port_timing.py open [--tree DIR]
     python3 port_timing.py sass [--tree DIR | --from FILE]
     python3 port_timing.py probe
@@ -143,6 +144,15 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   variants: its kernels as its generator emits them, through its own
   wrapper, at the same shapes and inputs (parent and change in one chip
   call).
+* ``k8``: K8, the panel coset fold, at ``chip_smoke.K8_COSETS`` (phase
+  24's four cosets at 2^20 rows): ptxas's registers and stack frame of each
+  ``panel_fold_kernel<R, F, V>`` instance, then each coset's fold (one
+  launch, or in an older tree one launch a block) timed with CUDA events
+  (the launches queued behind a spin of the device) and under
+  ``torch.profiler`` beside ``chip_smoke.panel_fold_bound``, with
+  the SHA-256 of the (r, m, u) panels (inputs from a fixed seed, so two
+  trees' outputs compare by their hashes).  ``--tree DIR`` as for
+  ``warm``.
 * ``open``: K9 and K10 at ``chip_smoke.py`` phase 25's shapes
   (``chip_smoke.OPEN_ROWS``: config 2 at 2^24, cell 6's chunk and
   division, the chain, a rank block; K9 also at two points), on inputs
@@ -301,9 +311,11 @@ KERNEL_KEYS = (
 
 class _Bounds:
     """While open, adds up ``chip_smoke.py``'s bound (ms) of every kernel
-    wrapper call, by kernel, from the call's operands."""
+    wrapper call, by kernel, from the call's operands.  ``rows``: the
+    trace's height, which prices an older tree's K8 call (one row block of
+    a coset, --tree) as its share of the coset's bound."""
 
-    def __init__(self):
+    def __init__(self, rows: int = 0):
         cs = _chip_smoke()
         from tpu_stark_torch.challenger import grind
         from tpu_stark_torch.compat import device_rng
@@ -368,8 +380,12 @@ class _Bounds:
             return "K7 quotient_eval", cs.quotient_eval_bound(prog.dag, int(cur.shape[0]), add, invz,
                                                               cs.same_panel(cur, nxt))[0]
 
-        def panel_fold(tf, log_m, shift):
-            return "K8 panel_fold", cs.panel_fold_bound(int(tf.shape[0]), int(tf.shape[1]), 1 << log_m)[0]
+        def panel_fold(tf, log_m, shift, r=None):
+            n_coef, u, m = int(tf.shape[0]), int(tf.shape[1]), 1 << log_m
+            if r is None:  # an older tree: one of the coset's rows // m blocks
+                blocks = max(1, rows // m)
+                return "K8 panel_fold", cs.panel_fold_bound(n_coef, u, m, blocks)[0] / blocks
+            return "K8 panel_fold", cs.panel_fold_bound(n_coef, u, m, r)[0]
 
         self._wrap = [
             (keccak_kernel, "hash_rows", keccak), (ntt_kernel, "dft", dft),
@@ -631,7 +647,7 @@ def profile(torch, dev, args) -> None:
     if args.reps:
         print(f"{label}: warm median {sorted(walls[1:])[args.reps // 2]:.3f}s of {args.reps}", flush=True)
     profiled = _PhasePeaks(torch, dev)
-    with _Bounds() as bounds, _K1Launches(torch) as k1, _RngTime(torch) as rng, \
+    with _Bounds(int(trace.shape[0])) as bounds, _K1Launches(torch) as k1, _RngTime(torch) as rng, \
             torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, lambda: run(profiled))
     on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1965,16 +1981,70 @@ def open_timing(torch, dev, args) -> None:
 
 
 
+def k8_timing(torch, dev, args) -> None:
+    """K8 at phase 24's cosets; see the module docstring."""
+    import hashlib
+    import inspect
+    import re
+
+    from tpu_stark_torch import kernels
+    from tpu_stark_torch.air import quotient_kernel as qk
+    from tpu_stark_torch.fields import babybear as bb
+
+    cs = _chip_smoke()
+    build = kernels.build(force=True)
+    source = build.log.split("== quotient.cu", 1)[-1].split("\n== ", 1)[0]
+    inst, lines = None, []
+    for ln in source.splitlines():
+        m = re.search(r"panel_fold_kernelILi(\d+)ELi(\d+)ELi(\d+)E", ln)
+        if m and "Compiling entry" in ln:
+            inst = "<{}, {}, {}>".format(*m.groups())
+        elif inst and ("stack frame" in ln or "Used" in ln):
+            lines.append(f"{inst} {ln.split(':', 1)[-1].strip()}")
+    print(f"nvcc build {build.seconds:.2f}s; panel_fold_kernel<R, F, V> ptxas: " + " | ".join(lines), flush=True)
+    one_pass = "r" in inspect.signature(qk.panel_fold).parameters
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    log_n = 20
+    for label, runs, u, r in cs.K8_COSETS:
+        n_coef, log_m = runs << log_n, log_n - (r.bit_length() - 1)
+        tf = torch.randint(0, bb.P, (n_coef, u), generator=gen, dtype=torch.int32, device=dev)
+        shift = 31 * pow(bb.two_adic_generator(22), 3, bb.P) % bb.P
+        g = bb.two_adic_generator(log_n)
+        if one_pass:
+            def call(tf=tf, log_m=log_m, shift=shift, r=r):
+                return qk.panel_fold(tf, log_m, shift, r)
+        else:  # an older tree: one launch a block
+            def call(tf=tf, log_m=log_m, shift=shift, r=r, g=g):
+                return [qk.panel_fold(tf, log_m, shift * pow(g, k, bb.P) % bb.P) for k in range(r)]
+        out = call()
+        out = torch.stack(out) if isinstance(out, list) else out
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        del out
+        ms = cs._cuda_ms(torch, call, 10, queued=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and "panel_fold_kernel" in e.name]
+        bound, by = cs.panel_fold_bound(n_coef, u, 1 << log_m, r)
+        print(f"k8 {label} ({n_coef}, {u}) -> {r} x {1 << log_m} rows: {ms:.4f} ms (events), kernels "
+              f"{sum(e.time_range.elapsed_us() for e in evs) / 1e4:.4f} ms in {len(evs) // 10} launch(es) a coset; "
+              f"bound {bound:.4f} ms ({by}, {100 * bound / ms:.1f} %); output {digest}", flush=True)
+        del tf
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "open", "sass",
-                                         "probe", "wgmma"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "k8", "open",
+                                         "sass", "probe", "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
     parser.add_argument("--tree", help="import tpu_stark_torch from this directory "
-                        "(warm, profile, k2, p2, k1, k5, k7, open, sass)")
+                        "(warm, profile, k2, p2, k1, k5, k7, k8, open, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
     parser.add_argument("--sass-out", help="k7: write each DAG's kernel SASS to this directory")
@@ -1998,7 +2068,8 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "open": open_timing, "sass": sass, "probe": probe,
+     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "k8": k8_timing, "open": open_timing, "sass": sass,
+     "probe": probe,
      "wgmma": wgmma}[args.what](torch, dev, args)
     return 0
 

@@ -23,6 +23,7 @@ struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return uint4{x, y, z, w}; }
 typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline uint32_t __umulhi(uint32_t a, uint32_t b) { return uint32_t((uint64_t(a) * b) >> 32); }
 inline uint32_t __shfl_down_sync(uint32_t, uint32_t v, int) { return v; }  // host entries never shuffle

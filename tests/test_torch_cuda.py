@@ -766,16 +766,23 @@ def test_quotient_eval_equals_dag_interpretation(dev, name):
     assert np.array_equal(acc.cpu().numpy().view(np.uint32), want)
 
 
-@pytest.mark.parametrize("n,u,log_m", [(64, 3, 6), (4096, 24, 10), (1 << 16, 257, 14), (1 << 17, 768, 14),
-                                       (1 << 12, 5, 12)])
-def test_panel_fold_equals_plain(dev, n, u, log_m):
-    tf = _monty(dev, (n, u), n + u)
+# (n coefficients, u, log_m, r blocks): cosets of r = 1, 2, 4, 8, 16 blocks
+# from npan = r or 2 r (zk) runs, on the 16-byte groups (u >= 4, r <= 8)
+# and on single words
+@pytest.mark.parametrize("n,u,log_m,r", [(64, 3, 6, 1), (4096, 24, 10, 4), (1 << 16, 257, 14, 2),
+                                         (1 << 17, 768, 14, 8), (1 << 12, 5, 12, 1), (1 << 14, 320, 13, 2),
+                                         (1 << 15, 384, 13, 2), (1 << 16, 768, 14, 4), (1 << 17, 768, 14, 4),
+                                         (1 << 16, 257, 14, 4), (1 << 17, 257, 14, 4), (1 << 14, 24, 10, 16),
+                                         (1 << 15, 100, 10, 16), (1 << 13, 1, 13, 1), (1 << 14, 24, 13, 1)])
+def test_panel_fold_equals_plain(dev, n, u, log_m, r):
+    tf = _monty(dev, (n, u), n + u + r)
     shift = 31 * pow(bb.two_adic_generator(20), n + u, bb.P) % bb.P
     before = kernels.PANEL_FOLD.launches
-    got = qk.panel_fold(tf, log_m, shift)
-    want = qk.panel_fold_plain(tf, log_m, shift)
+    got = qk.panel_fold(tf, log_m, shift, r)
+    want = qk.panel_fold_plain(tf, log_m, shift, r)
     torch.cuda.synchronize()
     assert kernels.PANEL_FOLD.launches == before + 1
+    assert got.shape == (r, 1 << log_m, u)
     assert torch.equal(got, want)
 
 
@@ -801,8 +808,8 @@ def test_dense_quotient_on_card_equals_cpu(dev, name, monkeypatch):
 
 
 def test_streamed_quotient_on_card_equals_cpu(dev, monkeypatch):
-    """keccak-air's streamed quotient in 16 row blocks a coset on K8, K2 and
-    K7 equals the CPU pass."""
+    """keccak-air's streamed quotient in 16 row blocks a coset on K8 (one
+    launch a partition and coset), K2 and K7 equals the CPU pass."""
     from tpu_stark_torch.prover import wide
     from tpu_stark_torch.prover.config import create_config
 
@@ -820,7 +827,7 @@ def test_streamed_quotient_on_card_equals_cpu(dev, monkeypatch):
     before = (kernels.QUOTIENT_EVAL.launches, kernels.PANEL_FOLD.launches)
     got = chunks(dev)
     torch.cuda.synchronize()
-    assert (kernels.QUOTIENT_EVAL.launches - before[0], kernels.PANEL_FOLD.launches - before[1]) == (3072, 3072)
+    assert (kernels.QUOTIENT_EVAL.launches - before[0], kernels.PANEL_FOLD.launches - before[1]) == (3072, 192)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
 

@@ -327,12 +327,27 @@ extern "C" int64_t ts_q_smem_{key}() {{ return tsq::Layout<Q_{key}>::kBytes; }}
 """
 
 K8_LAUNCH = """
+#include <vector>
 #include "quotient.cu"
-extern "C" int ts_panel_fold(const uint32_t* tf, int64_t npan, int64_t m, int64_t u, uint32_t s, uint32_t s_m,
-                             uint32_t* out, void*) {
-  const int64_t items = (m + kRun - 1) / kRun * u;
-  for (int64_t g = 0; g < items; ++g) fold_item(tf, npan, m, u, s, s_m, out, g);
-  return 0;
+struct HostLoop {  // every segment: its table by every thread, then each thread's groups
+  const PanelArgs& a;
+  template <int R, int F, int V>
+  int run() const {
+    const int64_t seg = panel_seg<R, V>(a), nseg = (a.m + seg - 1) / seg;
+    std::vector<uint32_t> tab(seg * R);
+    for (int64_t s = 0; s < nseg; ++s) {
+      const int64_t i0 = s * seg, rows = a.m - i0 < seg ? a.m - i0 : seg;
+      for (int tid = 0; tid < kThreads; ++tid) seg_table<R>(a, tab.data(), i0, rows, tid, kThreads);
+      for (int tid = 0; tid < kThreads; ++tid)
+        seg_rows<R, F, V>(a, tab.data(), i0, rows, walk_of(a.u, V, tid, kThreads));
+    }
+    return 0;
+  }
+};
+extern "C" int ts_panel_fold(const int64_t* words, const uint32_t* consts, void*) {
+  const PanelArgs a = unpack_panel(words, consts);
+  if (a.m <= 0 || a.u <= 0) return 0;
+  return panel_dispatch(a, HostLoop{a});
 }
 """
 
@@ -357,8 +372,7 @@ def host_libs(tmp_path_factory):
         lib.ts_q_grid.argtypes, lib.ts_q_grid.restype = [ctypes.c_int64], None
         grids.append(lib.ts_q_grid)
     k8 = gxx(tmp, "k8", K8_LAUNCH)
-    vp, i64, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32
-    k8.ts_panel_fold.argtypes, k8.ts_panel_fold.restype = [vp, i64, i64, i64, u32, u32, vp, vp], ctypes.c_int
+    k8.ts_panel_fold.argtypes, k8.ts_panel_fold.restype = [ctypes.c_void_p] * 3, ctypes.c_int
     return fns, k8, grids, smem
 
 
@@ -469,14 +483,76 @@ def test_host_k7_smem_bytes_match_the_layout(host_libs, name):
     assert dag.plan().threads <= qk.MAX_THREADS
 
 
-@pytest.mark.parametrize("n,u,log_m", [(64, 3, 6), (64, 24, 4), (256, 40, 5), (128, 257, 3)])
-def test_host_k8_equals_plain(emulated, n, u, log_m):
-    rng = np.random.default_rng(n + u)
-    tf = torch.from_numpy(_monty(rng, (n, u)))
+def _block_fold(tf, log_m, shift):
+    """One row block's fold on its own, as the JAX package's per-block
+    ``_panel_eval_fn`` folds: the coefficients folded onto shift * <g_m>
+    with powers of shift^m, then scaled by shift^i."""
+    m = 1 << log_m
+    fold = tf[:m]
+    s_m = pow(shift, m, bb.P)
+    w = s_m
+    for q in range(1, int(tf.shape[0]) // m):
+        fold = bb.add(fold, bb.mul_canonical(tf[q * m : (q + 1) * m], w))
+        w = w * s_m % bb.P
+    return bb.mul_canonical(fold, bb.powers(shift, m, tf.device)[:, None])
+
+
+# a coset's fold: r blocks of m = 8 rows from npan = r or 2 r (zk) runs of
+# coefficients, u columns (u >= 4 takes the 16-byte groups for r <= 8)
+K8_COSETS = [(r, f, u) for r in (1, 2, 4, 8, 32) for f in (1, 2) for u in (1, 3, 24, 257)]
+
+
+def _k8_operands(r, f, u, log_m=3):
+    rng = np.random.default_rng(1000 * r + 100 * f + u)
+    tf = torch.from_numpy(_monty(rng, (f * r << log_m, u))).clone()
+    return tf, 31 * pow(bb.two_adic_generator(20), r + 7 * f + u, bb.P) % bb.P
+
+
+@pytest.mark.parametrize("r,f,u", K8_COSETS)
+def test_panel_fold_plain_equals_the_block_folds(r, f, u):
+    """The one-pass fold's plain version (the r-point DFT across the blocks)
+    equals the r per-block folds on shift * g^k * <g_m>, g of order r m."""
+    tf, shift = _k8_operands(r, f, u)
+    g = bb.two_adic_generator(3 + r.bit_length() - 1)
+    want = torch.stack([_block_fold(tf, 3, shift * pow(g, k, bb.P) % bb.P) for k in range(r)])
+    assert torch.equal(qk.panel_fold_plain(tf, 3, shift, r), want)
+
+
+# (n, u, log_m, r): cosets of 1-16 blocks from r or 2 r runs, of several
+# segments (a ragged last one; groups across rows' ends), m = 2 (single
+# words), then the cosets of K8_COSETS
+@pytest.mark.parametrize("n,u,log_m,r", [(64, 3, 6, 1), (64, 24, 4, 4), (256, 40, 5, 4), (128, 257, 3, 8),
+                                         (256, 8, 3, 16), (512, 12, 4, 16), (256, 257, 6, 4), (512, 257, 6, 4),
+                                         (1024, 24, 9, 2), (8192, 3, 12, 1), (2048, 5, 10, 2), (64, 6, 1, 32)]
+                         + [(f * r << 3, u, 3, r) for r, f, u in K8_COSETS])
+def test_host_k8_equals_plain(emulated, n, u, log_m, r):
+    rng = np.random.default_rng(n + u + r)
+    tf = torch.from_numpy(_monty(rng, (n, u))).clone()
     shift = 31 * pow(bb.two_adic_generator(10), n + u, bb.P) % bb.P
-    got = qk.panel_fold(tf, log_m, shift)
+    got = qk.panel_fold(tf, log_m, shift, r)
     assert kernels.PANEL_FOLD.launches == 1
-    assert torch.equal(got, emulated["panel_fold_plain"](tf, log_m, shift))
+    assert got.shape == (r, 1 << log_m, u)
+    assert qk._fold_vec(tf, got, 1 << log_m, u, r) == (log_m >= 2 and u >= 4 and r <= 8)
+    assert torch.equal(got, emulated["panel_fold_plain"](tf, log_m, shift, r))
+
+
+@pytest.mark.parametrize("n,log_m,r", [(64, 3, 2), (64, 4, 8), (64, 4, 64), (48, 3, 4)])
+def test_panel_fold_refuses_other_shapes(emulated, n, log_m, r):
+    """A coset's fold takes r or 2 r runs of m rows, r a power of two up to
+    32: anything else raises on both paths, before any launch."""
+    tf = torch.zeros((n, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="panel_fold"):
+        qk.panel_fold(tf, log_m, 7, r)
+    with pytest.raises(ValueError, match="panel_fold"):
+        emulated["panel_fold_plain"](tf, log_m, 7, r)
+    assert kernels.PANEL_FOLD.launches == 0
+
+
+def test_panel_fold_raises_on_a_failed_launch(emulated, monkeypatch):
+    """No fallback: a launch that returns a CUDA error raises."""
+    monkeypatch.setattr(kernels, "lib", lambda: type("Lib", (), {"ts_panel_fold": lambda *a: 700})())
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        qk.panel_fold(torch.zeros((64, 4), dtype=torch.int32), 4, 7, 4)
 
 
 def test_host_quotient_values_equal_plain(emulated):
@@ -515,7 +591,7 @@ def test_host_streamed_quotient_equals_plain(emulated):
     air = keccak_air.KeccakAir()
     apows = torch.from_numpy(_monty(np.random.default_rng(4), (7241, 4)))
     got = wide.quotient_chunks_streamed(air, src, domain, 2, apows, [], 0, 3)[1]
-    assert kernels.QUOTIENT_EVAL.launches == 48 * 4 * 16 and kernels.PANEL_FOLD.launches == 48 * 4 * 16
+    assert kernels.QUOTIENT_EVAL.launches == 48 * 4 * 16 and kernels.PANEL_FOLD.launches == 48 * 4
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(qk, "_on_card", lambda t: False)
         mp.setattr(qk, "eval_fold_plain", emulated["eval_fold_plain"])

@@ -12,8 +12,9 @@ the kernels run their plain torch versions here.
 * the zk source: one chunk commits to the dense zk construction's root and
   JAX's, and its coefficients over several chunks (columns that repeat and
   straddle chunks) equal JAX's;
-* the row-blocked quotient equals the unblocked one and the dense pass, and
-  a panel folds the zk source's 2n coefficients;
+* the row-blocked quotient equals the unblocked one and the dense pass; a
+  coset's panels fold the zk source's 2n coefficients, and each block's
+  panel equals JAX's ``_panel_eval_fn``;
 * JAX's restrictions raise.
 """
 
@@ -377,17 +378,43 @@ def test_row_blocked_quotient_matches_unblocked_and_dense():
 
 
 def test_panel_on_coset_folds_the_zk_coefficients():
-    """A block's panel from the zk source's 2n coefficients (a fold of 4
-    runs of m = n/2) equals the polynomial evaluated point by point."""
+    """Both blocks' panels of a coset from the zk source's 2n coefficients
+    (one fold of 4 runs of m = n/2 into r = 2 blocks) equal the polynomial
+    evaluated point by point at shift * g^k * g_m^i."""
     n, u = 16, 3
     pcs = _pcs()
     tf = bb.to_tensor(_monty(21, (2 * n, u)), "cpu")
     log_m, shift = 3, 7 * pow(bb.two_adic_generator(4), 3, bb.P) % bb.P
-    got = bb.to_numpy(bb.to_u32(wide._panel_on_coset(pcs.dft, tf, log_m, shift)))
+    panels = list(wide._coset_panels(pcs.dft, tf, log_m, shift, 2))
     coeffs = bb.to_numpy(bb.to_u32(tf))
-    g_m = bb.two_adic_generator(log_m)
-    for i in range(1 << log_m):
-        x = shift * pow(g_m, i, bb.P) % bb.P
-        for c in range(u):
-            want = sum(int(coeffs[j, c]) * pow(x, j, bb.P) for j in range(2 * n)) % bb.P
-            assert int(got[i, c]) == want
+    g, g_m = bb.two_adic_generator(4), bb.two_adic_generator(log_m)
+    assert len(panels) == 2
+    for k, panel in enumerate(panels):
+        got = bb.to_numpy(bb.to_u32(panel))
+        for i in range(1 << log_m):
+            x = shift * pow(g, k, bb.P) * pow(g_m, i, bb.P) % bb.P
+            for c in range(u):
+                want = sum(int(coeffs[j, c]) * pow(x, j, bb.P) for j in range(2 * n)) % bb.P
+                assert int(got[i, c]) == want
+
+
+# a coset of r blocks of m = 8 rows from npan = r or 2 r (zk) runs of
+# coefficients, u columns
+FOLD_COSETS = [(r, f, u) for r in (1, 2, 4, 8, 32) for f in (1, 2) for u in (1, 3, 24, 257)]
+
+
+@pytest.mark.parametrize("r,f,u", FOLD_COSETS)
+def test_coset_panels_match_jax_panel_eval(r, f, u):
+    """Each block's panel, from one fold of the coset (K8's plain version)
+    and one NTT, equals JAX's per-block ``_panel_eval_fn`` at shift * g^k,
+    bit for bit."""
+    log_m = 3
+    tf = _monty(1000 * r + 100 * f + u, (f * r << log_m, u))
+    shift = 7 * pow(bb.two_adic_generator(20), r + u, bb.P) % bb.P
+    g = bb.two_adic_generator(log_m + r.bit_length() - 1)
+    panels = list(wide._coset_panels(Dft(device="cpu"), bb.to_tensor(tf, "cpu"), log_m, shift, r))
+    assert len(panels) == r
+    for k, panel in enumerate(panels):
+        s_k = bb.monty_scalar(shift * pow(g, k, bb.P) % bb.P)
+        want = np.asarray(jwide._panel_eval_fn(log_m, jnp.asarray(tf), jnp.uint32(s_k)))
+        assert np.array_equal(bb.to_numpy(panel), want)

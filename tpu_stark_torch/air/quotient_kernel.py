@@ -23,10 +23,14 @@ alpha powers, the selectors and the public values are arguments.  Each DAG
 builds into a shared library of its own (``kernels.build_generated``),
 at first use.
 
-**K8** (``csrc/quotient.cu``) is the panel coset fold (``panel_fold``):
-out[i, c] = shift^i * sum_q tf[q m + i, c] * (shift^m)^q, the (n, u)
-coefficient columns folded onto the size-m coset shift * <g_m> and scaled
-for the NTT (K2) that evaluates them there.
+**K8** (``csrc/quotient.cu``) is the panel coset fold (``panel_fold``) of
+one quotient coset shift * <g> (g of order n = r m) cut into r row blocks,
+block k the points shift g^k * <g_m>: out[k][i, c] = (shift g^k)^i *
+sum_q tf[q m + i, c] * (shift g^k)^(m q), the (npan m, u) coefficient
+columns folded onto each block and scaled for the NTT (K2) that evaluates
+them there.  Since (g^k)^m = w^k with w = g^m of order r, the r folds are
+one r-point DFT across the blocks of the coefficients scaled by
+shift^(m q): one read of ``tf`` for the whole coset.
 
 On the CPU each wrapper runs its plain version (``eval_fold_plain``,
 ``panel_fold_plain``: the ``QuotientBuilder`` / ``PartitionBuilder`` path
@@ -519,40 +523,86 @@ def eval_fold_plain(prog: Program, cur: torch.Tensor, nxt: torch.Tensor, nshift:
 # ---------------------------------------------------------------------------
 # K8: the panel coset fold
 # ---------------------------------------------------------------------------
-def panel_fold(tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
-    """K8: the (n, u) Monty coefficient columns ``tf`` folded onto the coset
-    shift * <g_m> of size m = 2^log_m (x^m = shift^m there: coefficients
-    q m + i join i with weight (shift^m)^q) and scaled by shift^i, (m, u)
-    Monty, the NTT's input.  A CPU tensor runs ``panel_fold_plain``; on the
-    card a failed build or launch raises."""
+MAX_FOLD_BLOCKS = 32  # row blocks a coset (csrc/quotient.cu kMaxR)
+_FOLD_CONSTS = MAX_FOLD_BLOCKS + MAX_FOLD_BLOCKS // 2 + 2 * MAX_FOLD_BLOCKS
+
+
+def _fold_shape(tf: torch.Tensor, log_m: int, r: int) -> Tuple[int, int, int]:
+    """(npan, m, u) of a fold of ``tf`` into r blocks of m = 2^log_m rows;
+    raises unless npan = n_coef / m is r (the trace's n coefficients) or 2 r
+    (zk's 2n) and r a power of two up to MAX_FOLD_BLOCKS."""
+    n_coef, u = int(tf.shape[0]), int(tf.shape[1])
+    m = 1 << log_m
+    if r < 1 or r & (r - 1) or r > MAX_FOLD_BLOCKS or n_coef not in (r * m, 2 * r * m):
+        raise ValueError(f"panel_fold: {r} blocks of {m} rows from {n_coef} coefficients")
+    return n_coef // m, m, u
+
+
+def _fold_vec(t: torch.Tensor, out: torch.Tensor, m: int, u: int, r: int) -> bool:
+    """Whether K8 streams 16-byte groups of words (its segments of rows then
+    start 16-byte aligned, whatever u is): m a multiple of 4, u >= 4, both
+    bases 16-byte aligned and at most 8 blocks."""
+    return m % 4 == 0 and u >= 4 and r <= 8 and t.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+
+
+def panel_fold(tf: torch.Tensor, log_m: int, shift: int, r: int) -> torch.Tensor:
+    """K8: the (r, m, u) Monty panels of one quotient coset shift * <g>
+    (g of order r m = r 2^log_m) from its (npan m, u) Monty coefficient
+    columns ``tf`` (npan = r, or 2 r in zk): ``out[k]`` is the fold onto
+    block k, the points shift g^k * <g_m> (coefficients q m + i join i with
+    weight (shift g^k)^(m q)), scaled by (shift g^k)^i: the NTT's input.
+    One read of ``tf`` for all r blocks.  A CPU tensor runs
+    ``panel_fold_plain``; on the card a failed build or launch raises."""
     if not _on_card(tf):
-        return panel_fold_plain(tf, log_m, shift)
+        return panel_fold_plain(tf, log_m, shift, r)
     so = kernels.lib()
     _check_i32("tf", tf, 2)
-    n, u = int(tf.shape[0]), int(tf.shape[1])
-    m = 1 << log_m
-    if n % m or not tf.is_contiguous():
-        raise ValueError(f"panel_fold: a contiguous (n, u) operand with m = {m} dividing n, got {tuple(tf.shape)}")
-    out = torch.empty((m, u), dtype=torch.int32, device=tf.device)
+    npan, m, u = _fold_shape(tf, log_m, r)
+    if not tf.is_contiguous():
+        raise ValueError(f"panel_fold: a contiguous operand, got strides {tf.stride()}")
+    out = torch.empty((r, m, u), dtype=torch.int32, device=tf.device)
     if out.numel() == 0:
         return out
-    s = shift % bb.P
+    words = (ctypes.c_int64 * 7)(tf.data_ptr(), out.data_ptr(), npan, m, u, r.bit_length() - 1,
+                                 int(_fold_vec(tf, out, m, u, r)))
     kernels.PANEL_FOLD.launches += 1
-    kernels.check(
-        so.ts_panel_fold(tf.data_ptr(), n // m, m, u, bb.monty_scalar(s), bb.monty_scalar(pow(s, m, bb.P)),
-                         out.data_ptr(), kernels.stream_handle(tf.device)),
-        "panel fold",
-    )
+    kernels.check(so.ts_panel_fold(words, _fold_consts(shift % bb.P, log_m, r, npan),
+                                   kernels.stream_handle(tf.device)), "panel fold")
     return out
 
 
-def panel_fold_plain(tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
-    """``panel_fold`` in plain torch (int64 products)."""
+@functools.lru_cache(maxsize=256)
+def _fold_consts(s: int, log_m: int, r: int, npan: int):
+    """K8's constants, Monty: S g^k (k < r), w^j (j < r/2), S^(m q) (q <
+    npan), each list padded to the kernel's length (the partitions of a
+    coset share them)."""
     m = 1 << log_m
-    fold = tf[:m]
-    s_m = pow(shift, m, bb.P)
-    w = s_m
-    for q in range(1, int(tf.shape[0]) // m):
-        fold = bb.add(fold, bb.mul_canonical(tf[q * m : (q + 1) * m], w))
-        w = w * s_m % bb.P
-    return bb.mul_canonical(fold, bb.powers(shift, m, tf.device)[:, None])
+    g = bb.two_adic_generator(log_m + r.bit_length() - 1)
+    w, s_m = pow(g, m, bb.P), pow(s, m, bb.P)
+    consts = [s * pow(g, k, bb.P) for k in range(r)] + [0] * (MAX_FOLD_BLOCKS - r)
+    consts += [pow(w, j, bb.P) for j in range(r // 2)] + [0] * (MAX_FOLD_BLOCKS // 2 - r // 2)
+    consts += [pow(s_m, q, bb.P) for q in range(npan)] + [0] * (2 * MAX_FOLD_BLOCKS - npan)
+    return (ctypes.c_uint32 * _FOLD_CONSTS)(*(bb.monty_scalar(c) for c in consts))
+
+
+def panel_fold_plain(tf: torch.Tensor, log_m: int, shift: int, r: int) -> torch.Tensor:
+    """``panel_fold`` in plain torch (int64 products): the coefficients
+    scaled by shift^(m q) and summed by q mod r, their r-point DFT across
+    the blocks by w = g^m, block k scaled by (shift g^k)^i."""
+    npan, m, u = _fold_shape(tf, log_m, r)
+    s = shift % bb.P
+    g = bb.two_adic_generator(log_m + r.bit_length() - 1)
+    w, s_m = pow(g, m, bb.P), pow(s, m, bb.P)
+    b = []
+    for t in range(r):
+        acc = tf[t * m : (t + 1) * m] if t == 0 else bb.mul_canonical(tf[t * m : (t + 1) * m], pow(s_m, t, bb.P))
+        for q in range(t + r, npan, r):
+            acc = bb.add(acc, bb.mul_canonical(tf[q * m : (q + 1) * m], pow(s_m, q, bb.P)))
+        b.append(acc)
+    out = torch.empty((r, m, u), dtype=torch.int32, device=tf.device)
+    for k in range(r):
+        acc = b[0]
+        for t in range(1, r):
+            acc = bb.add(acc, bb.mul_canonical(b[t], pow(w, k * t, bb.P)))
+        out[k] = bb.mul_canonical(acc, bb.powers(s * pow(g, k, bb.P), m, tf.device)[:, None])
+    return out

@@ -106,8 +106,9 @@ QUOTIENT_EVAL = KernelInfo(
     "quotient_eval", "tpu_stark_torch/csrc/quotient_eval.cuh",
     "tpu_stark/prover/wide.py:700",
 )
-# K8, the streamed quotient's panel coset fold; its JAX counterpart is the
-# fold and scale of the XLA program tpu_stark/prover/wide.py:646
+# K8, the streamed quotient's panel coset fold, all row blocks of a coset in
+# one pass; its JAX counterpart is the fold and scale of the XLA program
+# tpu_stark/prover/wide.py:646, once a block
 PANEL_FOLD = KernelInfo(
     "panel_fold", "tpu_stark_torch/csrc/quotient.cu",
     "tpu_stark/prover/wide.py:646",
@@ -264,9 +265,7 @@ def lib() -> ctypes.CDLL:
             u32 = ctypes.c_uint32
             so.ts_threefry_monty.argtypes = [u32, u32, u32, u32, i64, vp, i64, i64, vp, i64, vp, vp]
             so.ts_threefry_monty.restype = i32
-            so.ts_panel_fold.argtypes = [vp, i64, i64, i64, u32, u32, vp, vp]
-            so.ts_panel_fold.restype = i32
-            for entry in (so.ts_reduced_opening, so.ts_eval_at_points, so.ts_fri_fold):
+            for entry in (so.ts_panel_fold, so.ts_reduced_opening, so.ts_eval_at_points, so.ts_fri_fold):
                 entry.argtypes = [vp, vp, vp]  # the words, the u32 constants, the stream
                 entry.restype = i32
             so.ts_sol_mul.argtypes = [vp, vp, vp, i64, i32, vp]

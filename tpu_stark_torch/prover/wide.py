@@ -23,7 +23,9 @@ products several times that.  Here:
   randomizer is never held.  With one chunk it is the dense prover's draw;
 * the quotient runs one AIR partition at a time (``keccak_air.Partition``),
   over only that partition's columns, and one row block at a time: block k
-  of quotient coset j holds the points shift_j * g^(k + r*t);
+  of quotient coset j holds the points shift_j * g^(k + r*t); one fold
+  (kernel K8) reads the partition's coefficients once for all r blocks of
+  a coset;
 * the open phase recomputes chunk LDEs when it needs them: the out-of-domain
   evaluations, the reduced openings and the query rows
   (``commit/pcs.py`` dispatches on ``eval_at_points`` / ``reduced_contrib``).
@@ -440,10 +442,11 @@ def commit_wide(pcs, domain: TwoAdicCoset, source: WideMatrixSource) -> Tuple[tu
 # ---------------------------------------------------------------------------
 def block_count(n: int, u: int, use_next: bool, panel_budget: int, min_block_log: int) -> int:
     """Row blocks r (a power of two, at most 32): each size-n quotient coset
-    is cut into r strided sub-cosets so that the live int32 panels, (n/r, u)
-    once, or three times when the partition reads next rows (current, next
-    and block 0 for the wrap), fit ``panel_budget`` bytes; a block keeps at
-    least 2^min_block_log rows."""
+    is cut into r strided sub-cosets so that the live int32 panels that K2
+    and K7 take, (n/r, u) once, or three times when the partition reads
+    next rows (current, next and block 0 for the wrap), fit
+    ``panel_budget`` bytes; a block keeps at least 2^min_block_log rows.
+    The coset's r folded panels, (n, u) in all, are live beside them."""
     live = 3 if use_next else 1
     r = 1
     while r < _MAX_BLOCKS and (n // r) > (1 << min_block_log) and (n // r) * u * 4 * live > panel_budget:
@@ -451,12 +454,15 @@ def block_count(n: int, u: int, use_next: bool, panel_budget: int, min_block_log
     return r
 
 
-def _panel_on_coset(dft, tf: torch.Tensor, log_m: int, shift: int) -> torch.Tensor:
-    """Evaluate the (n, u) coefficient columns on the size-2^log_m coset
-    shift * <g_m>: x^m = shift^m there, so the n coefficients fold to m with
-    powers of shift^m, then scale by shift^i (K8, ``quotient_kernel.
-    panel_fold``) and one NTT (K2)."""
-    return dft.dft_batch(quotient_kernel.panel_fold(tf, log_m, shift))
+def _coset_panels(dft, tf: torch.Tensor, log_m: int, shift: int, r: int):
+    """Yield, block by block, the coefficient columns ``tf`` evaluated on
+    the r row blocks of the coset shift * <g> (g of order r 2^log_m), block
+    k the points shift g^k * <g_m>: one fold of all r blocks from one read
+    of ``tf`` (K8, ``quotient_kernel.panel_fold``), then one NTT (K2) a
+    block as it is asked for."""
+    raw = quotient_kernel.panel_fold(tf, log_m, shift, r)
+    for k in range(r):
+        yield dft.dft_batch(raw[k])
 
 
 def partition_share(air: BaseAir, mesh) -> List[int]:
@@ -487,8 +493,9 @@ def quotient_chunks_streamed(
 ) -> Tuple[List[TwoAdicCoset], List[torch.Tensor]]:
     """Quotient chunk values, one (n, 4) ext matrix per quotient coset: the
     dense quotient pass's values split ``[j::qd]``.  Each partition's
-    coefficients are computed once; then for each coset j and row block k
-    (r blocks, ``block_count``), its columns are evaluated on the points
+    coefficients are computed once; then each coset j is cut into r row
+    blocks (``block_count``), one fold for all of them (``_coset_panels``),
+    and for each block k its columns are evaluated on the points
     shift_j * g^(k + r*t), the next rows are block k+1's (the last block's
     are block 0's, shifted by one row), the selectors are the coset's own
     at those rows, and the alpha-folded constraints add into rows k::r of
@@ -501,7 +508,6 @@ def quotient_chunks_streamed(
     dev = source.device
     n = source.n
     log_n = trace_domain.log_n
-    g = bb.two_adic_generator(log_n)
     qd = 1 << log_qd
     chunk_domains = trace_domain.create_disjoint_domain(n * qd).split_domains(qd)
     selectors = [trace_domain.selectors_on_coset_device(cd, dev) for cd in chunk_domains]
@@ -519,12 +525,12 @@ def quotient_chunks_streamed(
         tf = source.quotient_coeffs_cols(prog.cols)
         alpha_slice = alpha_pows[prog.offset : prog.offset + prog.count]
         for j, cd in enumerate(chunk_domains):
-            shifts = [cd.shift * pow(g, k, bb.P) % bb.P for k in range(r)]
+            panels = _coset_panels(source.dft, tf, log_m, cd.shift, r)
             # row t of block k is the coset's row k + r t: its next row is
             # block k+1's row t, or for the last block block 0's row t + 1
-            first = cur = _panel_on_coset(source.dft, tf, log_m, shifts[0])
+            first = cur = next(panels)
             for k in range(r):
-                nxt = _panel_on_coset(source.dft, tf, log_m, shifts[k + 1]) if use_next and k + 1 < r else None
+                nxt = next(panels) if use_next and k + 1 < r else None
                 if use_next:
                     nxt_panel, nshift = (first, 1) if nxt is None else (nxt, 0)
                 else:
@@ -532,10 +538,10 @@ def quotient_chunks_streamed(
                 quotient_kernel.eval_fold(prog, cur, nxt_panel, nshift, selectors[j], k, r, pis, alpha_slice,
                                           accs[j], k, r, add=True, invz=False)
                 del nxt_panel
+                cur = nxt  # without next rows None: K7's panel goes before the next block's NTT
                 if not use_next and k + 1 < r:
-                    nxt = _panel_on_coset(source.dft, tf, log_m, shifts[k + 1])
-                cur = nxt
-            del first, cur
+                    cur = next(panels)
+            del first, cur, panels
         del tf
     if mesh is not None and mesh.size > 1:
         accs = list(mesh.all_reduce_mod_p(torch.stack(accs), "quotient_sums"))
