@@ -98,8 +98,11 @@ line each, any failure an uncaught exception and a nonzero exit:
     columns with repeats, rows from row0 past flat index 2^32 and gathered
     rows (``RNG_CHECKS``); K6 at cell 6's randomizer chunk (2^20, 64) and
     at (2^21, 4) and (2^22, 4) timed beside the plain version and its bound; the grind kernel against
-    its plain version and the host check at 8-16 bits, and ``device_grind``
-    against the witnesses JAX's stored;
+    its plain version and the host check at 8-16 bits (2^17 candidates
+    timed beside its bound and its ALU model), against its plain version
+    with the witness across two lanes and across the tail's two blocks at
+    1000 and 2^17 + 77 candidates, and ``device_grind`` against the
+    witnesses JAX's stored;
 16. BASELINE config 2 (fib_air zk at the defaults: device zk rng, blowup 2,
     100 queries, 16 PoW bits): proofs equal to the JAX package's
     (tests/golden/torch_fib_zk_device_jax_proofs.json: n = 8 byte for byte,
@@ -122,10 +125,16 @@ line each, any failure an uncaught exception and a nonzero exit:
     (``TWINS``);
 18. K1's carried-state absorb (``keccak_kernel.absorb_rows`` /
     ``finalize_rows``) against its plain version, exact: 30 pending words
-    and 38 of a (2^22, 64) chunk on a carried random state (timed beside its
-    bound and the ALU pipe's model), the finalize of 4 trace and 4 salt
-    words, 33 pending words, a state and chunk off 16-byte boundaries, and
-    ``KeccakRowStream`` over odd-width chunks against one-shot K1;
+    (word-major, as the kernel writes them back) and a (2^22, 64) chunk on
+    a carried random state in its three operand forms (Montgomery forms in
+    natural or the tree's row order, canonical words in the tree's order;
+    canonical words in natural order refused), the state and the 26
+    words written back compared (the natural Montgomery chunk, cell 6's
+    commit step, timed beside its bound and the ALU pipe's model), the
+    finalize of 26 pending and 4 Montgomery salt words, 33 pending words, a
+    state and chunk off 16-byte boundaries, and ``KeccakRowStream`` over
+    odd-width canonical chunks and over natural Montgomery chunks against
+    one-shot K1;
 19. the zk wide fixture (tests/golden/torch_keccak_air_wide_zk_jax_proofs.
     json: keccak-air at 64 rows, zk, the Keccak stack in 4 column chunks
     and the Poseidon2 stack in one) by SHA-256 and length; each verifies;
@@ -205,8 +214,10 @@ line each, any failure an uncaught exception and a nonzero exit:
     quotient panels such as (2^18, 257)), K1's and K3's leaf and compress
     layers and K4's chunks by rows, widths, row strides and 16-byte
     alignment, K1's tree runs by height, levels and alignment, K1's absorb
-    and finalize by rows, the pending and new words' widths, strides and
-    alignment (phase 20's, printed), K5's leaf
+    and finalize by rows, the new words' width, row stride and alignment,
+    the pending words' width, row and column strides and alignment, and the
+    operand flags (Montgomery forms, natural row order; phase 20's,
+    printed), K5's leaf
     products by n and width (both directions' tables) and its inner levels
     by n, A, R and direction (config 2's set must be phase 14's), the
     grind's chunks by count, tail blocks, witness offset and bits, and K6's
@@ -246,8 +257,12 @@ result written once, the limb table and, at an inner level, the (A, B)
 twiddle table read once (``k5_bound``).  A tree of compress layers (K1's tree kernel)
 reads its input layer once and writes one digest a node, one permutation
 each; K1's absorb reads and writes its 200-byte state a row (the digest
-instead of the state in a finalize) and reads each word once, one
-permutation a rate block (``keccak_absorb_bound``).  Instruction counts are lower bounds read off
+instead of the state in a finalize), reads each word once and writes the
+words after its last whole block once, one permutation a rate block and,
+for a Montgomery chunk, one reduction a word, 2 instructions
+(``keccak_absorb_bound``); the grind reads its constants once and writes
+a byte a candidate, its last round 58 instructions (lanes 0-3 only:
+``grind_bound``).  Instruction counts are lower bounds read off
 the sources: a Montgomery product 5 (three multiplies, a subtract, a
 select), a modular add 2, an NTT butterfly 9 (4 in a transform's stage 0,
 whose twiddles are all 1), a Keccak round 180 (LOP3-fused xors, two funnel
@@ -616,26 +631,56 @@ KECCAK_ROUND_ALU_SASS = 185
 ALU_PIPE_OPS_PER_S = 132 * 2 * 32 * 1.98e9
 
 
-def keccak_absorb_bound(n: int, p: int, k: int, first: bool, fin: bool):
+# a Montgomery form x to its canonical u32 (K1's absorb of a Monty chunk):
+# hi32((1 - x P^-1) P), an IMAD and an IMAD.HI (csrc/keccak_sponge.cu's
+# from_monty)
+MONTY_REDUCE_OPS = 2
+
+
+def keccak_absorb_bound(n: int, p: int, k: int, first: bool, fin: bool, monty: bool = False):
     """The bound of one absorb (``fin``: finalize) over n rows of p pending
-    and k new words: the state read (unless ``first``) and written (the
-    digest instead when ``fin``), the words read once; one permutation a
-    whole block (and the last partial one when ``fin``)."""
+    and k new words: each word read once (the new ones reduced from their
+    Montgomery forms with ``monty``), the state read (unless ``first``) and
+    written (the digest instead when ``fin``) where a block is absorbed, the
+    words after the last whole block written (not ``fin``); one
+    permutation a whole block (and the last partial one when ``fin``)."""
     words = p + k
-    perms = words // 34 + (1 if fin and words % 34 else 0)
-    n_bytes = n * ((0 if first else 200) + (32 if fin else 200) + 4 * words)
-    return _bound(n_bytes, n * perms * KECCAK_F_OPS)
+    blocks = words // 34
+    perms = blocks + (1 if fin and words % 34 else 0)
+    state = fin or blocks > 0
+    n_bytes = n * ((0 if first or not state else 200) + (32 if fin else 200 if blocks else 0) + 4 * words
+                   + (0 if fin else 4 * (words % 34)))
+    return _bound(n_bytes, n * (perms * KECCAK_F_OPS + (k * MONTY_REDUCE_OPS if monty else 0)))
 
 
 def keccak_alu_model_ms(perms: int) -> float:
     return perms * 24 * KECCAK_ROUND_ALU_SASS / ALU_PIPE_OPS_PER_S * 1e3
 
 
+# the last round of a grind candidate's permutation, whose draws read lanes
+# 0-3 only: theta's column sums 20 and D's rotations 10, D applied to plane
+# 0's five sources 10, their rotations 8, chi of 4 lanes 8, iota 2
+KECCAK_DIGEST_ROUND_OPS = 58
+
+
+def grind_bound(count: int, n_blocks: int):
+    """The grind's bound: its constants read once, a byte out a candidate;
+    n_blocks permutations a candidate, the last one's last round for lanes
+    0-3 only."""
+    rounds = (24 * n_blocks - 1) * KECCAK_F_OPS // 24 + KECCAK_DIGEST_ROUND_OPS
+    return _bound(count + 8 * (25 + 17 * n_blocks), count * rounds)
+
+
+def grind_alu_model_ms(count: int, n_blocks: int) -> float:
+    """Its per-pipe model: the full rounds' ALU-pipe SASS and the last round's count."""
+    return count * ((24 * n_blocks - 1) * KECCAK_ROUND_ALU_SASS + KECCAK_DIGEST_ROUND_OPS) / ALU_PIPE_OPS_PER_S * 1e3
+
+
 def import_port():
     """Import the port's modules this script drives (and nothing of JAX)."""
     import types
 
-    from tpu_stark_torch import kernels
+    from tpu_stark_torch import kernels, matrix
     from tpu_stark_torch.air import keccak_air, poseidon2_air
     from tpu_stark_torch.air import quotient_kernel
     from tpu_stark_torch.app.__main__ import main as app_main
@@ -784,15 +829,21 @@ def _record_shapes(port, seen: dict, path: str):
     def rows(t):  # width, row stride, and the base's offset in words past a 16-byte boundary
         return (0, 0, 0) if t is None else (int(t.shape[1]), int(t.stride(0)), t.data_ptr() % 16 // 4)
 
+    def words(t):  # K1's pending words: width, row and column strides, the base's offset
+        return (0, 0, 0, 0) if t is None else (int(t.shape[1]), int(t.stride(0)), int(t.stride(1)),
+                                                t.data_ptr() % 16 // 4)
+
     keys = {
         (nk, "dft"): lambda x, inverse=False: ("dft", int(x.shape[0]), int(x.shape[1]), bool(inverse)),
         (kk, "hash_rows"): lambda a, b=None: ("keccak_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
         (kk, "compress_levels"): lambda d, levels: (
             "keccak_compress_levels", int(d.shape[0]), int(levels), d.data_ptr() % 16 // 4),
-        (kk, "absorb_rows"): lambda st, m, first=False, pend=None: (
-            "keccak_absorb", int(st.shape[1]), *rows(m), *rows(pend), bool(first), st.data_ptr() % 16 // 4),
-        (kk, "finalize_rows"): lambda st, pend, first=False: (
-            "keccak_finalize", int(st.shape[1]), *rows(pend), bool(first), st.data_ptr() % 16 // 4),
+        (kk, "absorb_rows"): lambda st, m, first=False, pend=None, monty=False, natural=False: (
+            "keccak_absorb", int(st.shape[1]), *rows(m), *words(pend), bool(first), bool(monty), bool(natural),
+            st.data_ptr() % 16 // 4),
+        (kk, "finalize_rows"): lambda st, pend, first=False, mat=None, monty=False, natural=False: (
+            "keccak_finalize", int(st.shape[1]), *rows(mat), *words(pend), bool(first), bool(monty), bool(natural),
+            st.data_ptr() % 16 // 4),
         (pk, "hash_rows"): lambda a, b=None: ("poseidon2_hash_rows", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "compress"): lambda a, b: ("poseidon2_compress", int(a.shape[0]), *rows(a), *rows(b)),
         (pk, "absorb_rows"): lambda s, c, first=False: (
@@ -923,16 +974,19 @@ def _check_shapes(torch, port, seen: dict, rand_u32, rand_monty) -> dict:
             flat = rand_u32((50 * n + key[-1],))
             state = flat[key[-1]:].view(50, n)
             want_state = state.clone()
-            if kind == "keccak_absorb":
-                mat = operand(rand_u32, n, *key[2:5])
-                mat = torch.empty((n, 0), dtype=torch.int32, device=flat.device) if mat is None else mat
-                pend, first = operand(rand_u32, n, *key[5:8]), key[8]
-                got = kk.absorb_rows(state, mat, first, pend)
-                want = kk.absorb_rows_plain(want_state, mat, first, pend)
+            first, monty, natural = key[9:12]
+            mat = operand(rand_monty if monty else rand_u32, n, *key[2:5])
+            p, prs, pcs, mis = key[5:9]
+            pend = rand_u32((n * p + mis,))[mis:].as_strided((n, p), (prs, pcs)) if p else None
+            if kind == "keccak_absorb":  # the state and the words written back
+                rest = kk.absorb_rows(state, mat, first, pend, monty, natural)
+                want_rest = kk.absorb_rows_plain(want_state, mat, first, pend, monty, natural)
+                empty = torch.empty((n, 0), dtype=torch.int32, device=dev)
+                got = torch.cat([state.t(), empty if rest is None else rest], 1)
+                want = torch.cat([want_state.t(), empty if want_rest is None else want_rest], 1)
             else:
-                pend, first = operand(rand_u32, n, *key[2:5]), key[5]
-                got = kk.finalize_rows(state, pend, first)
-                want = kk.finalize_rows_plain(want_state, pend, first)
+                got = kk.finalize_rows(state, pend, first, mat, monty, natural)
+                want = kk.finalize_rows_plain(want_state, pend, first, mat, monty, natural)
         elif kind == "poseidon2_absorb":
             state, chunk = rand_monty((n, pk.WIDTH)), operand(rand_monty, n, *key[2:5])
             got = pk.absorb_rows(state.clone(), chunk, key[5])
@@ -1430,6 +1484,11 @@ RNG_CHECKS = (
 RNG_TIMED = ((1 << 20, 64), (1 << 21, 4), (1 << 22, 4))
 
 
+# transcript lengths whose witness straddles two lanes (37 B) or the tail's
+# two blocks (134, 135 B)
+GRIND_GEOMETRIES = (37, 134, 135)
+
+
 def _phase15_rng_grind(torch, port, dev, results) -> str:
     """K6 against the plain Threefry and JAX's samples, timed; the grind
     kernel against its plain version, the host check and JAX's witnesses;
@@ -1497,16 +1556,30 @@ def _phase15_rng_grind(torch, port, dev, results) -> str:
         lines.append(f"{len(data)} B at {bits} bits: witness {w} in {wall * 1e3:.2f} ms")
         if bits == 16 and "keccak_grind" not in results:
             n_blocks = int(tl.shape[0])
-            ms = _cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, bits), 20)
+            ms = _cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, bits), 20, queued=True)
             plain_ms = _cuda_ms(torch, lambda: grind.verdicts_plain(0, 1 << 17, pre, tl, w_off, bits), 2)
-            results["keccak_grind"] = [err, ms, plain_ms, *_bound(
-                (1 << 17) + 8 * (25 + 17 * n_blocks), (1 << 17) * n_blocks * KECCAK_F_OPS)]
-            lines[-1] += f" (2^17-candidate chunk, {n_blocks} block(s): {ms:.4f} ms vs plain {plain_ms:.3f} ms)"
+            bound_ms, bound_by = grind_bound(1 << 17, n_blocks)
+            model_ms = grind_alu_model_ms(1 << 17, n_blocks)
+            results["keccak_grind"] = [err, ms, plain_ms, bound_ms, bound_by, {"alu_model_ms": round(model_ms, 6)}]
+            lines[-1] += (f" (2^17-candidate chunk, {n_blocks} block(s): {ms:.4f} ms vs plain {plain_ms:.3f} ms, "
+                          f"{100 * bound_ms / ms:.1f}% of its bound {bound_ms:.4f} ms ({bound_by}), "
+                          f"{100 * model_ms / ms:.1f}% of the ALU model {model_ms:.4f} ms)")
+    for n_bytes in GRIND_GEOMETRIES:  # the witness across two lanes and across the tail's two blocks
+        data = bytes(range(n_bytes))
+        prefix, tail, w_off = grind._plan(data)
+        pre, tl = grind._operands(prefix, tail, dev)
+        for count in (1000, (1 << 17) + 77):  # the last block partly idle
+            flags, want = grind.verdicts(9, count, pre, tl, w_off, 8), grind.verdicts_plain(9, count, pre, tl, w_off, 8)
+            torch.cuda.synchronize()
+            err = max(err, _max_abs_err(torch, flags, want))
+            if not torch.equal(flags, want):
+                raise AssertionError(f"grind kernel != plain ({n_bytes} B, {count} candidates)")
     results["keccak_grind"][0] = err
     return (f"[15] device rng (K6) == JAX's {len(fixture['samples'])} samples; K6 == plain (exact) at "
             f"{len(RNG_CHECKS)} samples (whole, sel with repeats, rows from row0 past flat index 2^32, gathered "
-            f"rows); one sample: " + "; ".join(rng_lines) + ". Grind kernel == plain == host check; "
-            f"device_grind == JAX: " + "; ".join(lines))
+            f"rows); one sample: " + "; ".join(rng_lines) + ". Grind kernel == plain == host check; == plain with "
+            f"the witness across lanes and blocks ({', '.join(map(str, GRIND_GEOMETRIES))} B transcripts) at 1000 "
+            f"and 2^17 + 77 candidates; device_grind == JAX: " + "; ".join(lines))
 
 
 @contextlib.contextmanager
@@ -1691,18 +1764,23 @@ def _phase17_app_bench(torch, port, kind: str, seen: dict):
     return line, launches
 
 
-# phase 18: the absorb timed at the zk wide commit's chunk: 2^22 LDE rows,
-# 30 pending words and the first 38 of a 64-column chunk (two blocks)
-K1_ABSORB_TIMED = (1 << 22, 30, 38)
+# phase 18: the absorb timed at the zk wide commit's step: 2^22 LDE rows,
+# 30 pending words and a natural-order (2^22, 64) Montgomery chunk (two
+# blocks absorbed, 26 words written back)
+K1_ABSORB_TIMED = (1 << 22, 30, 64)
 
 
-def _phase18_absorb(torch, port, rand_u32, results) -> str:
+def _phase18_absorb(torch, port, rand_u32, rand_monty, results) -> str:
     """K1's carried-state absorb against its plain version, exactly: the
-    timed chunk on a carried random state, 33 pending words, a stream of
-    odd-width chunks against one-shot K1, the finalize of 4 trace and 4 salt
-    words, and a state and operands off 16-byte boundaries.  Returns the
-    phase's line."""
-    kk = port.keccak_kernel
+    timed step (the state and the words it writes back) on a carried random
+    state in its three operand forms (Montgomery forms in natural or the
+    tree's row order, canonical words in the tree's order; canonical words
+    in natural order are refused), the finalize of the pending words and 4
+    Montgomery salt words, 33 pending + 35, a state and operands off
+    16-byte boundaries, and ``KeccakRowStream`` over odd-width canonical
+    chunks and over natural Montgomery chunks against one-shot K1.  Returns
+    the phase's line."""
+    kk, bb, matrix = port.keccak_kernel, port.bb, port.matrix
     err = 0
 
     def check(label, got, want):
@@ -1714,21 +1792,37 @@ def _phase18_absorb(torch, port, rand_u32, results) -> str:
             raise AssertionError(f"K1 absorb {label}: kernel != plain (max_abs_err {e})")
 
     n, p, k = K1_ABSORB_TIMED
-    state, chunk, pend = rand_u32((50, n)), rand_u32((n, 64)), rand_u32((n, p))
-    check(f"({n}, {p} + {k}) on a carried state",
-          kk.absorb_rows(state.clone(), chunk[:, :k], pend=pend), kk.absorb_rows_plain(state.clone(), chunk[:, :k], pend=pend))
-    salts = rand_u32((n, 8))
-    check(f"finalize ({n}, 4 + 4 salt words)", kk.finalize_rows(state, salts), kk.finalize_rows_plain(state, salts))
+    state, chunk, pend = rand_u32((50, n)), rand_monty((n, k)), rand_u32((p, n)).t()
+    try:
+        kk.absorb_rows(state.clone(), chunk, False, pend, False, True)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K1 absorb took a natural-order chunk of canonical words")
+    for monty, natural in ((True, True), (True, False), (False, False)):
+        st, want = state.clone(), state.clone()
+        rest = kk.absorb_rows(st, chunk, False, pend, monty, natural)
+        want_rest = kk.absorb_rows_plain(want, chunk, False, pend, monty, natural)
+        check(f"({n}, {p} + {k}) monty {monty} natural {natural}", torch.cat([st.t(), rest], 1),
+              torch.cat([want.t(), want_rest], 1))
+        del st, want, rest, want_rest
+    salts, left = rand_monty((n, 4)), rand_u32((26, n)).t()
+    check(f"finalize ({n}, 26 pending + 4 Montgomery salt words)", kk.finalize_rows(state, left, False, salts, True),
+          kk.finalize_rows_plain(state, left, False, salts, True))
     m = rand_u32((4097, 33 + 35))
     st = rand_u32((50, 4097))
-    check("(4097, 33 pending + 35)", kk.absorb_rows(st.clone(), m[:, 33:], pend=m[:, :33]),
-          kk.absorb_rows_plain(st.clone(), m[:, 33:], pend=m[:, :33]))
+    want = st.clone()
+    kk.absorb_rows(st, m[:, 33:], pend=m[:, :33])
+    kk.absorb_rows_plain(want, m[:, 33:], pend=m[:, :33])
+    check("(4097, 33 pending + 35)", st, want)
     for mis in (1, 2, 3):  # the state and the operands 4 mis bytes past a 16-byte boundary
         flat = rand_u32((50 * 4097 + mis,))
         st = flat[mis:].view(50, 4097)
         mm = rand_u32((4097 * 70 + mis,))[mis:].view(4097, 70)
-        want = kk.absorb_rows_plain(st.clone(), mm[:, 1:69])
-        check(f"(4097, 68) misaligned by {4 * mis} B", kk.absorb_rows(st, mm[:, 1:69]), want)
+        want = st.clone()
+        kk.absorb_rows_plain(want, mm[:, 1:69])
+        kk.absorb_rows(st, mm[:, 1:69])
+        check(f"(4097, 68) misaligned by {4 * mis} B", st, want)
     wide = rand_u32((4097, 64 + 63 + 65 + 1 + 7))
     stream = port.sponge.KeccakRowStream(4097, wide.device)
     off = 0
@@ -1736,17 +1830,29 @@ def _phase18_absorb(torch, port, rand_u32, results) -> str:
         stream.absorb_cols(wide[:, off : off + wc])
         off += wc
     check("stream of chunks 64, 63, 65, 1, 7 vs one-shot K1", stream.finalize(), kk.hash_rows(wide))
-    ms = _cuda_ms(torch, lambda: kk.absorb_rows(state, chunk[:, :k], pend=pend), 20)
-    plain_ms = _cuda_ms(torch, lambda: kk.absorb_rows_plain(state, chunk[:, :k], pend=pend), 1)
-    bound_ms, bound_by = keccak_absorb_bound(n, p, k, False, False)
-    model_ms = keccak_alu_model_ms(2 * n)
+    code = rand_monty((4096, 64 + 63 + 1 + 7))
+    stream = port.sponge.KeccakRowStream(4096, code.device)
+    off = 0
+    for wc in (64, 63, 1, 7):  # natural-order Montgomery chunks, as K2 leaves them
+        stream.absorb_monty(code[:, off : off + wc].contiguous(), True)
+        off += wc
+    check("stream of natural Montgomery chunks 64, 63, 1, 7 vs one-shot K1", stream.finalize(),
+          kk.hash_rows(bb.to_u32(matrix.reverse_matrix_index_bits(code))))
+    ms = _cuda_ms(torch, lambda: kk.absorb_rows(state, chunk, False, pend, True, True), 20)
+    plain_ms = _cuda_ms(torch, lambda: kk.absorb_rows_plain(state, chunk, False, pend, True, True), 1)
+    bound_ms, bound_by = keccak_absorb_bound(n, p, k, False, False, True)
+    perms = n * ((p + k) // 34)
+    model_ms = keccak_alu_model_ms(perms)
     results["keccak_absorb"] = (err, ms, plain_ms, bound_ms, bound_by,
-                                {"shape": [n, p, k], "alu_model_ms": round(model_ms, 6)})
-    return (f"[18] K1 carried-state absorb == plain (exact): ({n}, {p} pending + {k}) on a carried state, "
-            f"the finalize of 4 + 4 salt words, 33 pending + 35, a state and chunk off 16-byte boundaries, "
-            f"a stream of odd-width chunks == one-shot K1; ({n}, {p} + {k}): {ms:.4f} ms vs plain "
-            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), ALU-pipe model {model_ms:.4f} ms "
-            f"({2 * n / ms / 1e3:.1f} Mperm/s)")
+                                {"shape": [n, p, k], "natural": True, "monty": True,
+                                 "alu_model_ms": round(model_ms, 6)})
+    return (f"[18] K1 carried-state absorb == plain (exact): ({n}, {p} pending + {k}) on a carried state in the "
+            f"three operand forms (Montgomery in natural or tree order, canonical in tree order; the state and "
+            f"the 26 words written back), the finalize of 26 pending + 4 Montgomery salt words, 33 pending + 35, "
+            f"a state and chunk off 16-byte boundaries, streams of odd-width canonical and natural Montgomery chunks == "
+            f"one-shot K1; ({n}, {p} + natural Montgomery {k}): {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it; ALU-pipe model {model_ms:.4f} "
+            f"ms, {100 * model_ms / ms:.1f}% of it ({perms / ms / 1e3:.1f} Mperm/s)")
 
 
 def _phase19_zk_fixture(torch, port, dev) -> str:
@@ -2726,7 +2832,7 @@ def main() -> int:
     print(line, flush=True)
 
     # -- 18. K1's carried-state absorb vs plain ----------------------------------
-    print(_phase18_absorb(torch, port, rand_u32, results), flush=True)
+    print(_phase18_absorb(torch, port, rand_u32, rand_monty, results), flush=True)
 
     # -- 19. the zk wide fixture on the card --------------------------------------
     print(_phase19_zk_fixture(torch, port, dev), flush=True)
@@ -2787,10 +2893,10 @@ def main() -> int:
     mxu_shapes += "; inner levels (B, A, R): " + ", ".join(
         f"({b}, {a}, {r}){' inv' if inv else ''}" for b, a, r, inv in sorted(noted_levels))
     absorb_shapes = ", ".join(
-        f"{k[0][7:]} ({k[1]}, {k[5] if k[0] == 'keccak_absorb' else k[2]}"
-        f"{' + ' + str(k[2]) if k[0] == 'keccak_absorb' else ''})"
+        f"{k[0][7:]} ({k[1]}, {k[5]} + {k[2]}{' Montgomery' if k[10] else ''}{' natural' if k[11] else ''})"
         for k in sorted(seen) if k[0] in ("keccak_absorb", "keccak_finalize") and "keccak-air-zk" in seen[k])
-    print(f"[13] K1's absorb at the zk wide prove's operands (pending + new words): {absorb_shapes}", flush=True)
+    print(f"[13] K1's absorb at the zk wide prove's operands (pending + new words, their form): {absorb_shapes}",
+          flush=True)
     lowmem_shapes = ", ".join(
         f"{k[0]} {k[1:3]}" for k in sorted(seen) if seen[k] == {"config2-lowmem"} and k[0] != "grind_verdicts")
     print(f"[13] operand shapes that only phase 21's prove gave: {lowmem_shapes}", flush=True)

@@ -8,6 +8,7 @@
     python3 port_timing.py k2 [--tree DIR]
     python3 port_timing.py p2 [--tree DIR]
     python3 port_timing.py k1 [--tree DIR]
+    python3 port_timing.py grind [--tree DIR]
     python3 port_timing.py k5 [--tree DIR] [--phases]
     python3 port_timing.py k7 [--tree DIR] [--sass-out DIR]
     python3 port_timing.py k8 [--tree DIR]
@@ -103,6 +104,11 @@ subcommand prints the card (nvidia-smi name and power limit) first.
   tree with ``keccak_kernel.run_plan`` it also times the 2^23 and 2^16
   trees under the alternative launch plans ``K1_TREE_PLANS``, each held
   equal to the default's layers.  ``--tree DIR`` as for ``warm``.
+* ``grind``: ``k1``'s last step alone: the grind kernel over a
+  2^17-candidate chunk of a 100-byte transcript, held equal to the plain
+  verdicts, timed as issued and queued behind a spin of the device, each
+  the median of ``GRIND_TIMINGS`` timings of 20 launches, beside its bound
+  and its ALU-pipe model.  ``--tree DIR`` as for ``warm``.
 * ``k5``: K5, the limb-matmul DFT.  nvcc's time and ptxas's report for
   ``mxu_ntt.cu`` alone; one BASELINE config 2 prove at 2^20 on the narrow
   route with its transforms noted; then every level (B, A, R) of those
@@ -343,11 +349,13 @@ class _Bounds:
             return "K2 ntt_pass", sum(cs._bound(2 * h * w * 4, cs._ntt_ops(h * w, kk, i == 0))[0]
                                       for i, kk in enumerate(ks))
 
-        def keccak_absorb(state, mat, first=False, pend=None):
-            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), k(mat), first, False)[0]
+        def keccak_absorb(state, mat, first=False, pend=None, monty=False, natural=False):
+            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), k(mat), first, False,
+                                                              monty)[0]
 
-        def keccak_finalize(state, pend, first=False):
-            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), 0, first, True)[0]
+        def keccak_finalize(state, pend, first=False, mat=None, monty=False, natural=False):
+            return "K1 keccak_absorb", cs.keccak_absorb_bound(int(state.shape[1]), k(pend), k(mat), first, True,
+                                                              monty)[0]
 
         def sponge(a, b=None, rate=poseidon2_kernel.RATE):
             n = int(a.shape[0])
@@ -372,8 +380,7 @@ class _Bounds:
             return "K6 threefry_monty", cs.threefry_bound(n * (cols if sel is None else len(sel)))[0]
 
         def verdicts(start, count, pre, tail, w_off, bits):
-            return "grind", cs._bound(count + 8 * (25 + 17 * int(tail.shape[0])),
-                                      count * int(tail.shape[0]) * cs.KECCAK_F_OPS)[0]
+            return "grind", cs.grind_bound(count, int(tail.shape[0]))[0]
 
         def quotient_eval(prog, cur, nxt, nshift, sels, sel_off, sel_stride, pis, alpha, acc, acc_off, acc_stride,
                           add, invz):
@@ -445,6 +452,7 @@ class _Bounds:
 
 
 PHASE_MARK = "phase_end:"
+COMMIT_LABEL = "commit_op:"  # the trace commit's steps (_CommitOps)
 
 
 def _device_by_phase(torch, prof) -> str:
@@ -455,7 +463,8 @@ def _device_by_phase(torch, prof) -> str:
     launches of each hand-written kernel (K1 ... K11, grind)."""
     events = list(prof.events())
     marks = sorted((e.time_range.start, e.name[len(PHASE_MARK):]) for e in events if e.name.startswith(PHASE_MARK))
-    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.name.startswith(COMMIT_LABEL)]
     parts, lo = [], float("-inf")
     for end, phase in marks:
         mine = [e for e in on_dev if lo < e.time_range.start <= end]
@@ -568,6 +577,100 @@ class _RngTime:
                 f"{100 * ms / 1e3 / wall_s:.1f}% of the profiled wall clock")
 
 
+# the streamed trace commit's steps, each wrapper run under a profiler label
+# (the innermost label names a kernel): (module, attribute, label); an older
+# tree's steps that this tree no longer has (the bit-reversed copy, to_u32)
+COMMIT_OPS = (
+    ("tpu_stark_torch.prover.wide", "commit_wide", "commit"),
+    ("tpu_stark_torch.prover.wide", "WideMatrixSource.lde_chunk", "LDE"),
+    ("tpu_stark_torch.prover.wide", "draw_rows", "salts"),
+    ("tpu_stark_torch.prover.wide", "reverse_matrix_index_bits", "row gather"),
+    ("tpu_stark_torch.matrix", "bit_reversal_perm_device", "permutation build"),
+    ("tpu_stark_torch.fields.babybear", "to_u32", "to_u32"),
+)
+
+
+class _CommitOps:
+    """While open, runs each step of ``COMMIT_OPS`` under a
+    ``record_function`` label.  ``report`` splits the device time of the
+    kernels launched inside ``commit_wide`` (the trace commit) by the
+    innermost label around their launch and the op that launched them (an
+    aten op, or for the port's own kernels the kernel's name)."""
+
+    def __init__(self, torch):
+        self.torch, self._orig = torch, []
+
+    def __enter__(self):
+        for mod_name, attr, label in COMMIT_OPS:
+            owner = importlib.import_module(mod_name)
+            *path, name = attr.split(".")
+            for part in path:
+                owner = getattr(owner, part)
+            orig = owner.__dict__.get(name) if isinstance(owner, type) else getattr(owner, name, None)
+            if orig is None:  # not in this tree
+                continue
+            self._orig.append((owner, name, orig))
+
+            def labelled(*args, _orig=orig, _label=label, **kw):
+                with self.torch.profiler.record_function(COMMIT_LABEL + _label):
+                    return _orig(*args, **kw)
+
+            setattr(owner, name, labelled)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._orig):
+            setattr(owner, name, orig)
+
+    def report(self, prof) -> str:
+        """Host ops' kernels by the labels on their host stack (the
+        profiler links a kernel to the aten op that launched it); the
+        hand-written kernels, which no aten op launches, by the innermost
+        label whose device span holds their start."""
+        by_key, linked = {}, 0
+        events = list(prof.events())
+
+        def note(label, op, ms):
+            t, count = by_key.get((label, op), (0.0, 0))
+            by_key[(label, op)] = (t + ms, count + 1)
+
+        for e in events:
+            if not e.kernels:
+                continue
+            labels, up = [], e
+            while up is not None:
+                if up.name.startswith(COMMIT_LABEL):
+                    labels.append(up.name[len(COMMIT_LABEL):])
+                up = up.cpu_parent
+            linked += len(e.kernels)
+            if "commit" not in labels:
+                continue
+            for k in e.kernels:
+                if _hand_written(k.name) is None:
+                    note(labels[0], e.name if e.name.startswith("aten::") else k.name[:48], k.duration / 1e3)
+        on_dev = [e for e in events if e.device_type == self.torch.autograd.DeviceType.CUDA]
+        spans = [(e.time_range.start, e.time_range.end, e.name[len(COMMIT_LABEL):]) for e in on_dev
+                 if e.name.startswith(COMMIT_LABEL)]
+        for e in on_dev:
+            name = _hand_written(e.name)
+            if name is None:
+                continue
+            held = [(end - start, label) for start, end, label in spans if start <= e.time_range.start < end]
+            if any(label == "commit" for _, label in held):
+                note(min(held)[1], name, e.time_range.elapsed_us() / 1e3)
+        if not linked:
+            return "trace commit by operation: the profiler linked no device kernel to a host op"
+        total = sum(ms for ms, _ in by_key.values())
+        rows = sorted(by_key.items(), key=lambda kv: -kv[1][0])
+        return (f"trace commit by operation ({total:.3f} ms of device time in commit_wide): "
+                + "; ".join(f"{label} / {op}: {ms:.3f} ms in {n}" for (label, op), (ms, n) in rows))
+
+
+def _hand_written(kernel_name: str):
+    """The ``KERNEL_KEYS`` label of a device kernel's name, or None."""
+    return next((label for label, keys in KERNEL_KEYS if any(key in kernel_name for key in keys)), None)
+
+
 def _chain_setup(dev, log_n: int):
     from tpu_stark_torch.air import poseidon2_air
     from tpu_stark_torch.prover.config import create_config
@@ -648,9 +751,11 @@ def profile(torch, dev, args) -> None:
         print(f"{label}: warm median {sorted(walls[1:])[args.reps // 2]:.3f}s of {args.reps}", flush=True)
     profiled = _PhasePeaks(torch, dev)
     with _Bounds(int(trace.shape[0])) as bounds, _K1Launches(torch) as k1, _RngTime(torch) as rng, \
+            _CommitOps(torch) as commit_ops, \
             torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _timed(torch, lambda: run(profiled))
-    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.key.startswith(COMMIT_LABEL)]  # a label's device span is no kernel
     dev_s = sum(e.self_device_time_total for e in on_device) / 1e6
     print(f"profiled {wall:.3f}s ({_phases(profiled)}); device time {dev_s:.3f}s, idle "
           f"{100 * (1 - dev_s / wall):.1f}% of the profiled wall clock; "
@@ -664,6 +769,7 @@ def profile(torch, dev, args) -> None:
               f"loss (time - bound) {ms - bound:.3f} ms", flush=True)
     print(rng.report(dev_s, wall), flush=True)
     print(_device_by_phase(torch, prof), flush=True)
+    print(commit_ops.report(prof), flush=True)
     k1_keys = dict(KERNEL_KEYS)["K1 keccak_sponge"]
     print(k1.report([e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                      and any(key in e.name for key in k1_keys)]), flush=True)
@@ -976,16 +1082,36 @@ def k1_timing(torch, dev, args) -> None:
                 ms = cs._cuda_ms(torch, lambda: kk.run_plan(x, plan), 10)
                 print(f"  plan {name}: {len(plan)} launches {plan}: {ms:.4f} ms", flush=True)
         del x
+    _k1_absorb(torch, dev, cs, kk, rand, sha)
+    grind_timing(torch, dev, args)
+
+
+GRIND_TIMINGS = 5  # timings of 20 launches each, of which grind_timing prints the median and the least
+
+
+def grind_timing(torch, dev, args) -> None:
+    import hashlib
+
+    from tpu_stark_torch.challenger import grind
+
+    cs = _chip_smoke()
     data = bytes(range(7, 107))  # a 100-byte transcript: one tail block
     prefix, tail, w_off = grind._plan(data)
     pre, tl = grind._operands(prefix, tail, dev)
     flags = grind.verdicts(0, 1 << 17, pre, tl, w_off, 16)
     if not torch.equal(flags, grind.verdicts_plain(0, 1 << 17, pre, tl, w_off, 16)):
         raise AssertionError("grind kernel != plain")
-    ms = cs._cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, 16), 20)
-    bound = cs._bound((1 << 17) + 8 * (25 + 17 * int(tl.shape[0])), (1 << 17) * int(tl.shape[0]) * cs.KECCAK_F_OPS)
-    print(f"grind 2^17 candidates, {int(tl.shape[0])} block(s): {ms:.4f} ms, {100 * bound[0] / ms:.1f}% of "
-          f"{bound[0]:.4f} ms ({bound[1]}); == plain; output sha256 {sha(flags)}", flush=True)
+    digest = hashlib.sha256(flags.cpu().numpy().tobytes()).hexdigest()[:16]
+    bound = cs.grind_bound(1 << 17, int(tl.shape[0]))
+    model_ms = cs.grind_alu_model_ms(1 << 17, int(tl.shape[0]))
+    for queued in (False, True):
+        times = sorted(cs._cuda_ms(torch, lambda: grind.verdicts(0, 1 << 17, pre, tl, w_off, 16), 20, queued=queued)
+                       for _ in range(GRIND_TIMINGS))
+        ms = times[len(times) // 2]
+        print(f"grind 2^17 candidates, {int(tl.shape[0])} block(s){', queued' if queued else ''}: {ms:.4f} ms "
+              f"(median of {GRIND_TIMINGS} timings, least {times[0]:.4f} ms), {100 * bound[0] / ms:.1f}% of "
+              f"{bound[0]:.4f} ms ({bound[1]}), {100 * model_ms / ms:.1f}% of the ALU model {model_ms:.4f} ms; "
+              f"== plain; output sha256 {digest}", flush=True)
 
 
 def _k5_level_fn(torch, mx, bb, x, b, a, inverse, dev):
@@ -1329,9 +1455,67 @@ def _mix_line(mix) -> str:
     return f"total {sum(mix.values()):g}: FMA pipe {fma:g}, ALU pipe {alu:g}; {parts}"
 
 
-K1_SASS_KERNELS = (("K1 keccak_rows_kernel", "keccak_rows_kernel"), ("K1 keccak_tree_kernel", "keccak_tree_kernel"),
-                   ("K1 keccak_absorb_kernel", "keccak_absorb_kernelILb0E"),
-                   ("grind keccak_grind_kernel", "keccak_grind_kernel"))
+# (label, the mangled names that may hold it, the first found): the absorb's
+# main-path instance, <!FIN, REV, MONTY>, or an older tree's <!FIN>
+K1_SASS_KERNELS = (("K1 keccak_rows_kernel", ("keccak_rows_kernel",)), ("K1 keccak_tree_kernel", ("keccak_tree_kernel",)),
+                   ("K1 keccak_absorb_kernel", ("keccak_absorb_kernelILb0ELb1ELb1E", "keccak_absorb_kernelILb0E")),
+                   ("grind keccak_grind_kernel", ("keccak_grind_kernel",)))
+
+
+def _k1_absorb(torch, dev, cs, kk, rand, sha) -> None:
+    """The streamed Keccak commit's absorb step at ``chip_smoke.
+    K1_ABSORB_TIMED`` (cell 6: 30 pending words and a natural-order (2^22,
+    64) Montgomery chunk on a carried state): one launch in a tree whose
+    absorb reads such a chunk (``monty``), else the older tree's step, the
+    canonical bit-reversed copy (``to_u32`` of the reversed rows), the
+    absorb of the whole blocks and the copy of the words after them (and
+    that absorb alone).  Events, queued behind a spin of the device; the
+    carried state's and pending words' SHA-256, so that two trees compare."""
+    import inspect
+
+    from tpu_stark_torch.fields import babybear as bb
+    from tpu_stark_torch.matrix import reverse_matrix_index_bits
+
+    n, p, k = cs.K1_ABSORB_TIMED
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    chunk = torch.randint(0, bb.P, (n, k), generator=gen, device=dev, dtype=torch.int64).to(torch.int32)
+    state0, pend = rand((2 * 25, n), 6), rand((p, n), 7).t()  # the pending words as the kernel leaves them
+    fused = "monty" in inspect.signature(kk.absorb_rows).parameters
+    take = (p + k) // kk.BLOCK_WORDS * kk.BLOCK_WORDS - p
+
+    def step(state):
+        if fused:
+            return kk.absorb_rows(state, chunk, False, pend, True, True)
+        canon = bb.to_u32(reverse_matrix_index_bits(chunk))
+        kk.absorb_rows(state, canon[:, :take], pend=pend.contiguous())
+        return canon[:, take:].contiguous()
+
+    state = state0.clone()
+    rest = step(state)
+    digest = sha([state, rest.contiguous()])
+    ms = cs._cuda_ms(torch, lambda: step(state), 10, queued=True)
+    bound_ms, bound_by = cs.keccak_absorb_bound(n, p, k, False, False, True)
+    model_ms = cs.keccak_alu_model_ms(n * ((p + k) // kk.BLOCK_WORDS))
+    what = "one launch" if fused else "to_u32 of the reversed rows, the absorb, the rest's copy"
+    print(f"absorb step ({n}, {p} pending + natural Monty {k}) on a carried state ({what}): {ms:.4f} ms, "
+          f"{100 * bound_ms / ms:.1f}% of {bound_ms:.4f} ms ({bound_by}), {100 * model_ms / ms:.1f}% of the ALU "
+          f"model {model_ms:.4f} ms; state and rest sha256 {digest}", flush=True)
+    if fused:  # the launch in each operand form, and at the older tree's 30 + 38 canonical words
+        forms = [(k, True, False), (k, False, False), (take, False, False)]
+        for kk_, monty, natural in forms:
+            mat = chunk[:, :kk_].contiguous()
+            ms = cs._cuda_ms(torch, lambda: kk.absorb_rows(state, mat, False, pend, monty, natural), 10, queued=True)
+            model_ms = cs.keccak_alu_model_ms(n * ((p + kk_) // kk.BLOCK_WORDS))
+            print(f"  ({n}, {p} + {kk_}) Montgomery {monty}, natural {natural}: {ms:.4f} ms, "
+                  f"{100 * model_ms / ms:.1f}% of the ALU model", flush=True)
+    if not fused:
+        canon, pend_c = bb.to_u32(reverse_matrix_index_bits(chunk)), pend.contiguous()
+        ms = cs._cuda_ms(torch, lambda: kk.absorb_rows(state, canon[:, :take], pend=pend_c), 10, queued=True)
+        print(f"  its absorb alone ({n}, {p} + {take}): {ms:.4f} ms, {100 * model_ms / ms:.1f}% of the ALU model",
+              flush=True)
+
+
 ROUNDS = 24
 
 
@@ -1351,12 +1535,15 @@ def _per_round(code):
     return mix, f"round loop 0x{best[0]:x}-0x{best[1]:x}"
 
 
-def sass_report(text: str) -> dict:
-    """Prints and returns {kernel label: mix per permutation}."""
+def sass_report(text: str, digest_round: bool = True) -> dict:
+    """Prints and returns {kernel label: mix per permutation}.
+    ``digest_round``: the grind's last round computes lanes 0-3 only
+    (``chip_smoke.KECCAK_DIGEST_ROUND_OPS`` ALU instructions, counted as
+    LOP3) after 23 rounds of its loop; an older tree's runs 24."""
     funcs = _sass_functions(text)
     mixes = {}
-    for label, key in K1_SASS_KERNELS:
-        names = [n for n in funcs if key in n]
+    for label, keys in K1_SASS_KERNELS:
+        names = next(([n for n in funcs if key in n] for key in keys if any(key in n for n in funcs)), [])
         if not names:
             print(f"{label}: not in the listing", flush=True)
             continue
@@ -1366,7 +1553,11 @@ def sass_report(text: str) -> dict:
             print(f"{label}: {len(code)} instructions in the function; {note}", flush=True)
             continue
         print(f"{label}: {len(code)} instructions in the function; per round ({note}): {_mix_line(mix)}", flush=True)
-        mixes[label] = {c: n * ROUNDS for c, n in mix.items()}
+        if label.startswith("grind") and digest_round:
+            mixes[label] = {c: n * (ROUNDS - 1) for c, n in mix.items()}
+            mixes[label]["LOP3"] = mixes[label].get("LOP3", 0) + _chip_smoke().KECCAK_DIGEST_ROUND_OPS
+        else:
+            mixes[label] = {c: n * ROUNDS for c, n in mix.items()}
     for label, key in SASS_KERNELS:
         names = [n for n in funcs if key in n]
         if not names:
@@ -1402,7 +1593,7 @@ PIPE_BOUND_SHAPES = (("K4 p2_absorb_kernel", "absorb (2097152, 128)", (1 << 21) 
                      ("K3 p2_sponge_kernel<8>", "leaf (65536, 493)", (1 << 16) * -(-493 // 8)),
                      ("K1 keccak_rows_kernel", "leaf (1048576, 6)", 1 << 20),
                      ("K1 keccak_tree_kernel", "a tree over 8388608 digests", (1 << 23) - 1),
-                     ("K1 keccak_absorb_kernel", "absorb 30 + 38 words x 4194304 rows", 2 << 22),
+                     ("K1 keccak_absorb_kernel", "absorb 30 + 64 words x 4194304 rows (two blocks)", 2 << 22),
                      ("grind keccak_grind_kernel", "2^17 candidates, one block", 1 << 17))
 
 
@@ -1576,7 +1767,9 @@ def sass(torch, dev, args) -> None:
                 f.write(line)
     print(f"SASS of {build.path}'s Poseidon2, Keccak and K5 kernels in {path}", flush=True)
     k5_sass_report(text)
-    mixes = sass_report(text)
+    from tpu_stark_torch.challenger import grind
+
+    mixes = sass_report(text, hasattr(grind, "witness_lanes"))
     rates = probe(torch, dev, args)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, shape, perms in PIPE_BOUND_SHAPES:
@@ -2037,14 +2230,14 @@ def k8_timing(torch, dev, args) -> None:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "k5", "k7", "k8", "open",
-                                         "sass", "probe", "wgmma"))
+    parser.add_argument("what", choices=("profile", "warm", "verify", "k2", "p2", "k1", "grind", "k5", "k7", "k8",
+                                         "open", "sass", "probe", "wgmma"))
     parser.add_argument("--log-n", type=int, help="rows, log2 (profile: 20 for keccak-air, 18 for the chain; verify: 20)")
     parser.add_argument("--workload", choices=("keccak", "keccak-zk", "chain", "fib", "config2"), default="keccak",
                         help="what profile proves")
     parser.add_argument("--reps", type=int, default=4, help="warm proves per configuration (warm, profile)")
     parser.add_argument("--tree", help="import tpu_stark_torch from this directory "
-                        "(warm, profile, k2, p2, k1, k5, k7, k8, open, sass)")
+                        "(warm, profile, k2, p2, k1, grind, k5, k7, k8, open, sass)")
     parser.add_argument("--from", dest="from_file", help="sass: read a saved cuobjdump -sass listing (no card)")
     parser.add_argument("--phases", action="store_true", help="k5: also the kernel's SM clocks by phase")
     parser.add_argument("--sass-out", help="k7: write each DAG's kernel SASS to this directory")
@@ -2068,9 +2261,8 @@ def main() -> int:
     print(f"card: {_smi_line()}; tpu_stark_torch from {os.path.dirname(tpu_stark_torch.__file__)}", flush=True)
     dev = torch.device("cuda", 0)
     {"profile": profile, "warm": warm, "verify": verify_timing, "k2": k2_timing, "p2": p2_timing,
-     "k1": k1_timing, "k5": k5_timing, "k7": k7_timing, "k8": k8_timing, "open": open_timing, "sass": sass,
-     "probe": probe,
-     "wgmma": wgmma}[args.what](torch, dev, args)
+     "k1": k1_timing, "grind": grind_timing, "k5": k5_timing, "k7": k7_timing, "k8": k8_timing,
+     "open": open_timing, "sass": sass, "probe": probe, "wgmma": wgmma}[args.what](torch, dev, args)
     return 0
 
 

@@ -150,44 +150,59 @@ def test_keccak_wrappers_never_run_plain_on_the_card(dev, monkeypatch):
                    (4097, (64, 64, 20)), (300, (33, 1)), (2048, (128, 128, 4))]
 )
 def test_keccak_absorb_kernel_equals_plain(dev, n, chunking):
-    """K1's carried-state absorb over chunks (pending words and the chunk as
-    two strided operands), from the zero state and a carried one, with the
-    state off a 16-byte boundary, then the finalize: each step equals the
-    plain version, and from the zero state the digests equal hash_rows."""
-    m = _u32(dev, (n, sum(chunking) + 3), 29 * n)[:, 2 : 2 + sum(chunking)]
-    for first in (True, False):
-        flat = _u32(dev, (50 * n + 1,), 31 * n)
-        state = flat[1:].view(50, n)
-        want = state.clone()
-        pend, off, before = None, 0, kernels.KECCAK_ABSORB.launches
-        launches = 0
-        for wc in chunking:
-            blk = m[:, off : off + wc]
-            off += wc
-            p = 0 if pend is None else int(pend.shape[1])
-            blocks = (p + wc) // keccak_kernel.BLOCK_WORDS
-            if blocks == 0:
-                pend = blk if pend is None else torch.cat([pend, blk], dim=1)
-                continue
-            take = blocks * keccak_kernel.BLOCK_WORDS - p
-            keccak_kernel.absorb_rows(state, blk[:, :take], first=first and launches == 0, pend=pend)
-            keccak_kernel.absorb_rows_plain(want, blk[:, :take], first=first and launches == 0, pend=pend)
-            launches += 1
-            torch.cuda.synchronize()
-            assert torch.equal(state, want)
-            pend = blk[:, take:] if take < wc else None
-        got = keccak_kernel.finalize_rows(state, pend, first=first and launches == 0)
-        assert kernels.KECCAK_ABSORB.launches == before + launches + 1
-        assert torch.equal(got, keccak_kernel.finalize_rows_plain(want, pend, first=first and launches == 0))
-        if first:
-            assert torch.equal(got, keccak_kernel.hash_rows(m))
+    """K1's carried-state absorb over chunks, one launch a chunk (the
+    pending words it writes back read by the next launch; a chunk that
+    completes no block only joins them), in every operand form: canonical
+    words or Montgomery forms in the tree's row order, or (n a power of two)
+    Montgomery forms in natural order; from the zero state and a carried
+    one, the state and the chunks off 16-byte boundaries; then the finalize,
+    with and without a last chunk: each step equals the plain version, and
+    from the zero state the canonical tree-order digests equal hash_rows.
+    Canonical words in natural order are refused."""
+    forms = [(False, False), (True, False)] + ([(True, True)] if n & (n - 1) == 0 else [])
+    with pytest.raises(ValueError, match="Montgomery"):
+        keccak_kernel.absorb_rows(torch.zeros((50, 64), dtype=torch.int32, device=dev),
+                                  _u32(dev, (64, 34), n), natural=True)
+    for monty, natural in forms:
+        m = (_monty if monty else _u32)(dev, (n, sum(chunking) + 3), 29 * n)[:, 2 : 2 + sum(chunking)]
+        for first in (True, False):
+            flat = _u32(dev, (50 * n + 1,), 31 * n)
+            state = flat[1:].view(50, n)
+            want = state.clone()
+            pend = want_pend = None
+            off, begun, before = 0, False, kernels.KECCAK_ABSORB.launches
+            for wc in chunking:
+                blk = m[:, off : off + wc]
+                off += wc
+                start = first and not begun
+                pend = keccak_kernel.absorb_rows(state, blk, start, pend, monty, natural)
+                want_pend = keccak_kernel.absorb_rows_plain(want, blk, start, want_pend, monty, natural)
+                begun = off >= keccak_kernel.BLOCK_WORDS  # a block absorbed: the state is carried
+                torch.cuda.synchronize()
+                assert torch.equal(state, want)
+                assert (pend is None) == (want_pend is None)
+                assert pend is None or torch.equal(pend, want_pend)
+            start = first and not begun
+            got = keccak_kernel.finalize_rows(state, pend, start)
+            assert kernels.KECCAK_ABSORB.launches == before + len(chunking) + 1
+            assert torch.equal(got, keccak_kernel.finalize_rows_plain(want, want_pend, start))
+            last = m[:, :5]
+            assert torch.equal(keccak_kernel.finalize_rows(state, pend, start, last, monty, natural),
+                               keccak_kernel.finalize_rows_plain(want, want_pend, start, last, monty, natural))
+            if first and not monty and not natural:
+                assert torch.equal(got, keccak_kernel.hash_rows(m))
 
 
 def test_keccak_row_stream_never_runs_plain_on_the_card(dev, monkeypatch):
     from tpu_stark_torch.hash.sponge import KeccakRowStream
 
+    from tpu_stark_torch.matrix import reverse_matrix_index_bits
+
     m = _u32(dev, (513, 150), 3)
     want = keccak_kernel.hash_rows_plain(m)
+    # natural-order Montgomery chunks as K2 leaves them, then tree-order salts
+    code, salts = _monty(dev, (512, 150), 4), _monty(dev, (512, 4), 5)
+    want_code = keccak_kernel.hash_rows_plain(bb.to_u32(torch.cat([reverse_matrix_index_bits(code), salts], 1)))
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plain version ran on CUDA tensors")
@@ -198,6 +213,12 @@ def test_keccak_row_stream_never_runs_plain_on_the_card(dev, monkeypatch):
     for off in range(0, 150, 64):
         stream.absorb_cols(m[:, off : off + 64])
     assert torch.equal(stream.finalize(), want)
+    stream, before = KeccakRowStream(512, dev), kernels.KECCAK_ABSORB.launches
+    for off in range(0, 150, 64):
+        stream.absorb_monty(code[:, off : off + 64].contiguous(), True)
+    stream.absorb_monty(salts, False)
+    assert torch.equal(stream.finalize(), want_code)
+    assert kernels.KECCAK_ABSORB.launches == before + 4  # the salts complete no block: the finalize reads them
 
 
 def test_zk_wide_proof_on_card_matches_jax(dev):
@@ -491,18 +512,23 @@ def test_mxu_route_launches_one_kernel_a_level(dev, h, w):
         assert names and all("mxu_mm_kernel" in name for name in names), names
 
 
-@pytest.mark.parametrize("n_bytes", [32, 132, 134, 200, 268])
+# transcript lengths: the witness inside a lane (32, 130, 200), filling
+# block 0's last lane (132, 268), straddling two lanes (37) and the block
+# boundary (134, 135)
+@pytest.mark.parametrize("n_bytes", [32, 132, 134, 200, 268, 37, 130, 135])
 def test_grind_kernel_equals_plain(dev, n_bytes):
+    """Counts whose last block is partly idle (1000, 2^17 + 77), and the
+    main path's 2^17."""
     import numpy as np
 
     data = bytes(np.random.default_rng(n_bytes).integers(0, 256, size=n_bytes, dtype=np.uint8))
     prefix, tail, w_off = grind._plan(data)
     pre, tl = grind._operands(prefix, tail, dev)
-    for bits in (1, 8, 16):
+    for bits, count in ((1, 1 << 16), (8, (1 << 17) + 77), (16, 1 << 17), (3, 1000)):
         before = kernels.KECCAK_GRIND.launches
-        got = grind.verdicts(12345, 1 << 16, pre, tl, w_off, bits)
+        got = grind.verdicts(12345, count, pre, tl, w_off, bits)
         assert kernels.KECCAK_GRIND.launches == before + 1
-        assert torch.equal(got, grind.verdicts_plain(12345, 1 << 16, pre, tl, w_off, bits))
+        assert torch.equal(got, grind.verdicts_plain(12345, count, pre, tl, w_off, bits))
 
 
 def test_config2_n8_proof_on_card_matches_jax(dev):

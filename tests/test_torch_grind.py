@@ -2,7 +2,10 @@
 grind.py``) against the JAX package's ``device_grind`` and the scalar
 ``Challenger.check_witness``, on the CPU (the plain verdicts), for every
 block geometry of the witness: inside block 0, filling it exactly,
-straddling the 136-byte boundary, in a later block.
+straddling the 136-byte boundary, in a later block.  The grind kernel's
+witness placement (``witness_lanes``) against the plain byte loop, and the
+kernel itself (``csrc/keccak_sponge.cu`` built for the host,
+``tests/keccak_host.py``) against the plain verdicts and JAX's witnesses.
 """
 
 import json
@@ -12,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+import keccak_host
 from tpu_stark.challenger.challenger import Challenger as JChallenger
 from tpu_stark.challenger.challenger import HashChallenger as JHash
 from tpu_stark.challenger.grind import device_grind as j_device_grind
+from tpu_stark_torch import kernels
 from tpu_stark_torch.challenger import grind
 from tpu_stark_torch.challenger.challenger import GRIND_DEVICE_MIN_BITS, Challenger, HashChallenger
 from tpu_stark_torch.fields import babybear as bb
@@ -170,3 +175,69 @@ def test_device_grind_binds_arguments_as_jax_does():
     assert grind.device_grind(data, 9, 1 << 12, None, device="cpu") == want
     with pytest.raises(TypeError):
         grind.device_grind(data, 9, 1 << 12, None, "cpu")
+
+
+# transcript lengths: the witness inside one lane (32, 130, 200), ending
+# block 0 (132, 268), across two lanes (37, 45) and across the tail's two
+# blocks (133, 134, 135)
+PLACEMENTS = [32, 37, 45, 130, 132, 133, 134, 135, 200, 268]
+
+
+@pytest.mark.parametrize("n_bytes", PLACEMENTS)
+def test_witness_lanes_place_the_bytes_as_the_byte_loop(n_bytes):
+    """The kernel's lanes (block, lane, shift) xor w into the tail exactly as
+    the plain version's byte loop places its 4 little-endian bytes."""
+    prefix, tail, w_off = grind._plan(_transcript(n_bytes))
+    blocks = len(tail) // grind.RATE_BYTES
+    parts = grind.witness_lanes(w_off)
+    assert parts[0][1] >= 0 and sum(lane >= 0 for _, lane, _ in parts) == 1 + (w_off % 8 > 4)
+    for w in (0x01020304, 0xFFFFFFFF, 0x80000001, 12345):
+        by_bytes = bytearray(tail)
+        for i in range(4):
+            by_bytes[w_off + i] ^= (w >> (8 * i)) & 0xFF
+        by_lanes = [int.from_bytes(tail[8 * j : 8 * j + 8], "little") for j in range(blocks * grind.RATE_LANES)]
+        for block, lane, shift in parts:
+            if lane >= 0:
+                v = (w << shift) if shift >= 0 else (w >> -shift)
+                by_lanes[block * grind.RATE_LANES + lane] ^= v & ((1 << 64) - 1)
+        assert b"".join(v.to_bytes(8, "little") for v in by_lanes) == bytes(by_bytes)
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return keccak_host.build(tmp_path_factory.mktemp("grind_host"))
+
+
+@pytest.fixture
+def emulated(host_lib, monkeypatch):
+    """``verdicts`` takes its kernel path on CPU tensors, through the host
+    library; the plain version refuses to run.  Returns it."""
+    plain = grind.verdicts_plain
+    monkeypatch.setattr(grind, "_on_card", lambda t: True)
+    monkeypatch.setattr(kernels, "lib", lambda: host_lib)
+    monkeypatch.setattr(kernels, "stream_handle", lambda device: None)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the plain verdicts ran on the kernel path")
+
+    monkeypatch.setattr(grind, "verdicts_plain", refuse)
+    kernels.reset_launch_counts()
+    return plain
+
+
+@pytest.mark.parametrize("n_bytes", PLACEMENTS)
+def test_host_grind_kernel_equals_plain(emulated, n_bytes):
+    """The kernel's verdicts (its constants staged once, w xored into its
+    lanes, the last round for lanes 0-3 only) against the plain ones."""
+    prefix, tail, w_off = grind._plan(_transcript(n_bytes))
+    pre, tl = grind._operands(prefix, tail, "cpu")
+    for start, count, bits in ((0, 1000, 1), (12345, 777, 3), ((1 << 32) - 300, 300, 5)):
+        got = grind.verdicts(start, count, pre, tl, w_off, bits)
+        assert torch.equal(got, emulated(start, count, pre, tl, w_off, bits))
+    assert kernels.KECCAK_GRIND.launches == 3
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_device_grind_through_the_kernel_matches_the_stored_jax_witness(emulated, case):
+    entry = json.loads(FIXTURE.read_text())["grind"][case]
+    assert grind.device_grind(bytes.fromhex(entry["transcript_hex"]), entry["bits"], device="cpu") == entry["witness"]

@@ -17,10 +17,12 @@ bytes are hashed per candidate.  A candidate whose 8 draws all reject
 ``needs_host``; ``device_grind`` re-checks it with ``host_check``.
 
 ``verdicts`` launches the grind kernel (``keccak_grind_kernel`` in
-``csrc/keccak_sponge.cu``, one thread per candidate over K1's Keccak-f) on
-a CUDA device; ``verdicts_plain`` is its plain torch version over
-``keccak_f_plain``, which the wrapper runs only for the CPU.  Neither has a
-Pallas counterpart: the JAX package runs this search as an XLA program.
+``csrc/keccak_sponge.cu``: a candidate a thread at a time, over K1's
+Keccak-f, the witness xored into the lanes ``witness_lanes`` names) on a
+CUDA device; ``verdicts_plain`` is its plain torch version over
+``keccak_f_plain``, which places the witness byte by byte and which the
+wrapper runs only for the CPU.  Neither has a Pallas counterpart: the JAX
+package runs this search as an XLA program.
 """
 
 from __future__ import annotations
@@ -59,6 +61,18 @@ def _plan(input_bytes: bytes) -> Tuple[List[int], bytes, int]:
             state[i] ^= int.from_bytes(padded[off + 8 * i : off + 8 * i + 8], "little")
         state = keccak_f(state)
     return state, bytes(padded[first_w_block * RATE_BYTES :]), len(input_bytes) - first_w_block * RATE_BYTES
+
+
+def witness_lanes(w_off: int) -> Tuple[Tuple[int, int, int], Tuple[int, int, int]]:
+    """Where the witness's 4 bytes go, from their offset in the tail (the
+    first lies in block 0): (block, lane, shift) of the two lanes they may
+    touch, each lane xored with the 64-bit w << shift (shift >= 0) or
+    w >> -shift; the second lane is -1 when w lies in one lane."""
+    lane, shift = divmod(w_off, 8)
+    first = (lane // RATE_LANES, lane % RATE_LANES, 8 * shift)
+    if 8 * shift <= 32:
+        return first, (0, -1, 0)
+    return first, ((lane + 1) // RATE_LANES, (lane + 1) % RATE_LANES, 8 * shift - 64)
 
 
 def _operands(prefix: List[int], tail: bytes, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,24 +115,32 @@ def verdicts_plain(start: int, count: int, prefix: torch.Tensor, tail: torch.Ten
     return passed.to(torch.uint8) * PASSED + (~taken).to(torch.uint8) * NEEDS_HOST
 
 
+def _on_card(prefix: torch.Tensor) -> bool:
+    """Whether ``verdicts`` given ``prefix`` launches the grind kernel (a
+    CUDA tensor) or runs its plain version (the CPU)."""
+    if prefix.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grind: unsupported device {prefix.device}")
+    return prefix.device.type == "cuda"
+
+
 def verdicts(start: int, count: int, prefix: torch.Tensor, tail: torch.Tensor,
              w_off: int, bits: int) -> torch.Tensor:
     """``verdicts_plain``'s flags: the grind kernel on a CUDA device, the
     plain version on the CPU."""
-    if prefix.device.type == "cpu":
+    if not _on_card(prefix):
         return verdicts_plain(start, count, prefix, tail, w_off, bits)
-    if prefix.device.type != "cuda":
-        raise ValueError(f"grind: unsupported device {prefix.device}")
     if not (0 <= start and start + count <= 1 << 32 and 0 < bits < 32):
         raise ValueError("grind: witnesses are u32 and bits in 1..31")
+    if not (1 <= int(tail.shape[0]) <= 2 and 0 <= w_off < RATE_BYTES):
+        raise ValueError("grind: the witness starts in the first of at most two tail blocks")
     prefix, tail = prefix.contiguous(), tail.contiguous()
     out = torch.empty(count, dtype=torch.uint8, device=prefix.device)
     so = kernels.lib()
     kernels.KECCAK_GRIND.launches += 1
     kernels.check(
         so.ts_keccak_grind(
-            prefix.data_ptr(), tail.data_ptr(), int(tail.shape[0]), w_off, bits, start, count,
-            out.data_ptr(), kernels.stream_handle(prefix.device),
+            prefix.data_ptr(), tail.data_ptr(), int(tail.shape[0]), *(v for part in witness_lanes(w_off) for v in part),
+            bits, start, count, out.data_ptr(), kernels.stream_handle(prefix.device),
         ),
         "keccak grind",
     )

@@ -24,18 +24,24 @@ only the tests pass, are concatenated first).  ``compress_levels`` builds a tree
 launches of the tree kernel (``tree_plan``): a block compresses a subtree
 through shared memory and writes every level to its layer.
 
-``absorb_rows(state, mat, first, pend)`` continues the sponge of each row
-over more of its words: the pending words ``pend`` (N, p), p < 34, then
-``mat`` (N, k), p + k a multiple of 34 (whole rate blocks), into a carried
-(50, N) int32 state, lane-major (word 2l + h of lane l at row 2l + h: lo,
-then hi), updated in place; ``first`` starts from the zero state.
-``finalize_rows(state, pend)`` absorbs the last partial block (p < 34
-words, an odd one with a zero high half), permutes when p > 0, and returns
-the (N, 4, 2) digests, the state untouched.  Together they give
-``hash_rows`` of the whole rows.  Kernel ``keccak_absorb_kernel`` (same
-file); it replaces the JAX package's XLA absorb
+``absorb_rows(state, mat, first, pend, monty, natural)`` continues the
+sponge of each row over more of its words: the pending words ``pend`` (N,
+p), p < 34, canonical, then ``mat`` (N, k): Montgomery forms with
+``monty``, and with ``natural`` (which needs ``monty``) a codeword chunk in
+natural row order as K2 leaves it (the tree's row r is its row bitrev(r)).  It absorbs the whole
+rate blocks into a carried (50, N) int32 state, lane-major (word 2l + h of
+lane l at row 2l + h: lo, then hi), updated in place (``first`` starts from
+the zero state), and returns the words after them, canonical and in the
+tree's order: the next call's pending words.  ``finalize_rows(state, pend,
+first, mat, monty, natural)`` absorbs the rest, the last partial block
+included (an odd word gets a zero high half), and returns the (N, 4, 2)
+digests, the state untouched.  Together they give ``hash_rows`` of the
+whole canonical rows in the tree's order.  Kernel
+``keccak_absorb_kernel<FIN, REV, MONTY>`` (same file): one launch reads the
+chunk as it lies (no bit-reversed copy, no int64 conversion) and writes the
+pending words word-major; it replaces the JAX package's XLA absorb
 ``tpu_stark/hash/sponge.py::_absorb_full_blocks``, which has no Pallas
-kernel, so that the streamed commit hashes on the card.
+kernel, and the canonical bit-reversed copy the JAX commit feeds it.
 
 ``hash_rows_plain``, ``compress_levels_plain``, ``absorb_rows_plain`` and
 ``finalize_rows_plain`` are the plain torch versions: int64 lanes,
@@ -51,6 +57,8 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..fields import babybear as bb
+from ..matrix import reverse_matrix_index_bits
 from .keccak import ROT, ROUND_CONSTANTS
 
 RATE = 17
@@ -172,101 +180,150 @@ def _state_lanes(state: torch.Tensor) -> torch.Tensor:
     return ((s[1::2] << 32) | (s[0::2] & 0xFFFFFFFF)).t().contiguous()
 
 
-def absorb_rows_plain(state: torch.Tensor, mat: torch.Tensor, first: bool = False,
-                      pend: Optional[torch.Tensor] = None) -> torch.Tensor:
-    rows = mat if pend is None else torch.cat([pend, mat], dim=1)
-    if rows.shape[1] % BLOCK_WORDS:
-        raise ValueError(f"keccak absorb: {rows.shape[1]} words are not whole rate blocks")
-    st = torch.zeros((rows.shape[0], WIDTH), dtype=torch.int64, device=rows.device) if first else _state_lanes(state)
-    items = _items(rows)
+def _row_words(pend: Optional[torch.Tensor], mat: Optional[torch.Tensor], monty: bool,
+               natural: bool) -> Optional[torch.Tensor]:
+    """Each row's words as the absorb reads them: pend's, then mat's in the
+    tree's row order (``natural``: a bit-reversed copy) and canonical form
+    (``monty``: ``to_u32``)."""
+    if mat is not None:
+        if natural:
+            mat = reverse_matrix_index_bits(mat)
+        if monty:
+            mat = bb.to_u32(mat)
+    parts = [t for t in (pend, mat) if t is not None]
+    return torch.cat(parts, dim=1) if len(parts) > 1 else (parts[0] if parts else None)
+
+
+def _absorb_blocks_plain(st: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(N, 25) int64 lanes after absorbing the whole rate blocks of ``rows``."""
+    items = _items(rows[:, : rows.shape[1] // BLOCK_WORDS * BLOCK_WORDS])
     for off in range(0, items.shape[1], RATE):
         st[:, :RATE] = items[:, off : off + RATE]
         st = keccak_f_plain(st)
-    lo = ((st & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
-    state[0::2] = lo.t().to(torch.int32)
-    state[1::2] = (st >> 32).t().to(torch.int32)
-    return state
+    return st
 
 
-def finalize_rows_plain(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False) -> torch.Tensor:
+def absorb_rows_plain(state: torch.Tensor, mat: torch.Tensor, first: bool = False,
+                      pend: Optional[torch.Tensor] = None, monty: bool = False,
+                      natural: bool = False) -> Optional[torch.Tensor]:
+    rows = _row_words(pend, mat, monty, natural)
+    take = rows.shape[1] // BLOCK_WORDS * BLOCK_WORDS
+    if take:
+        st = torch.zeros((rows.shape[0], WIDTH), dtype=torch.int64, device=rows.device) if first else _state_lanes(state)
+        st = _absorb_blocks_plain(st, rows)
+        lo = ((st & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+        state[0::2] = lo.t().to(torch.int32)
+        state[1::2] = (st >> 32).t().to(torch.int32)
+    return rows[:, take:].contiguous() if take < rows.shape[1] else None
+
+
+def finalize_rows_plain(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False,
+                        mat: Optional[torch.Tensor] = None, monty: bool = False, natural: bool = False) -> torch.Tensor:
     n = int(state.shape[1])
     st = torch.zeros((n, WIDTH), dtype=torch.int64, device=state.device) if first else _state_lanes(state)
-    if pend is not None and pend.shape[1]:
-        items = _items(pend)
-        st[:, : items.shape[1]] = items
-        st = keccak_f_plain(st)
+    rows = _row_words(pend, mat, monty, natural)
+    if rows is not None and rows.shape[1]:
+        st = _absorb_blocks_plain(st, rows)
+        rest = rows[:, rows.shape[1] // BLOCK_WORDS * BLOCK_WORDS :]
+        if rest.shape[1]:
+            items = _items(rest)
+            st[:, : items.shape[1]] = items
+            st = keccak_f_plain(st)
     return _digest_words(st)
 
 
-def _absorb_operands(state, mat, pend):
-    """Check the absorb's operands on the card; returns (mat, pend) with
-    contiguous columns (rows may stride)."""
-    if state.device.type != "cuda":
+def _check_absorb(state: torch.Tensor, mat: Optional[torch.Tensor], pend: Optional[torch.Tensor],
+                  monty: bool, natural: bool) -> Tuple[int, int]:
+    """(p, k): the pending and new words a row."""
+    if state.dim() != 2 or state.shape[0] != 2 * WIDTH:
+        raise ValueError(f"keccak absorb: a state of shape {tuple(state.shape)}, not (50, N)")
+    n = int(state.shape[1])
+    p = 0 if pend is None else int(pend.shape[1])
+    k = 0 if mat is None else int(mat.shape[1])
+    if p >= BLOCK_WORDS:
+        raise ValueError(f"keccak absorb: {p} pending words are more than a partial block")
+    if natural and (n & (n - 1) or mat is None):
+        raise ValueError(f"keccak absorb: a natural-order chunk of {n} rows, not a power of two")
+    if natural and not monty:
+        raise ValueError("keccak absorb: a natural-order chunk is a codeword of Montgomery forms (monty)")
+    return p, k
+
+
+def _on_card(state: torch.Tensor) -> bool:
+    """Whether the absorb given ``state`` launches its kernel (a CUDA
+    tensor) or runs its plain version (the CPU)."""
+    if state.device.type not in ("cpu", "cuda"):
         raise ValueError(f"keccak absorb: unsupported device {state.device}")
+    return state.device.type == "cuda"
+
+
+def _absorb_operands(state, mat, pend):
+    """Check the absorb's operands for its kernel; returns (mat, pend), mat
+    with contiguous columns (pend's rows and columns may both stride)."""
     if state.dtype != torch.int32 or not state.is_contiguous():
         raise ValueError("keccak absorb: the state must be a contiguous int32 tensor (updated in place)")
     n = int(state.shape[1])
-    out = []
     for name, t in (("mat", mat), ("pend", pend)):
-        if t is not None:
-            if t.device != state.device or t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != n:
-                raise ValueError(f"keccak absorb: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
-                                 f"against a state of {n} rows")
-            if t.shape[1] > 1 and t.stride(1) != 1:
-                t = t.contiguous()
-        out.append(t)
-    return out
+        if t is not None and (t.device != state.device or t.dtype != torch.int32 or t.dim() != 2
+                              or t.shape[0] != n):
+            raise ValueError(f"keccak absorb: {name} {tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"against a state of {n} rows")
+    if mat is not None and mat.shape[1] > 1 and mat.stride(1) != 1:
+        mat = mat.contiguous()
+    return mat, pend
 
 
-def _absorb_launch(state, mat, pend, first, out) -> None:
-    p, k = (0 if t is None else int(t.shape[1]) for t in (pend, mat))
-    if int(state.shape[1]) == 0:
+def _absorb_launch(state, mat, pend, first, monty, natural, fin, out) -> None:
+    n = int(state.shape[1])
+    if n == 0:
         return
+    p, k = (0 if t is None or t.shape[1] == 0 else int(t.shape[1]) for t in (pend, mat))
     kernels.KECCAK_ABSORB.launches += 1
     kernels.check(
         kernels.lib().ts_keccak_absorb(
-            state.data_ptr(), int(state.shape[1]),
-            None if pend is None else pend.data_ptr(), p, 0 if pend is None else pend.stride(0),
-            None if mat is None else mat.data_ptr(), k, 0 if mat is None else mat.stride(0),
-            int(bool(first)), None if out is None else out.data_ptr(), kernels.stream_handle(state.device),
+            state.data_ptr(), n, n.bit_length() - 1,
+            pend.data_ptr() if p else None, p, pend.stride(0) if p else 0, pend.stride(1) if p else 0,
+            mat.data_ptr() if k else None, k, mat.stride(0) if k else 0,
+            int(bool(first)), int(bool(natural)), int(bool(monty)), int(fin),
+            None if out is None else out.data_ptr(), kernels.stream_handle(state.device),
         ),
         "keccak absorb",
     )
 
 
-def _check_state(state: torch.Tensor) -> None:
-    if state.dim() != 2 or state.shape[0] != 2 * WIDTH:
-        raise ValueError(f"keccak absorb: a state of shape {tuple(state.shape)}, not (50, N)")
-
-
 def absorb_rows(state: torch.Tensor, mat: torch.Tensor, first: bool = False,
-                pend: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Absorb pend's then mat's words (whole rate blocks) into the (50, N)
-    state, in place; returns ``state``."""
-    _check_state(state)
-    p = 0 if pend is None else int(pend.shape[1])
-    if p >= BLOCK_WORDS or (p + int(mat.shape[1])) % BLOCK_WORDS:
-        raise ValueError(f"keccak absorb: {p} pending and {int(mat.shape[1])} new words are not whole rate blocks")
-    if state.device.type == "cpu":
-        return absorb_rows_plain(state, mat, first, pend)
+                pend: Optional[torch.Tensor] = None, monty: bool = False,
+                natural: bool = False) -> Optional[torch.Tensor]:
+    """Absorb the whole rate blocks of each row's words into the (50, N)
+    state, in place (only when there is one): pend's p < 34 canonical
+    words, then mat's k words, Montgomery forms with ``monty``, and with
+    ``natural`` (which needs ``monty``) a codeword chunk in natural row order
+    (the tree's row r is its row bitrev(r)).  Returns the words after the last whole block, canonical and
+    in the tree's order, (N, (p + k) % 34), or None when there are none.
+    On the card one launch reads mat as it lies and writes those words."""
+    p, k = _check_absorb(state, mat, pend, monty, natural)
+    if not _on_card(state):
+        return absorb_rows_plain(state, mat, first, pend, monty, natural)
     mat, pend = _absorb_operands(state, mat, pend)
-    _absorb_launch(state, mat, pend, first, None)
-    return state
+    rest = (p + k) % BLOCK_WORDS
+    out = torch.empty((rest, int(state.shape[1])), dtype=torch.int32, device=state.device) if rest else None
+    _absorb_launch(state, mat, pend, first, monty, natural, False, out)
+    return None if out is None else out.t()  # word-major: a warp's stores and the next launch's loads coalesce
 
 
-def finalize_rows(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False) -> torch.Tensor:
-    """(N, 4, 2) digests of the rows whose last p < 34 words are ``pend``."""
-    _check_state(state)
-    p = 0 if pend is None else int(pend.shape[1])
-    if p >= BLOCK_WORDS:
-        raise ValueError(f"keccak absorb: {p} pending words are more than a partial block")
-    if first and p == 0:
+def finalize_rows(state: torch.Tensor, pend: Optional[torch.Tensor], first: bool = False,
+                  mat: Optional[torch.Tensor] = None, monty: bool = False, natural: bool = False) -> torch.Tensor:
+    """(N, 4, 2) digests of the rows whose remaining words are pend's then
+    mat's (as for ``absorb_rows``), the last partial block included; the
+    state is left as it is."""
+    p, k = _check_absorb(state, mat, pend, monty, natural)
+    if first and p + k == 0:
         raise ValueError("empty sponge input")
-    if state.device.type == "cpu":
-        return finalize_rows_plain(state, pend, first)
-    _, pend = _absorb_operands(state, None, pend)
+    if not _on_card(state):
+        return finalize_rows_plain(state, pend, first, mat, monty, natural)
+    mat, pend = _absorb_operands(state, mat, pend)
     out = torch.empty((int(state.shape[1]), OUT, 2), dtype=torch.int32, device=state.device)
-    _absorb_launch(state, None, pend, first, out)
+    _absorb_launch(state, mat, pend, first, monty, natural, True, out)
     return out
 
 

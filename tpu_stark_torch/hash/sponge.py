@@ -76,34 +76,50 @@ def compress_digests_batched(left: torch.Tensor, right: torch.Tensor) -> torch.T
 
 class KeccakRowStream:
     """SerializingHasher(PaddingFreeSponge) over the rows of an (N, k)
-    canonical-u32 matrix that arrives in column chunks (counterpart of
-    ``tpu_stark/hash/sponge.py::KeccakRowStream``).  Whole 34-word rate
-    blocks go to ``keccak_kernel.absorb_rows`` as they complete, and fewer
-    than 34 trailing words (a block, or a u32 pair, that straddles a chunk
-    boundary) wait as pending columns, read beside the next chunk without a
-    concatenated copy of it; ``finalize`` absorbs the last partial block.
-    The digests equal ``hash_field_rows_batched`` of the whole rows."""
+    matrix that arrives in column chunks (counterpart of
+    ``tpu_stark/hash/sponge.py::KeccakRowStream``).  Each chunk goes to one
+    launch of ``keccak_kernel.absorb_rows``, which absorbs the whole 34-word
+    rate blocks of the pending words and the chunk and writes the words
+    after them (fewer than 34: a block, or a u32 pair, that straddles a
+    chunk boundary) as the next pending words, canonical and in the tree's
+    order.  A chunk that completes no block waits, unread, for the next
+    launch; ``finalize`` absorbs the last partial block.  The digests equal
+    ``hash_field_rows_batched`` of the whole canonical rows in the tree's
+    order."""
 
     def __init__(self, n_rows: int, device):
         # lane-major (50, N) int32 (keccak_kernel's state layout)
         self._state = torch.zeros((2 * WIDTH, n_rows), dtype=torch.int32, device=device)
         self._first = True
-        self._pend: Optional[torch.Tensor] = None  # (N, < 34) words
+        self._pend: Optional[torch.Tensor] = None  # (N, < 34) canonical words
+        self._tail: Optional[Tuple[torch.Tensor, bool, bool]] = None  # a chunk that completes no block
 
     def absorb_cols(self, mat_u32: torch.Tensor) -> None:
+        """Canonical u32 columns, rows in the tree's order (JAX's meaning)."""
+        self._absorb(mat_u32, False, False)
+
+    def absorb_monty(self, mat: torch.Tensor, natural: bool) -> None:
+        """Columns of Montgomery forms: a codeword chunk as K2 leaves it
+        (``natural``: the tree's row r is its row bitrev(r)) or rows already
+        in the tree's order (a rank block, the salts).  The kernel converts
+        and reorders them as it reads them: no copy."""
+        self._absorb(mat, True, natural)
+
+    def _absorb(self, mat: torch.Tensor, monty: bool, natural: bool) -> None:
+        if self._tail is not None:  # two chunks in a row complete no block: the first joins the pending words
+            self._pend = keccak_kernel.absorb_rows(self._state, self._tail[0], self._first, self._pend,
+                                                   *self._tail[1:])
+            self._tail = None
         p = 0 if self._pend is None else int(self._pend.shape[1])
-        k = int(mat_u32.shape[1])
-        blocks = (p + k) // keccak_kernel.BLOCK_WORDS
-        take = blocks * keccak_kernel.BLOCK_WORDS - p
-        if blocks == 0:  # no block completes: the words wait
-            self._pend = mat_u32 if self._pend is None else torch.cat([self._pend, mat_u32], dim=1)
+        if p + int(mat.shape[1]) < keccak_kernel.BLOCK_WORDS:
+            self._tail = (mat, monty, natural)
             return
-        keccak_kernel.absorb_rows(self._state, mat_u32[:, :take], first=self._first, pend=self._pend)
+        self._pend = keccak_kernel.absorb_rows(self._state, mat, self._first, self._pend, monty, natural)
         self._first = False
-        self._pend = mat_u32[:, take:].contiguous() if take < k else None
 
     def finalize(self) -> torch.Tensor:
         """(N, 4, 2) digests."""
-        out = keccak_kernel.finalize_rows(self._state, self._pend, first=self._first)
-        self._pend = None
+        mat, monty, natural = self._tail or (None, False, False)
+        out = keccak_kernel.finalize_rows(self._state, self._pend, self._first, mat, monty, natural)
+        self._pend = self._tail = None
         return out

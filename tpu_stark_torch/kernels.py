@@ -250,7 +250,7 @@ def lib() -> ctypes.CDLL:
             so.ts_keccak_rows.restype = i32
             so.ts_keccak_tree.argtypes = [vp, i64, i32, i32, vp, vp]
             so.ts_keccak_tree.restype = i32
-            so.ts_keccak_absorb.argtypes = [vp, i64, vp, i64, i64, vp, i64, i64, i32, vp, vp]
+            so.ts_keccak_absorb.argtypes = [vp, i64, i32, vp, i64, i64, i64, vp, i64, i64, i32, i32, i32, i32, vp, vp]
             so.ts_keccak_absorb.restype = i32
             so.ts_ntt_pass.argtypes = [vp, vp, i64, i32, i32, i32, i32, i32, i32, i32, vp, vp]
             so.ts_ntt_pass.restype = i32
@@ -260,7 +260,7 @@ def lib() -> ctypes.CDLL:
             so.ts_poseidon2_absorb.restype = i32
             so.ts_mxu_mm.argtypes = [vp, vp, vp, vp, i32, i64, i64, vp]
             so.ts_mxu_mm.restype = i32
-            so.ts_keccak_grind.argtypes = [vp, vp, i32, i32, i32, ctypes.c_uint64, i64, vp, vp]
+            so.ts_keccak_grind.argtypes = [vp, vp] + [i32] * 8 + [ctypes.c_uint64, i64, vp, vp]
             so.ts_keccak_grind.restype = i32
             u32 = ctypes.c_uint32
             so.ts_threefry_monty.argtypes = [u32, u32, u32, u32, i64, vp, i64, i64, vp, i64, vp, vp]

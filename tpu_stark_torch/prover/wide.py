@@ -10,10 +10,12 @@ products several times that.  Here:
 * the trace stays on the device as its compact integer type (uint8 bits:
   3.78 GB at 2^20 x 3608);
 * the committed LDE is never materialized: column chunks go through
-  iNTT -> plain-frame scale -> zero-pad -> NTT -> bit-reversal (kernel K2)
-  and into a carried-state sponge absorb that holds one state per LDE row
-  across chunks: Poseidon2 (kernel K4, ``P2RowStream``) or Keccak (K1's
-  absorb, ``hash.sponge.KeccakRowStream``); a hiding commit absorbs the
+  iNTT -> plain-frame scale -> zero-pad -> NTT (kernel K2) and into a
+  carried-state sponge absorb that holds one state per LDE row across
+  chunks: Poseidon2 (kernel K4, ``P2RowStream``, on a bit-reversed copy)
+  or Keccak (K1's absorb, ``hash.sponge.KeccakRowStream``, which reads the
+  natural-order Monty chunk through the bit reversal and converts each
+  word to its canonical u32 as it reads it); a hiding commit absorbs the
   salts after the rows and keeps their lazy draw.  The Merkle tree is then
   built on the leaf digests, with the same root as the dense commit;
 * zk: the committed polynomial is T'(x) = T(x) + Z_H(x) R(x) of degree
@@ -211,8 +213,9 @@ class WideMatrixSource:
 
     def _open_chunk(self, off: int, wc: int) -> Tuple[torch.Tensor, bool]:
         """The columns [off, off + wc) of the codeword as the reduced
-        opening reads them, and whether in natural row order (K9 reads
-        through the bit reversal: no reversed copy)."""
+        opening and the Keccak commit read them, and whether in natural row
+        order (K9 and K1's absorb read through the bit reversal: no
+        reversed copy)."""
         return self.lde_chunk(off, wc), True
 
     # -- PCS hooks -------------------------------------------------------------
@@ -420,15 +423,16 @@ def commit_wide(pcs, domain: TwoAdicCoset, source: WideMatrixSource) -> Tuple[tu
     if mmcs.hiding:
         salt_mat, salt_store = draw_rows(inner._rng, source.lde_h, inner.SALT_ELEMS, source.row0, source.block_h,
                                          source.device)
-    if isinstance(inner, Poseidon2Mmcs):  # rows hash as their Monty values
-        stream, feed = P2RowStream(source.block_h, source.device), (lambda m: m)
-    else:  # Keccak: rows hash in canonical u32 form
-        stream, feed = KeccakRowStream(source.block_h, source.device), bb.to_u32
+    keccak = not isinstance(inner, Poseidon2Mmcs)
+    stream = (KeccakRowStream if keccak else P2RowStream)(source.block_h, source.device)
     for off, wc in source.chunks():
-        stream.absorb_cols(feed(source.lde_br_chunk(off, wc)))
+        if keccak:  # K1 reads the codeword as K2 leaves it, hashing canonical u32 words in the tree's order
+            stream.absorb_monty(*source._open_chunk(off, wc))
+        else:  # rows hash as their Monty values
+            stream.absorb_cols(source.lde_br_chunk(off, wc))
         _sync(source.device)
-    if salt_mat is not None:
-        stream.absorb_cols(feed(salt_mat))
+    if salt_mat is not None:  # in the tree's order
+        stream.absorb_monty(salt_mat, False) if keccak else stream.absorb_cols(salt_mat)
     del salt_mat
     if source.mesh is not None:
         root, data = mmcs.commit_digest_blocks(source, stream.finalize(), source.lde_h, salt_store)
